@@ -1,0 +1,264 @@
+"""Flash attention with CUDA forward and fused backward kernels.
+
+Port of ``pytorch_operator_tpu/ops/flash_attention.py``.  One
+``torch.autograd.Function`` carries both public entries:
+
+  flash_attention(q, k, v, causal)       (B, T, H, D), GQA, any T >= 1
+  flash_with_lse(q, k, v, scale, causal) (BH, T, D) -> (out, lse), both
+                                         outputs take gradients
+
+For CUDA tensors the forward launches ``csrc/flash_fwd.cu`` (counterpart
+of the TPU kernel ``_fwd_kernel``) and the backward ``csrc/flash_bwd.cu``
+(counterpart of ``_bwd_fused_kernel``).  As in the JAX module, two pieces
+of the backward stay outside the kernel, in plain torch:
+
+  delta = rowsum(dO * O) - g_lse   (the lse cotangent only shifts delta:
+                                    ds = p * (dp - delta) picks up
+                                    + p * g_lse, since d lse_i / d s_ij
+                                    = p_ij)
+  _reduce_kv_partials              per-q-head dk / dv summed over each
+                                   GQA group
+
+CPU tensors take the plain versions: ``_flash_fwd_reference`` and
+``_flash_bwd_reference`` beside the kernels, and ``_dense_reference`` /
+``_dense_path`` as in the JAX module.
+
+The TPU-tuned dispatch is not carried over: ``_auto_block``, the
+short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``) and the
+fused-backward VMEM gate (``_FUSED_DQ_VMEM_BYTES``).  On CUDA every call,
+forward-only or not, goes through the kernels, which tile T by 64 and
+mask the tail themselves.  The kernels take bf16 with D in {64, 128};
+anything else on a CUDA tensor raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pytorch_operator_tpu_torch import kernels
+
+NEG_INF = -1e30
+KERNEL_HEAD_DIMS = (64, 128)
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+FWD_KERNEL = kernels.CudaKernel(
+    "flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _P])
+BWD_KERNEL = kernels.CudaKernel(
+    "flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _I, _P])
+
+
+# --------------------------------------------------------------------------
+# plain versions
+# --------------------------------------------------------------------------
+
+
+def _dense_reference(q, k, v, scale, causal):
+    """Dense attention over (BH, T, D), as the JAX module's."""
+    s = torch.einsum("bqd,bkd->bqk", q, k).float() * scale
+    if causal:
+        s = torch.where(_causal_mask(q.shape[1], q.device), s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p.to(v.dtype), v)
+
+
+def _dense_path(q, k, v, scale, causal):
+    """Dense attention on (B, T, H, D) tensors with the GQA repeat."""
+    B, T, H, D = q.shape
+    Hk = k.shape[2]
+    if Hk != H:
+        k = k.repeat_interleave(H // Hk, dim=2)
+        v = v.repeat_interleave(H // Hk, dim=2)
+
+    def bh(x):
+        return x.transpose(1, 2).reshape(B * H, T, D)
+
+    out = _dense_reference(bh(q), bh(k), bh(v), scale, causal)
+    return out.reshape(B, H, T, D).transpose(1, 2)
+
+
+def _heads_first(x, bh):
+    """(B, T, Hx, D) or (B*Hx, T, D) -> a (B, Hx, T, D) view."""
+    return x.unsqueeze(0) if bh else x.transpose(1, 2)
+
+
+def _from_heads_first(x, bh):
+    return x.squeeze(0) if bh else x.transpose(1, 2)
+
+
+def _causal_mask(T, device):
+    return torch.ones(T, T, dtype=torch.bool, device=device).tril()
+
+
+def _flash_fwd_reference(q, k, v, scale, causal, bh):
+    """Plain version of the forward kernel: (out, lse (B*H, 1, T) f32)."""
+    q4, k4, v4 = (_heads_first(x, bh) for x in (q, k, v))
+    B, H, T, _ = q4.shape
+    group = H // k4.shape[1]
+    k4 = k4.repeat_interleave(group, dim=1)
+    v4 = v4.repeat_interleave(group, dim=1)
+    s = (q4 @ k4.transpose(-1, -2)).float() * scale
+    if causal:
+        s = s.masked_fill(~_causal_mask(T, s.device), NEG_INF)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    out = (p.to(v4.dtype) @ v4).contiguous()
+    return (_from_heads_first(out, bh).contiguous(),
+            lse.reshape(B * H, 1, T))
+
+
+def _flash_bwd_reference(q, k, v, g, lse, delta, scale, causal, bh):
+    """Plain version of the backward kernel, in f32.
+
+    lse and delta are (B*H, T) f32.  Returns dq and the per-q-head dk /
+    dv partials, all f32 in q's layout."""
+    q4, k4, v4, g4 = (_heads_first(x, bh).float() for x in (q, k, v, g))
+    B, H, T, _ = q4.shape
+    group = H // k4.shape[1]
+    k4 = k4.repeat_interleave(group, dim=1)
+    v4 = v4.repeat_interleave(group, dim=1)
+    lse = lse.reshape(B, H, T, 1)
+    delta = delta.reshape(B, H, T, 1)
+    p = torch.exp((q4 @ k4.transpose(-1, -2)) * scale - lse)
+    if causal:
+        p = p.masked_fill(~_causal_mask(T, p.device), 0.0)
+    dp = g4 @ v4.transpose(-1, -2)
+    ds = p * (dp - delta) * scale
+    out = (ds @ k4, ds.transpose(-1, -2) @ q4, p.transpose(-1, -2) @ g4)
+    return tuple(_from_heads_first(x, bh).contiguous() for x in out)
+
+
+# --------------------------------------------------------------------------
+# kernels
+# --------------------------------------------------------------------------
+
+
+def _dims(q, k, bh):
+    """(B, H, Hk, T, D) of a call in either layout."""
+    if bh:
+        BH, T, D = q.shape
+        return 1, BH, k.shape[0], T, D
+    B, T, H, D = q.shape
+    return B, H, k.shape[2], T, D
+
+
+def _check_cuda(tensors, D):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device != dev:
+            raise ValueError("flash attention inputs must share one device")
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash attention kernels take bfloat16, got "
+                            f"{t.dtype}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"flash attention kernels take head dim "
+                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    if dev.type != "cuda":
+        raise ValueError(f"flash attention kernels take CUDA tensors, got "
+                         f"{dev}")
+
+
+def _flash_fwd_cuda(q, k, v, scale, causal, bh):
+    B, H, Hk, T, D = _dims(q, k, bh)
+    _check_cuda((q, k, v), D)
+    if B * H > 65535:
+        raise ValueError(f"batch * heads = {B * H} exceeds the grid limit")
+    out = torch.empty_like(q)
+    lse = torch.empty(B * H, 1, T, dtype=torch.float32, device=q.device)
+    FWD_KERNEL(*(kernels.ptr(t) for t in (q, k, v, out, lse)),
+               B, H, Hk, T, D, int(bh), float(scale), int(causal),
+               kernels.stream(q.device))
+    return out, lse
+
+
+def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh):
+    B, H, Hk, T, D = _dims(q, k, bh)
+    _check_cuda((q, k, v, g), D)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    BWD_KERNEL(*(kernels.ptr(t) for t in (q, k, v, g, lse, delta, dq, dkp,
+                                          dvp)),
+               B, H, Hk, T, D, int(bh), float(scale), int(causal),
+               kernels.stream(q.device))
+    return dq, dkp, dvp
+
+
+def _reduce_kv_partials(partials, group, out_dtype, bh):
+    """Per-q-head dk / dv partials (f32, q's layout) -> per-kv-head grads.
+
+    Consecutive q heads of a group share a kv head, so the reduction is a
+    contiguous reshape-sum, as in the JAX module."""
+    if group > 1:
+        if bh:
+            BH, T, D = partials.shape
+            partials = partials.view(BH // group, group, T, D).sum(1)
+        else:
+            B, T, H, D = partials.shape
+            partials = partials.view(B, T, H // group, group, D).sum(3)
+    return partials.to(out_dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """(out, lse) of flash attention; ``bh`` selects the (BH, T, D) layout
+    (else (B, T, H, D))."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, causal, bh):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = kernels.dispatch(q, _flash_fwd_cuda, _flash_fwd_reference,
+                                    q, k, v, scale, causal, bh)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.causal, ctx.bh = scale, causal, bh
+        ctx.set_materialize_grads(False)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, g, g_lse):
+        q, k, v, out, lse = ctx.saved_tensors
+        bh = ctx.bh
+        B, H, Hk, T, _ = _dims(q, k, bh)
+        g = torch.zeros_like(out) if g is None else g.contiguous()
+        # delta = rowsum(dO * O) - g_lse, (B*H, T) f32
+        delta = (g.float() * out.float()).sum(-1)
+        if not bh:
+            delta = delta.transpose(1, 2).reshape(B * H, T)
+        if g_lse is not None:
+            delta = delta - g_lse.reshape(B * H, T).float()
+        delta = delta.contiguous()
+        lse2 = lse.reshape(B * H, T)
+        dq, dkp, dvp = kernels.dispatch(
+            q, _flash_bwd_cuda, _flash_bwd_reference, q, k, v, g, lse2, delta,
+            ctx.scale, ctx.causal, bh)
+        group = H // Hk
+        return (dq.to(q.dtype), _reduce_kv_partials(dkp, group, k.dtype, bh),
+                _reduce_kv_partials(dvp, group, v.dtype, bh), None, None,
+                None)
+
+
+def flash_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   scale: float, causal: bool
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable (out, lse) over (BH, T, D) inputs; k / v may carry
+    BH / group rows (GQA, row b reads kv row b // group).  lse is
+    (BH, 1, T) f32."""
+    if q.dim() != 3 or k.shape != v.shape or q.shape[0] % k.shape[0]:
+        raise ValueError(f"q (BH, T, D) and k / v (BH/group, T, D) "
+                         f"expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return _Flash.apply(q, k, v, scale, causal, True)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention over (B, T, H, D) queries, any T >= 1.
+
+    GQA-native: k / v may carry H_kv heads with H % H_kv == 0; q head h
+    reads kv head h // (H / H_kv), and dk / dv come back at H_kv heads."""
+    H, Hk = q.shape[2], k.shape[2]
+    if v.shape[2] != Hk or H % Hk:
+        raise ValueError(
+            f"kv heads must divide q heads: q has {H}, k/v have "
+            f"{k.shape[2]}/{v.shape[2]}")
+    return _Flash.apply(q, k, v, q.shape[-1] ** -0.5, causal, False)[0]
