@@ -9,12 +9,20 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             nvcc build of every kernel from pytorch_operator_tpu_torch/
             csrc (timed, with ptxas' register and spill counts);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
-            card, at the main path's shapes (plus GQA, a ragged T,
-            non-causal, D=64 and the (BH, T, D) flash_with_lse layout);
+            card: the fused backward's route at the main path's shapes
+            (plus GQA, a ragged T, non-causal, D=64/16, f32 and the
+            (BH, T, D) flash_with_lse layout), the two-kernel route (dq,
+            then dk/dv) at T4096 and on the same variety with the route
+            forced; at the long path's full shape B1, B3 and B4 against
+            their plain versions on two of the heads, the two-kernel
+            route against the fused kernel, and dq bitwise equal over
+            two runs;
 3. timing   each kernel, its plain version and the one PyTorch library
             call that computes the same function (a yardstick only: the
             port never calls it): device time per call from
-            torch.profiler, and CUDA events around repeated calls;
+            torch.profiler (a profile that lost a record is taken
+            again), with CUDA events around repeated calls beside it;
+            the backward kernels also at T8192 and T16384;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -22,7 +30,14 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             tokens/s, MFU and peak memory, then one profiled step's
             device time by kernel;
 5. model    the tiny model in bf16 with the kernels on against the same
-            weights with them off: logits and the loss after one step.
+            weights with them off: logits and the loss after one step;
+6. long     the flagship at B1 x T16384 with remat_policy save_attn+qkv
+            and the tied head applied per 1024 tokens, as step 4 measures
+            it: the backward takes the two-kernel route; then two steps
+            of train_llama at that shape with --remat-policy auto;
+7. tiers    the tiny model in bf16 through the kernels at every ported
+            remat tier: grads against no remat and the flash forward's
+            launches per step (L under save_attn*, 2L under full remat).
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -30,11 +45,14 @@ JSON line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import itertools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -49,6 +67,12 @@ PEAK_BYTES = 3.35e12
 
 MAIN = dict(B=2, T=2048, H=16, D=128)
 STEPS = 6
+# the long path: the JAX package's long-sequence configuration
+# (scripts/bench_detail.py, T16384 row)
+LONG = dict(B=1, T=16384, H=16, D=128)
+LONG_STEPS = 5
+LONG_POLICY = "save_attn+qkv"
+PLAIN_T = 4096  # the plain backward versions' f32 (T, T) buffers fit here
 
 
 class SmokeFailure(Exception):
@@ -84,18 +108,43 @@ def device_events(prof) -> list:
             if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
 
 
-def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5) -> dict:
+def _lost_records(prof, events, iters: int) -> dict:
+    """For a profile that lacks records: each call's host start and the
+    device records of each kernel whose count is not a multiple of
+    ``iters``, as [start, duration] in ms from the first call's start, so
+    the output shows which call's record is missing."""
+    calls = sorted(e.time_range.start for e in prof.events()
+                   if e.name.startswith("time_ms call"))
+    t0 = calls[0]
+    short = {e.key: e.count for e in events if e.count % iters}
+    records = {key: sorted([(e.time_range.start - t0) / 1e3,
+                            (e.time_range.end - e.time_range.start) / 1e3]
+                           for e in prof.events() if e.name == key
+                           and not e.is_user_annotation
+                           and e.device_type == events[0].device_type)
+               for key in short}
+    return {"iters": iters, "counts": short,
+            "calls_ms": [(c - t0) / 1e3 for c in calls],
+            "records_ms": records}
+
+
+def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
+            profiles: int = 3) -> dict:
     """Time per call of ``fn`` on the card, after ``warmup`` calls.
 
-    ``event_ms``: median over ``reps`` of the mean of ``iters`` calls
-    between two CUDA events; it includes any gap in which the device
-    waits for the host to launch.  ``device_ms``: the device time of the
-    kernels and copies of ``iters`` calls under torch.profiler, per call,
-    without those gaps (None if the profiler saw no device time).  ``ms``
-    is ``device_ms`` where there is one: a 10 us kernel launched from
-    Python is otherwise timed by its launch."""
+    ``ms``: the device time of the kernels and copies of ``iters`` calls
+    under torch.profiler, per call.  It leaves out the gaps in which the
+    device waits for the host: a 10 us kernel launched from Python is
+    otherwise timed by its launch.  ``event_ms``, beside it: median over
+    ``reps`` of the mean of ``iters`` calls between two CUDA events, gaps
+    included.  Every call launches the same kernels, so each kernel's
+    profiled count must be a multiple of ``iters``.  The profiler has
+    dropped one record of a long kernel now and then; such a profile is
+    taken again, up to ``profiles`` times in all, and the records it had
+    are printed.  If none is whole the phase fails.  ``profiles`` counts
+    the profiles taken."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warmup):
         fn()
@@ -110,26 +159,40 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5) -> dict:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    device = sum(e.device_time_total for e in device_events(prof)) / 1e3
-    event_ms = statistics.median(times)
-    device_ms = device / iters if device > 0 else None
-    return {"ms": device_ms or event_ms, "event_ms": event_ms,
-            "device_ms": device_ms}
+    for taken in range(1, profiles + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(iters):
+                with record_function(f"time_ms call {i}"):
+                    fn()
+            torch.cuda.synchronize()
+        events = device_events(prof)
+        if events and all(e.count % iters == 0 for e in events):
+            break
+        emit({"profiler_lost_records": events and _lost_records(
+            prof, events, iters)})
+    else:
+        raise SmokeFailure(f"the profiler lost records in each of "
+                           f"{profiles} profiles")
+    device = sum(e.device_time_total for e in events) / 1e3
+    return {"ms": device / iters, "event_ms": statistics.median(times),
+            "profiles": taken}
 
 
 def timed(kernel, plain, library, plain_kw=None) -> dict:
     """``ms``, ``plain_ms`` and ``library_ms`` (None without a library
-    call) of one kernel, with each one's CUDA-event time beside it."""
-    t = {"kernel": time_ms(kernel), "plain": time_ms(plain, **(plain_kw or {})),
-         "library": library and time_ms(library)}
-    return {"ms": t["kernel"]["ms"], "plain_ms": t["plain"]["ms"],
-            "library_ms": t["library"] and t["library"]["ms"],
-            "event_ms": {k: v and v["event_ms"] for k, v in t.items()}}
+    call) of one kernel: profiler device time, with each one's CUDA-event
+    time and the profiles taken beside it."""
+    return timing_row(time_ms(kernel), time_ms(plain, **(plain_kw or {})),
+                      library and time_ms(library))
+
+
+def timing_row(kernel: dict, plain: dict, library: dict | None) -> dict:
+    t = {"kernel": kernel, "plain": plain, "library": library}
+    return {"ms": kernel["ms"], "plain_ms": plain["ms"],
+            "library_ms": library and library["ms"],
+            "event_ms": {k: v and v["event_ms"] for k, v in t.items()},
+            "profiles": {k: v and v["profiles"] for k, v in t.items()}}
 
 
 def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
@@ -179,22 +242,44 @@ def check_rms_norm(torch, gen) -> dict:
     return {"max_abs_err": worst["main"]}
 
 
+BF16, F32 = "bfloat16", "float32"
+
 FLASH_CASES = {
-    # name: (B, T, H, Hk, D, causal, bh_layout)
-    "main": (2, 2048, 16, 16, 128, True, False),
-    "gqa_h16_kv4": (2, 2048, 16, 4, 128, True, False),
-    "ragged_t1000": (2, 1000, 16, 16, 128, True, False),
-    "non_causal": (2, 2048, 16, 16, 128, False, False),
-    "d64_gqa_ragged": (2, 333, 8, 2, 64, True, False),
-    "with_lse_bh": (1, 1000, 32, 16, 128, True, True),
+    # name: (B, T, H, Hk, D, causal, bh_layout, dtype); T * D * 4 <= 4 MiB,
+    # so the backward takes the fused kernel
+    "main": (2, 2048, 16, 16, 128, True, False, BF16),
+    "gqa_h16_kv4": (2, 2048, 16, 4, 128, True, False, BF16),
+    "ragged_t1000": (2, 1000, 16, 16, 128, True, False, BF16),
+    "non_causal": (2, 2048, 16, 16, 128, False, False, BF16),
+    "d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, BF16),
+    "d16_gqa": (2, 333, 8, 4, 16, True, False, BF16),
+    "f32": (2, 1000, 16, 16, 128, True, False, F32),
+    "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
+    "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
+}
+
+# The two-kernel route: T4096 at the long path's heads, then the same
+# variety with the route forced (_FUSED_DQ_BYTES = 0), as the JAX tests
+# force it.
+TWO_KERNEL_CASES = {
+    "main": (1, 4096, 16, 16, 128, True, False, BF16),
+    "gqa_h16_kv4": (1, 4096, 16, 4, 128, True, False, BF16),
+    "ragged_t1000": (2, 1000, 16, 16, 128, True, False, BF16),
+    "non_causal": (1, 2048, 16, 16, 128, False, False, BF16),
+    "d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, BF16),
+    "d32": (2, 500, 8, 8, 32, True, False, BF16),
+    "d16_gqa": (2, 500, 8, 4, 16, True, False, BF16),
+    "f32": (1, 2048, 16, 16, 128, True, False, F32),
+    "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
+    "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
 }
 
 
-def _flash_inputs(torch, gen, B, T, H, Hk, D, bh):
+def _flash_inputs(torch, gen, B, T, H, Hk, D, bh, dtype=BF16):
     def r(h):
         shape = (B * h, T, D) if bh else (B, T, h, D)
         return torch.randn(*shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+            getattr(torch, dtype))
 
     return r(H), r(Hk), r(Hk), r(H)
 
@@ -206,24 +291,44 @@ def _rel_errs(got, ref) -> tuple[float, float]:
             float(d.norm() / ref.norm().clamp_min(1e-30)))
 
 
-def check_flash(torch, gen) -> tuple[dict, dict]:
+BWD_TOLERANCE = ("max|err| <= 1e-2 * max|ref| and rel <= 1e-2, against "
+                 "autograd through the plain version in f32: p and ds are "
+                 "rounded to the input type (bf16, or TF32 in the f32 "
+                 "products) before their products, the grads are cast to "
+                 "it, and the fused kernel's dq sums with f32 atomics in "
+                 "an order that changes from run to run")
+
+
+def check_flash(torch, gen, cases, route) -> dict:
+    """Each case through _Flash against autograd through the f32 plain
+    forward, with the launches the route makes.  Returns the "main"
+    case's max abs errors of out, dq and dk/dv."""
+    from pytorch_operator_tpu_torch import kernels
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _Flash,
         _flash_fwd_reference,
     )
 
-    fwd_worst = bwd_worst = None
-    for name, (B, T, H, Hk, D, causal, bh) in FLASH_CASES.items():
-        q, k, v, g = _flash_inputs(torch, gen, B, T, H, Hk, D, bh)
+    names = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+    two = route == "two_kernel"
+    want_launches = {"flash_fwd": 1, "flash_bwd": int(not two),
+                     "flash_bwd_dq": int(two), "flash_bwd_dkv": int(two)}
+    worst = None
+    for name, (B, T, H, Hk, D, causal, bh, dtype) in cases.items():
+        q, k, v, g = _flash_inputs(torch, gen, B, T, H, Hk, D, bh, dtype)
         g_lse = (torch.randn(B * H, 1, T, generator=gen, device="cuda")
                  if bh else None)
         scale = D ** -0.5
         qk = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        before = {n: kernels.KERNELS[n].launches for n in names}
         out, lse = _Flash.apply(*qk, scale, causal, bh)
         loss = (out.float() * g.float()).sum()
         if g_lse is not None:
             loss = loss + (lse * g_lse).sum()
         loss.backward()
+        torch.cuda.synchronize()
+        launched = {n: kernels.KERNELS[n].launches - before[n]
+                    for n in names}
 
         qf = [x.float().requires_grad_(True) for x in (q, k, v)]
         ref_out, ref_lse = _flash_fwd_reference(*qf, scale, causal, bh)
@@ -235,47 +340,193 @@ def check_flash(torch, gen) -> tuple[dict, dict]:
 
         o_err, o_rel = _rel_errs(out, ref_out)
         l_err, _ = _rel_errs(lse, ref_lse)
-        # out is bf16 and p is rounded to bf16 before p v: a few bf16
-        # ulps of |out| <~ 4; lse is f32 math on the same products
-        fwd_ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-3
-        emit({"check": "flash_fwd", "case": name, "shape": [B, T, H, Hk, D],
-              "causal": causal, "max_abs_err": o_err, "rel_fro_err": o_rel,
+        # out is rounded to the input type and so is p before p v: a few
+        # bf16 ulps of |out| <~ 4; lse is f32 math on the products
+        # (exact for bf16 inputs, TF32-rounded for f32 ones)
+        l_tol = 1e-3 if dtype == BF16 else 1e-2
+        fwd_ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= l_tol
+        emit({"check": "flash_fwd", "route": route, "case": name,
+              "shape": [B, T, H, Hk, D], "dtype": dtype, "causal": causal,
+              "max_abs_err": o_err, "rel_fro_err": o_rel,
               "lse_max_abs_err": l_err,
-              "tolerance": "out: max|err| <= 2e-2 and rel <= 1e-2 (bf16 "
-                           "output, bf16 p before p v); lse: 1e-3 (f32)",
+              "tolerance": f"out: max|err| <= 2e-2 and rel <= 1e-2 "
+                           f"(output and p before p v in the input type); "
+                           f"lse: {l_tol} (f32 math on bf16-exact or TF32 "
+                           f"products)",
               "ok": fwd_ok})
-        require(fwd_ok, f"flash_fwd {name} disagrees with its plain version")
+        require(fwd_ok, f"flash_fwd {route} {name} disagrees with its "
+                        f"plain version")
 
         errs = {}
-        bwd_ok = True
+        bwd_ok = launched == want_launches
         for gname, a, b in zip(("dq", "dk", "dv"), qk, qf):
             err, rel = _rel_errs(a.grad, b.grad)
             scale_ref = float(b.grad.abs().max())
             errs[gname] = {"max_abs_err": err, "max_abs_ref": scale_ref,
                            "rel_fro_err": rel}
             bwd_ok &= err <= 1e-2 * scale_ref and rel <= 1e-2
-        emit({"check": "flash_bwd", "case": name,
-              "shape": [B, T, H, Hk, D], "causal": causal, **errs,
-              "tolerance": "max|err| <= 1e-2 * max|ref| and rel <= 1e-2, "
-                           "against autograd through the plain version "
-                           "in f32: p and ds are rounded to bf16 before "
-                           "their products, dk/dv/dq are cast to bf16, and "
-                           "dq's f32 atomics sum in an order that changes "
-                           "from run to run",
+        emit({"check": "flash_bwd", "route": route, "case": name,
+              "shape": [B, T, H, Hk, D], "dtype": dtype, "causal": causal,
+              **errs, "launches": launched, "tolerance": BWD_TOLERANCE,
               "ok": bwd_ok})
-        require(bwd_ok, f"flash_bwd {name} disagrees with its plain version")
+        require(bwd_ok, f"flash backward ({route}) {name} disagrees with "
+                        f"its plain version or launched {launched}")
         if name == "main":
-            fwd_worst = {"max_abs_err": o_err}
-            bwd_worst = {"max_abs_err": max(e["max_abs_err"]
-                                            for e in errs.values())}
+            worst = {"out": o_err, "dq": errs["dq"]["max_abs_err"],
+                     "dkv": max(errs["dk"]["max_abs_err"],
+                                errs["dv"]["max_abs_err"])}
         del qk, qf, out, lse, ref_out, ref_lse
         torch.cuda.empty_cache()
-    return fwd_worst, bwd_worst
+    return worst
+
+
+def check_two_kernel_route(torch, gen) -> dict:
+    """The two-kernel cases, the route forced for the short ones."""
+    import importlib
+
+    fa = importlib.import_module(
+        "pytorch_operator_tpu_torch.ops.flash_attention")
+
+    saved = fa._FUSED_DQ_BYTES
+    fa._FUSED_DQ_BYTES = 0
+    try:
+        return check_flash(torch, gen, TWO_KERNEL_CASES, "two_kernel")
+    finally:
+        fa._FUSED_DQ_BYTES = saved
+
+
+def _bwd_args(torch, gen, B, T, H, D):
+    """Backward-kernel arguments at (B, T, H, D) causal bf16: q, k, v, g,
+    lse, delta, scale, causal, layout."""
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _flash_fwd_cuda,
+    )
+
+    q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False)
+    scale = D ** -0.5
+    out, lse = _flash_fwd_cuda(q, k, v, scale, True, False)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        B * H, T).contiguous()
+    return (q, k, v, g, lse.reshape(B * H, T), delta, scale, True, False)
+
+
+# The heads of the long shape held against the plain versions: with
+# H == Hk each head is independent, and one head's f32 (T, T) buffer is
+# 1 GiB at T16384, where all sixteen at once would take about 70 GB.
+LONG_PLAIN_HEADS = (0, 15)
+
+
+def check_long_routes(torch, gen) -> dict:
+    """At the long path's full shape (B1 T16384 H16 D128 causal bf16):
+    B1, B3 and B4 launched on every head, and their outputs on the heads
+    LONG_PLAIN_HEADS held against the plain versions on those heads'
+    inputs (B3 and B4 given B1's lse and the delta of its out).  Beside
+    that, B3 + B4 against the fused kernel B2, and B3's dq bitwise equal
+    over two runs.  Returns the max abs errors against the plain
+    versions."""
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _flash_bwd_cuda,
+        _flash_bwd_dkv_cuda,
+        _flash_bwd_dkv_reference,
+        _flash_bwd_dq_cuda,
+        _flash_bwd_dq_reference,
+        _flash_fwd_cuda,
+        _flash_fwd_reference,
+    )
+
+    B, T, H, D = (LONG[x] for x in "BTHD")
+    args = _bwd_args(torch, gen, B, T, H, D)
+    q, k, v, g, lse, delta, scale, causal, bh = args
+    out, _ = _flash_fwd_cuda(q, k, v, scale, causal, bh)
+    dq = _flash_bwd_dq_cuda(*args)
+    dq_again = _flash_bwd_dq_cuda(*args)
+    dkp, dvp = _flash_bwd_dkv_cuda(*args)
+    dq2, dkp2, dvp2 = _flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+
+    heads = list(LONG_PLAIN_HEADS)
+    rows = [b * H + h for b in range(B) for h in heads]  # of (B*H, T)
+
+    def sl(x):  # (B, T, H, D) -> the chosen heads, (B, T, len(heads), D)
+        return x[:, :, heads].contiguous()
+
+    sq, sk, sv, sg = (sl(x) for x in (q, k, v, g))
+    ref_out, ref_lse = _flash_fwd_reference(sq.float(), sk.float(),
+                                            sv.float(), scale, causal, bh)
+    o_err, o_rel = _rel_errs(sl(out), ref_out)
+    l_err = float((lse[rows] - ref_lse.reshape(len(rows), T)).abs().max())
+    del ref_out, ref_lse
+    plain_args = (sq, sk, sv, sg, lse[rows], delta[rows], scale, causal, bh)
+    plain = {"dq": (dq, _flash_bwd_dq_reference(*plain_args))}
+    plain.update(zip(("dk", "dv"), zip(
+        (dkp, dvp), _flash_bwd_dkv_reference(*plain_args))))
+    errs = {"out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
+                    "lse_max_abs_err": l_err}}
+    plain_ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-3
+    for name, (got, ref) in plain.items():
+        err, rel = _rel_errs(sl(got), ref)
+        scale_ref = float(ref.abs().max())
+        errs[name] = {"max_abs_err": err, "max_abs_ref": scale_ref,
+                      "rel_fro_err": rel}
+        plain_ok &= err <= 1e-2 * scale_ref and rel <= 1e-2
+    del plain
+
+    bitwise = bool(torch.equal(dq, dq_again))
+    d = (dq.float() - dq2).abs()
+    dq_ok = bool((d <= 2.0 ** -8 * dq2.abs() + 1e-3 * dq2.abs().max()).all())
+    kv_err = max(float((dkp - dkp2).abs().max()),
+                 float((dvp - dvp2).abs().max()))
+    kv_max = max(float(dkp2.abs().max()), float(dvp2.abs().max()))
+    ok = plain_ok and bitwise and dq_ok and kv_err <= 1e-6 * kv_max
+    res = {"check": "flash_bwd_long_routes", "shape": [B, T, H, H, D],
+           "plain_heads": heads, "vs_plain": errs,
+           "dq_bitwise_equal_over_two_runs": bitwise,
+           "dq_max_abs_err_vs_fused": float(d.max()),
+           "dq_max_abs": float(dq2.abs().max()),
+           "dkv_max_abs_err_vs_fused": kv_err,
+           "dkv_bitwise_equal_to_fused": kv_err == 0.0,
+           "tolerance": "against the plain versions on the heads "
+                        f"{heads}: out and lse as the flash_fwd checks "
+                        "(out max|err| <= 2e-2 and rel <= 1e-2, lse 1e-3), "
+                        "dq and the dk/dv partials as the flash_bwd checks "
+                        "(max|err| <= 1e-2 * max|ref| and rel <= 1e-2 "
+                        "against the f32 plain versions: p and ds are "
+                        "rounded to bf16 before their products, dq is "
+                        "cast to bf16); against B2: dq |B3 - B2| "
+                        "<= 2^-8 |B2| + 1e-3 max|B2| (B3's dq is rounded "
+                        "to bf16, B2's f32 atomics sum in another order), "
+                        "dk/dv 1e-6 max (the same walk); dq of B3 bitwise "
+                        "equal over two runs",
+           "ok": ok}
+    emit(res)
+    require(ok, "at the long shape a kernel disagrees with its plain "
+                "version, the two-kernel backward with the fused one, or "
+                "B3's dq is not bitwise stable")
+    return {"out": o_err, "dq": errs["dq"]["max_abs_err"],
+            "dkv": max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])}
 
 
 # --------------------------------------------------------------------------
 # phase 3: timing
 # --------------------------------------------------------------------------
+
+
+def aten_flash_bwd(torch, q, k, v, g, scale):
+    """The backward alone of PyTorch's flash attention (dq, dk and dv) on
+    (B, T, H, D) causal inputs, as a callable: aten's private op, whose
+    signature may move between releases (None if so)."""
+    qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    try:
+        lib = torch.ops.aten._scaled_dot_product_flash_attention(
+            qt, kt, vt, 0.0, True, False, scale=scale)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        emit({"timing": "aten flash backward", "library_error": repr(e)})
+        return None
+    lib_out, lib_lse, cq, ck, mq, mk, rng, unused = lib[:8]
+    return lambda: (torch.ops.aten.
+                    _scaled_dot_product_flash_attention_backward(
+                        gt, qt, kt, vt, lib_out, lib_lse, cq, ck, mq, mk,
+                        0.0, True, rng, unused, scale=scale))
 
 
 def time_kernels(torch, gen) -> dict:
@@ -330,21 +581,6 @@ def time_kernels(torch, gen) -> dict:
         B * H, T).contiguous()
     b_ms, b_by = bound(7 * io + 2 * B * H * T * 4, 10 * Dh * pairs)
 
-    def lib_bwd():
-        # the backward alone of PyTorch's flash attention (aten's private
-        # op, whose signature may move between releases: null if so)
-        try:
-            lib = torch.ops.aten._scaled_dot_product_flash_attention(
-                qt, kt, vt, 0.0, True, False, scale=scale)
-        except (RuntimeError, TypeError, AttributeError) as e:
-            emit({"timing": "flash_bwd", "library_error": repr(e)})
-            return None
-        lib_out, lib_lse, cq, ck, mq, mk, rng, unused = lib[:8]
-        return lambda: (torch.ops.aten.
-                        _scaled_dot_product_flash_attention_backward(
-                            gt, qt, kt, vt, lib_out, lib_lse, cq, ck, mq, mk,
-                            0.0, True, rng, unused, scale=scale))
-
     def sdpa_fwd_bwd():
         a = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
         F.scaled_dot_product_attention(*a, is_causal=True).backward(gt)
@@ -360,7 +596,7 @@ def time_kernels(torch, gen) -> dict:
                                         False),
                 lambda: _flash_bwd_reference(q, k, v, g, lse2, delta, scale,
                                              True, False),
-                lib_bwd(), slow),
+                aten_flash_bwd(torch, q, k, v, g, scale), slow),
         "library": "aten._scaled_dot_product_flash_attention_backward",
         "bound_ms": b_ms, "bound_by": b_by, "shape": [B, T, H, H, Dh],
         "port_fwd_bwd_ms": time_ms(port_fwd_bwd)["ms"],
@@ -370,12 +606,83 @@ def time_kernels(torch, gen) -> dict:
     return res
 
 
+def time_long_kernels(torch, gen) -> dict:
+    """The two-kernel backward at the long path's shape beside its
+    bounds, its plain versions at PLAIN_T and aten's flash backward
+    (which computes dq, dk and dv: compare it with B3 + B4); then the
+    fused kernel against B3 + B4 at T8192 (where the rule still takes the
+    fused one) and T16384."""
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _flash_bwd_cuda,
+        _flash_bwd_dkv_cuda,
+        _flash_bwd_dkv_reference,
+        _flash_bwd_dq_cuda,
+        _flash_bwd_dq_reference,
+        _use_fused_bwd,
+    )
+
+    B, T, H, D = (LONG[x] for x in "BTHD")
+    few = dict(warmup=1, iters=2, reps=3)  # 5-60 ms calls
+    slow = dict(warmup=1, iters=3, reps=3)
+    args = _bwd_args(torch, gen, B, T, H, D)
+    plain_args = _bwd_args(torch, gen, B, PLAIN_T, H, D)
+    library = aten_flash_bwd(torch, *args[:4], args[6])
+    lib = library and time_ms(library, **few)
+    pairs = B * H * causal_pairs(T, True)
+    io, f32 = B * T * H * D * 2, B * T * H * D * 4  # one bf16 / f32 tensor
+    rows = 2 * B * H * T * 4  # lse and delta
+    res = {}
+    for name, fn, plain, nbytes, flops in (
+            ("flash_bwd_dq", _flash_bwd_dq_cuda, _flash_bwd_dq_reference,
+             5 * io + rows, 6 * D * pairs),
+            ("flash_bwd_dkv", _flash_bwd_dkv_cuda, _flash_bwd_dkv_reference,
+             4 * io + rows + 2 * f32, 8 * D * pairs)):
+        b_ms, b_by = bound(nbytes, flops)
+        res[name] = {
+            **timing_row(time_ms(lambda fn=fn: fn(*args), **few),
+                         time_ms(lambda plain=plain: plain(*plain_args),
+                                 **slow), lib),
+            "library":"aten._scaled_dot_product_flash_attention_backward "
+                       "(dq, dk and dv: compare with flash_bwd_dq + "
+                       "flash_bwd_dkv)",
+            "bound_ms": b_ms, "bound_by": b_by, "shape": [B, T, H, H, D],
+            "plain_shape": [B, PLAIN_T, H, H, D]}
+        emit({"timing": name, **res[name]})
+    routes = {}
+    for t in (8192, T):
+        targs = args if t == T else _bwd_args(torch, gen, B, t, H, D)
+        times = {name: time_ms(lambda fn=fn: fn(*targs), **few)
+                 for name, fn in (("flash_bwd", _flash_bwd_cuda),
+                                  ("flash_bwd_dq", _flash_bwd_dq_cuda),
+                                  ("flash_bwd_dkv", _flash_bwd_dkv_cuda))}
+        ms = {name: tm["ms"] for name, tm in times.items()}
+        pairs_t = B * H * causal_pairs(t, True)
+        routes[f"T{t}"] = {
+            "shape": [B, t, H, H, D],
+            "rule_takes": "fused" if _use_fused_bwd(t, D) else "two_kernel",
+            "fused_ms": ms["flash_bwd"],
+            "two_kernel_ms": ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+            "ms": ms,
+            "event_ms": {name: tm["event_ms"] for name, tm in times.items()},
+            "profiles": {name: tm["profiles"] for name, tm in times.items()},
+            "fused_bound_ms": bound(0, 10 * D * pairs_t)[0],
+            "two_kernel_bound_ms": bound(0, 14 * D * pairs_t)[0]}
+    emit({"timing": "fused_vs_two_kernel", **routes})
+    res["routes"] = routes
+    return res
+
+
 # --------------------------------------------------------------------------
 # phase 4: the main path
 # --------------------------------------------------------------------------
 
 
-def run_main_path(torch) -> dict:
+def run_path(torch, label, cfg, B, T, steps, expect, **step_kw) -> dict:
+    """Train ``cfg`` from seed 0 for ``steps`` steps on one seeded (B, T)
+    batch through make_train_step with AdamW(3e-4, wd 0.1): every launch
+    count reset just before and read just after, the loss finite and
+    falling, launches per step exactly ``expect``; then one profiled
+    step."""
     import numpy as np
 
     from pytorch_operator_tpu_torch import kernels
@@ -386,13 +693,11 @@ def run_main_path(torch) -> dict:
         make_train_step,
     )
 
-    cfg = llama.flagship()
-    B, T = MAIN["B"], MAIN["T"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     model = llama.Llama(cfg, device="cuda", generator=gen)
     optimizer = adamw(model, 3e-4, weight_decay=0.1)
     state = TrainState(model, optimizer)
-    step_fn = make_train_step(cfg, model, optimizer)
+    step_fn = make_train_step(cfg, model, optimizer, **step_kw)
     batch = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, T + 1))).cuda()
 
@@ -400,7 +705,7 @@ def run_main_path(torch) -> dict:
     torch.cuda.reset_peak_memory_stats()
     losses, norms, times = [], [], []
     kernels.reset_launches()
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
@@ -410,40 +715,80 @@ def run_main_path(torch) -> dict:
     counts = kernels.launch_counts()
 
     L = cfg.n_layers
-    expect = {"rms_norm_fwd": 2 * L + 1, "flash_fwd": L, "flash_bwd": L}
-    per_step = {k: counts[k] / STEPS for k in expect}
+    per_step = {k: counts[k] / steps for k in expect}
     n = llama.n_params(cfg)
     step_s = statistics.median(times[1:])
     tokens = B * T
     flops = 6.0 * n * tokens + 12.0 * L * B * T * T * cfg.dim * 0.5
     res = {"model": f"d{cfg.dim} L{L} h{cfg.n_heads} kv{cfg.n_kv_heads} "
                     f"ffn{cfg.ffn_dim} vocab{cfg.vocab_size}",
-           "n_params": n, "batch": B, "seq": T, "steps": STEPS,
-           "losses": losses, "grad_norms": norms,
+           "n_params": n, "batch": B, "seq": T, "steps": steps,
+           "remat": cfg.remat, "remat_policy": cfg.remat_policy,
+           "step_kw": step_kw, "losses": losses, "grad_norms": norms,
            "step_ms_all": [t * 1e3 for t in times],
            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
            "model_tflops_per_step": flops / 1e12,
            "mfu": flops / step_s / PEAK_BF16_FLOPS,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": counts, "launches_per_step": per_step}
-    emit({"main_path": res})
+    emit({label: res})
     require(all(math.isfinite(x) for x in losses + norms),
-            f"non-finite loss or grad norm: {losses} {norms}")
-    require(losses[-1] < losses[0], f"loss did not fall: {losses}")
+            f"{label}: non-finite loss or grad norm: {losses} {norms}")
+    require(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
     require(per_step == {k: float(v) for k, v in expect.items()},
-            f"launches per step {per_step} != {expect}")
-    res["profile"] = profile_step(torch, lambda: step_fn(state, batch))
+            f"{label}: launches per step {per_step} != {expect}")
+    res["profile"] = profile_step(torch, label,
+                                  lambda: step_fn(state, batch), expect)
     return res
 
 
+def run_main_path(torch) -> dict:
+    """Phase 4: the flagship at B2 x T2048, no remat."""
+    from pytorch_operator_tpu_torch.models import llama
+
+    L = llama.flagship().n_layers
+    expect = {"rms_norm_fwd": 2 * L + 1, "flash_fwd": L, "flash_bwd": L,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    return run_path(torch, "main_path", llama.flagship(), MAIN["B"],
+                    MAIN["T"], STEPS, expect)
+
+
+def run_long_path(torch) -> dict:
+    """Phase 6: the flagship at B1 x T16384 under save_attn+qkv with the
+    chunked tied-head CE.  T * D * 4 = 8 MiB takes the two-kernel
+    backward.  save_attn keeps each layer's flash (out, lse), so the
+    forward kernel runs L times, not 2L; the recompute runs both norms
+    again (the attention norm is the d/dW input of the saved q/k/v
+    projections, the MLP norm feeds the recomputed gate/up): 2L+1 + 2L
+    RMSNorm launches."""
+    from pytorch_operator_tpu_torch.models import llama
+
+    cfg = llama.flagship(max_seq_len=LONG["T"], remat=True,
+                         remat_policy=LONG_POLICY)
+    L = cfg.n_layers
+    expect = {"rms_norm_fwd": 4 * L + 1, "flash_fwd": L, "flash_bwd": 0,
+              "flash_bwd_dq": L, "flash_bwd_dkv": L}
+    return run_path(torch, "long_path", cfg, LONG["B"], LONG["T"],
+                    LONG_STEPS, expect, chunked_ce=True, ce_chunk=1024)
+
+
+# the profile class of each kernel's launches
+PROFILE_CLASS = {"rms_norm_fwd": "rms_norm", "flash_fwd": "flash_fwd",
+                 "flash_bwd": "flash_bwd", "flash_bwd_dq": "flash_bwd_dq",
+                 "flash_bwd_dkv": "flash_bwd_dkv"}
 KERNEL_CLASSES = (("rms_norm", ("rms_norm_kernel",)),
                   ("flash_fwd", ("flash_fwd_kernel",)),
                   ("flash_bwd", ("flash_bwd_kernel",)),
+                  ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
+                  ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
                   ("matmul", ("gemm", "nvjet", "cutlass", "xmma")))
 
 
-def profile_step(torch, step) -> dict:
-    """Device time of one more step, by kernel class and by kernel."""
+def profile_step(torch, label, step, expect) -> dict:
+    """Device time of one more step, by kernel class and by kernel.  The
+    port's kernels' profiled counts are held against the launches per
+    step (``expect``): a shortfall means the profiler lost records, and
+    ``complete`` says so."""
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -453,16 +798,22 @@ def profile_step(torch, step) -> dict:
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
     by_class: dict[str, float] = {}
+    counts: dict[str, int] = {}
     top = []
     for e in device_events(prof):
         ms = e.device_time_total / 1e3
         cls = next((c for c, keys in KERNEL_CLASSES
                     if any(k in e.key for k in keys)), "other")
         by_class[cls] = by_class.get(cls, 0.0) + ms
+        counts[cls] = counts.get(cls, 0) + e.count
         top.append((ms, e.count, e.key[:80]))
     top.sort(reverse=True)
-    out = {"wall_ms_profiled": wall_ms, "device_ms": sum(by_class.values()),
-           "device_ms_by_class": by_class,
+    launched = {symbol: counts.get(PROFILE_CLASS[symbol], 0)
+                for symbol in expect}
+    out = {"path": label, "wall_ms_profiled": wall_ms,
+           "device_ms": sum(by_class.values()),
+           "device_ms_by_class": by_class, "kernel_counts": launched,
+           "complete": launched == expect,
            "top": [{"ms": ms, "count": n, "kernel": k}
                    for ms, n, k in top[:20]]}
     emit({"profile": out})
@@ -543,6 +894,95 @@ def check_tiny_model(torch) -> dict:
 # --------------------------------------------------------------------------
 
 
+def run_long_cli(torch) -> dict:
+    """Phase 6, the trainer's own entry at the long shape: two steps with
+    --remat-policy auto, resolved from the card's memory."""
+    from pytorch_operator_tpu_torch import train_llama
+
+    argv = ["--model", "flagship", "--batch-size", str(LONG["B"]),
+            "--seq-len", str(LONG["T"]), "--remat", "--remat-policy", "auto",
+            "--chunked-ce", "--steps", "2", "--log-interval", "1"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_llama.main(argv)
+    text = out.getvalue()
+    picked = re.search(r"--remat-policy auto -> (\S+)", text)
+    losses = [float(x) for x in re.findall(r"loss=(\S+)", text)]
+    res = {"argv": argv, "rc": rc, "auto_picked": picked and picked.group(1),
+           "losses": losses, "output": text.splitlines()}
+    emit({"long_cli": res})
+    require(rc == 0 and "training complete" in text and picked is not None
+            and len(losses) == 2 and all(map(math.isfinite, losses)),
+            f"train_llama at the long shape failed: {text}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 7: the remat tiers through the kernels
+# --------------------------------------------------------------------------
+
+
+REMAT_TIERS = (None, "save_attn", "save_attn+qkv", "save_attn+gateup",
+               "save_attn+normed", "save_attn+qkv+gateup+normed",
+               "dots_saveable", "dots_with_no_batch_dims_saveable")
+
+
+def check_remat_tiers(torch) -> dict:
+    """The tiny model (bf16, head dim 16, GQA 8:4) through the kernels at
+    every ported remat_policy: grads against no remat, and the forward
+    kernels' launches in one forward + backward."""
+    import numpy as np
+
+    from pytorch_operator_tpu_torch import kernels
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.train import cross_entropy_loss
+
+    base = llama.tiny(dtype=torch.bfloat16, use_flash=True,
+                      use_fused_norm=True, remat=False)
+    L = base.n_layers
+    weights = llama.Llama(base, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(2)).state_dict()
+    batch = torch.from_numpy(np.random.default_rng(2).integers(
+        0, base.vocab_size, (2, 129))).cuda()
+
+    def grads(cfg):
+        model = llama.Llama(cfg, device="cuda")
+        model.load_state_dict(weights)
+        kernels.reset_launches()
+        cross_entropy_loss(model(batch[:, :-1]), batch[:, 1:]).backward()
+        torch.cuda.synchronize()
+        return ([p.grad.float() for p in model.parameters()],
+                kernels.launch_counts())
+
+    ref, ref_counts = grads(base)
+    res = {"no_remat": {"flash_fwd": ref_counts["flash_fwd"],
+                        "rms_norm_fwd": ref_counts["rms_norm_fwd"]}}
+    for policy in REMAT_TIERS:
+        got, counts = grads(dataclasses.replace(base, remat=True,
+                                                remat_policy=policy))
+        err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+                  for a, b in zip(got, ref))
+        save_attn = (policy or "").startswith("save_attn")
+        want = {"flash_fwd": L if save_attn else 2 * L,
+                "rms_norm_fwd": 2 * L + 1 + (
+                    0 if "normed" in (policy or "") else 2 * L)}
+        launched = {k: counts[k] for k in want}
+        ok = err <= 2e-2 and launched == want
+        res[str(policy)] = {"max_rel_grad_err": err, "launches": launched,
+                            "ok": ok}
+        require(ok, f"remat_policy {policy}: grads {err} off no remat or "
+                    f"launches {launched} != {want}")
+    res["tolerance"] = ("each grad within 2e-2 of its max under no remat: "
+                        "the same bf16 math recomputed, but the fused "
+                        "backward's dq sums with f32 atomics in an order "
+                        "that changes from run to run")
+    emit({"remat_tiers": res})
+    return res
+
+
+# --------------------------------------------------------------------------
+
+
 KERNEL_INFO = {
     "rms_norm_fwd": ("rms_norm", "pytorch_operator_tpu_torch/csrc/rms_norm.cu",
                      "pytorch_operator_tpu/ops/rms_norm.py:18"),
@@ -550,6 +990,12 @@ KERNEL_INFO = {
                   "pytorch_operator_tpu/ops/flash_attention.py:118"),
     "flash_bwd": ("flash_bwd", "pytorch_operator_tpu_torch/csrc/flash_bwd.cu",
                   "pytorch_operator_tpu/ops/flash_attention.py:356"),
+    "flash_bwd_dq": ("flash_bwd_dq",
+                     "pytorch_operator_tpu_torch/csrc/flash_bwd_dq.cu",
+                     "pytorch_operator_tpu/ops/flash_attention.py:264"),
+    "flash_bwd_dkv": ("flash_bwd_dkv",
+                      "pytorch_operator_tpu_torch/csrc/flash_bwd_dkv.cu",
+                      "pytorch_operator_tpu/ops/flash_attention.py:325"),
 }
 
 
@@ -584,22 +1030,46 @@ def run() -> tuple[str, list[dict]]:
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    errs = {"rms_norm_fwd": check_rms_norm(torch, gen)}
-    errs["flash_fwd"], errs["flash_bwd"] = check_flash(torch, gen)
+    phase = time.perf_counter()
+    fused = check_flash(torch, gen, FLASH_CASES, "fused")
+    check_two_kernel_route(torch, gen)
+    # B3 and B4 run on the long path only: their errors at its shape
+    long = check_long_routes(torch, gen)
+    errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
+            "flash_fwd": fused["out"],
+            "flash_bwd": max(fused["dq"], fused["dkv"]),
+            "flash_bwd_dq": long["dq"], "flash_bwd_dkv": long["dkv"]}
+    seconds = {"kernels": time.perf_counter() - phase}
+    phase = time.perf_counter()
     timing = time_kernels(torch, gen)
-    main = run_main_path(torch)
+    timing.update(time_long_kernels(torch, gen))
+    seconds["timing"] = time.perf_counter() - phase
+    phase = time.perf_counter()
+    paths = {"main_path": run_main_path(torch)}
     check_tiny_model(torch)
+    torch.cuda.empty_cache()
+    paths["long_path"] = run_long_path(torch)
+    torch.cuda.empty_cache()
+    run_long_cli(torch)
+    check_remat_tiers(torch)
+    seconds["paths"] = time.perf_counter() - phase
+    emit({"phase_seconds": seconds})
 
     rows = []
     for symbol, (short, src, replaces) in KERNEL_INFO.items():
         tm = timing[short]
+        by_path = {p: r["launches"][symbol] for p, r in paths.items()}
         rows.append({"name": short, "route": "cuda", "source": src,
                      "replaces": replaces,
-                     "launches": main["launches"][symbol],
-                     "max_abs_err": errs[symbol]["max_abs_err"],
+                     "launches": sum(by_path.values()),
+                     "launches_by_path": by_path,
+                     "max_abs_err": errs[symbol],
                      "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                      "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
-                     "library_ms": tm["library_ms"]})
+                     "library_ms": tm["library_ms"],
+                     "ms_by": "torch.profiler device time per call",
+                     "event_ms": tm["event_ms"],
+                     "profiles": tm["profiles"]})
     return card, rows
 
 

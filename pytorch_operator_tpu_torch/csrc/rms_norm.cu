@@ -19,16 +19,8 @@ namespace {
 
 constexpr int BLOCK = 256;
 
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32(float x) {
-  return __float2bfloat16(x);
-}
+using ptt::from_f32;
+using ptt::to_f32;
 
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)

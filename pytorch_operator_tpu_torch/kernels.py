@@ -150,16 +150,22 @@ class CudaKernel:
         self.launches += 1
 
 
+def on_cuda(x: torch.Tensor) -> bool:
+    """True for a CUDA tensor, False for a CPU tensor; any other device
+    raises."""
+    if x.is_cuda:
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"the port's ops run on cuda or cpu tensors, got "
+                     f"{x.device}")
+
+
 def dispatch(x: torch.Tensor, kernel_fn, plain_fn, *args):
     """``kernel_fn(*args)`` when ``x`` is a CUDA tensor, ``plain_fn(*args)``
     when it is a CPU tensor; any other device raises.  A CUDA tensor never
     falls back to the plain version."""
-    if x.is_cuda:
-        return kernel_fn(*args)
-    if x.device.type == "cpu":
-        return plain_fn(*args)
-    raise ValueError(f"the port's ops run on cuda or cpu tensors, got "
-                     f"{x.device}")
+    return kernel_fn(*args) if on_cuda(x) else plain_fn(*args)
 
 
 def reset_launches() -> None:

@@ -10,21 +10,30 @@ whose weights are the transposes of the JAX ``(in, out)`` matrices.
 
 ``cfg.use_flash`` routes attention through the CUDA flash kernels and
 ``cfg.use_fused_norm`` the norms through the CUDA RMSNorm kernel (the
-plain versions on CPU tensors).  ``cfg.remat`` with no policy is
-per-layer ``torch.utils.checkpoint``; the JAX ``save_attn*`` tiers and
-``auto_remat_policy`` are not ported yet and raise.
+plain versions on CPU tensors).  ``cfg.remat`` checkpoints each layer
+(non-reentrant ``torch.utils.checkpoint``); ``cfg.remat_policy`` picks
+what the layer keeps, as the JAX ``make_layer_body`` does (see
+``remat_context_fn``), and ``auto_remat_policy`` picks a tier from the
+device's memory headroom.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict
+import functools
+from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from pytorch_operator_tpu_torch import ops
 from pytorch_operator_tpu_torch.device import default_device
@@ -44,8 +53,13 @@ class LlamaConfig:
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
     remat: bool = False
-    # None: full per-layer remat.  The JAX tiers ("save_attn[+...]",
-    # jax.checkpoint_policies names, "auto") are not ported yet.
+    # None: full per-layer remat (save nothing, recompute the layer in
+    # the backward).  "save_attn" keeps the flash forward's (out, lse)
+    # pair per layer, so the O(T^2) forward kernel is never recomputed
+    # (requires use_flash); "save_attn+<group>[+<group>...]" also keeps
+    # the LAYER_SAVE_GROUPS intermediates; "dots_saveable" and
+    # "dots_with_no_batch_dims_saveable" are the jax.checkpoint_policies
+    # of those names.  "auto" must be resolved by auto_remat_policy first.
     remat_policy: Any = None
     use_flash: bool = False       # CUDA flash-attention kernels (ops/)
     use_fused_norm: bool = False  # CUDA RMSNorm kernel (ops/)
@@ -145,6 +159,155 @@ def _attention(q, k, v, cfg: LlamaConfig):
     return torch.einsum("bhts,bshd->bthd", probs, v)
 
 
+# ---------------------------------------------------------------------------
+# Rematerialisation tiers
+
+
+# What each "save_attn+<group>" keeps beside the flash (out, lse) pair
+# (the JAX module's LAYER_SAVE_GROUPS, whose checkpoint names become
+# regions of Block.forward here):
+#   qkv    the q/k/v projections -- skips re-running the three matmuls;
+#          RoPE, elementwise, is recomputed from them
+#   gateup the SwiGLU gate and up projections -- skips the two D x ffn_dim
+#          matmuls; silu is recomputed
+#   normed the two RMSNorm outputs -- skips only the norm recompute;
+#          they stay the d/dW inputs of the projections either way (the
+#          fused norm is one operator; the plain one keeps each of its
+#          operators' outputs)
+# Each keeps the same bytes per token as the JAX tier (auto_remat_policy
+# prices them so), the plain norm's f32 intermediates aside.
+LAYER_SAVE_GROUPS = ("qkv", "gateup", "normed")
+
+# jax.checkpoint_policies ported, by the products they save: a dot with
+# no batch dims is an mm here, a batched one a bmm.
+DOTS_POLICIES = {
+    "dots_saveable": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    "dots_with_no_batch_dims_saveable": (torch.ops.aten.mm.default,),
+}
+
+# The save group whose region Block.forward is in (None outside), read by
+# the checkpoint policy as each operator runs.  Block.forward sets it on
+# every call, remat or not.  The policy is right only while three things
+# hold: forward and recompute run the same Block.forward, so they set the
+# regions alike and the policy sees the same sequence both times; regions
+# never nest (leaving one resets it to None, not to an outer one); and
+# one forward or recompute runs at a time in the process (it is a module
+# global, not per thread, because the recompute runs on autograd's device
+# thread).
+_region: str | None = None
+
+
+@contextlib.contextmanager
+def _save_region(group: str):
+    global _region
+    _region = group
+    try:
+        yield
+    finally:
+        _region = None
+
+
+def _selective_policy(save_ops: tuple, groups: frozenset):
+    def policy(ctx, op, *args, **kwargs):
+        if op in save_ops or (_region in groups and not op.is_view):
+            return CheckpointPolicy.MUST_SAVE
+        return CheckpointPolicy.PREFER_RECOMPUTE
+    return policy
+
+
+def remat_context_fn(cfg: LlamaConfig) -> Callable:
+    """The ``context_fn`` of each layer's checkpoint for
+    ``cfg.remat_policy`` (``noop_context_fn``, full remat, for None), as
+    JAX ``make_layer_body`` wraps the layer in ``jax.checkpoint``.
+
+    The tiers are selective checkpointing: the policy marks the
+    operators whose outputs the layer keeps (``MUST_SAVE``) and the
+    checkpoint's recompute takes those from the forward instead of
+    running them again.  ``save_attn`` keeps ``ptt::flash_fwd``'s
+    (out, lse); each save group keeps the outputs of the operators in its
+    region of ``Block.forward`` (views aside).  Raises as the JAX module
+    does for ``auto``, ``save_attn`` without ``use_flash`` and an unknown
+    group, and ``NotImplementedError`` for any other policy name."""
+    policy = cfg.remat_policy
+    if policy is None:
+        return noop_context_fn
+    if policy == "auto":
+        raise ValueError(
+            "remat_policy='auto' is a selection request, not a policy: "
+            "resolve it with llama.auto_remat_policy(cfg, batch, seq_len, "
+            "...) and set the returned tier on the config (train_llama "
+            "does this for --remat-policy auto)")
+    if isinstance(policy, str) and (policy == "save_attn"
+                                    or policy.startswith("save_attn+")):
+        if not cfg.use_flash:
+            raise ValueError(
+                "remat_policy='save_attn...' saves the flash kernel's "
+                "(out, lse) residuals and requires use_flash=True")
+        groups = policy.split("+")[1:]
+        for group in groups:
+            if group not in LAYER_SAVE_GROUPS:
+                raise ValueError(
+                    f"unknown save group {group!r} in remat_policy "
+                    f"{policy!r}; known: {sorted(LAYER_SAVE_GROUPS)}")
+        save_ops, groups = (torch.ops.ptt.flash_fwd.default,), frozenset(
+            groups)
+    elif policy in DOTS_POLICIES:
+        save_ops, groups = DOTS_POLICIES[policy], frozenset()
+    else:
+        raise NotImplementedError(
+            f"remat_policy {policy!r} is not ported; ported: None (full "
+            f"remat), 'save_attn[+qkv][+gateup][+normed]', "
+            f"{', '.join(repr(p) for p in DOTS_POLICIES)} and 'auto' "
+            f"(resolved by auto_remat_policy)")
+    return functools.partial(create_selective_checkpoint_contexts,
+                             _selective_policy(save_ops, groups))
+
+
+def auto_remat_policy(
+    cfg: LlamaConfig,
+    batch: int,
+    seq_len: int,
+    *,
+    hbm_gb: float = 16.0,
+    reserve_gb: float = 2.5,
+    state_shards: int = 1,
+    token_shards: int = 1,
+) -> str:
+    """Pick the richest save_attn tier whose residuals fit the device.
+
+    A copy of the JAX ``auto_remat_policy``: the budget is ``hbm_gb``
+    (GiB of device memory) minus params + optimizer state (AdamW moments
+    in the param dtype) minus a transient ``reserve_gb``; each tier's
+    per-layer saved residuals are priced per token and the richest tier
+    that fits wins.  ``state_shards`` divides the params and optimizer
+    state, ``token_shards`` the activations.  Tiers are ordered by
+    recompute removed per saved byte: the SwiGLU branches and q/k/v
+    carry about equal FLOPs per byte, the norm outputs only skip a
+    bandwidth-bound recompute, so they come last."""
+    dsize = cfg.dtype.itemsize
+    state_bytes = n_params(cfg) * (dsize + 2 * dsize)  # params + mu + nu
+    budget = (hbm_gb - reserve_gb) * 2 ** 30 - state_bytes / state_shards
+    tokens = batch * seq_len / token_shards
+    hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+
+    # bytes/token of saved residuals per layer, by component
+    base = dsize * cfg.dim          # the layer-input residual h
+    flash = dsize * nh * hd + 4 * nh   # flash out (dtype) + lse (f32)
+    per_group = {
+        "qkv": dsize * hd * (nh + 2 * nkv),
+        "gateup": dsize * 2 * cfg.ffn_dim,
+        "normed": dsize * 2 * cfg.dim,
+    }
+    for tier in ("save_attn+qkv+gateup+normed", "save_attn+qkv+gateup",
+                 "save_attn+gateup", "save_attn+qkv",
+                 "save_attn+normed", "save_attn"):
+        per_token = base + flash + sum(
+            per_group[g] for g in tier.split("+")[1:])
+        if cfg.n_layers * tokens * per_token <= budget:
+            return tier
+    return "save_attn"
+
+
 class Block(nn.Module):
     """One decoder layer: the JAX ``_layer``."""
 
@@ -169,14 +332,22 @@ class Block(nn.Module):
         cfg = self.cfg
         B, T, _ = h.shape
         hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-        x = rms_norm(h, self.attn_norm, cfg.norm_eps, cfg.use_fused_norm)
-        q = apply_rope(self.wq(x).view(B, T, nh, hd), cos, sin)
-        k = apply_rope(self.wk(x).view(B, T, nkv, hd), cos, sin)
-        v = self.wv(x).view(B, T, nkv, hd)
-        attn = _attention(q, k, v, cfg).reshape(B, T, nh * hd)
-        h = h + self.wo(attn)
-        x = rms_norm(h, self.mlp_norm, cfg.norm_eps, cfg.use_fused_norm)
-        return h + self.w_down(F.silu(self.w_gate(x)) * self.w_up(x))
+        # the save-group regions matter only under a selective remat
+        # policy (remat_context_fn); elsewhere they change nothing
+        with _save_region("normed"):
+            x = rms_norm(h, self.attn_norm, cfg.norm_eps,
+                         cfg.use_fused_norm)
+        with _save_region("qkv"):
+            q, k, v = self.wq(x), self.wk(x), self.wv(x)
+        q = apply_rope(q.view(B, T, nh, hd), cos, sin)
+        k = apply_rope(k.view(B, T, nkv, hd), cos, sin)
+        attn = _attention(q, k, v.view(B, T, nkv, hd), cfg)
+        h = h + self.wo(attn.reshape(B, T, nh * hd))
+        with _save_region("normed"):
+            x = rms_norm(h, self.mlp_norm, cfg.norm_eps, cfg.use_fused_norm)
+        with _save_region("gateup"):
+            gate, up = self.w_gate(x), self.w_up(x)
+        return h + self.w_down(F.silu(gate) * up)
 
 
 class Llama(nn.Module):
@@ -185,11 +356,9 @@ class Llama(nn.Module):
     def __init__(self, cfg: LlamaConfig, *, device=None,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if cfg.remat and cfg.remat_policy is not None:
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} is not ported yet; "
-                f"remat=True with remat_policy=None is per-layer "
-                f"torch.utils.checkpoint")
+        # the layers' checkpoint context (raises on a policy it cannot
+        # run, as the JAX model does when it builds the layer body)
+        self.remat_context = remat_context_fn(cfg) if cfg.remat else None
         dev = default_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim,
@@ -207,7 +376,8 @@ class Llama(nn.Module):
         cos, sin = rope_table(cfg, tokens.shape[1], h.device)
         for block in self.layers:
             if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(block, h, cos, sin, use_reentrant=False)
+                h = checkpoint(block, h, cos, sin, use_reentrant=False,
+                               context_fn=self.remat_context)
             else:
                 h = block(h, cos, sin)
         h = rms_norm(h, self.final_norm, cfg.norm_eps, cfg.use_fused_norm)

@@ -1,7 +1,8 @@
 """The hot ops, each with a hand-written CUDA kernel and a plain version.
 
-Counterpart of ``pytorch_operator_tpu/ops``: flash attention (forward
-and fused backward) and RMSNorm.  CUDA tensors launch the kernels in
+Counterpart of ``pytorch_operator_tpu/ops``: flash attention (forward;
+backward fused, or as a dq and a dk/dv kernel for long sequences) and
+RMSNorm.  CUDA tensors launch the kernels in
 ``csrc/``; CPU tensors take the plain PyTorch versions.
 """
 

@@ -1,4 +1,4 @@
-"""Flash attention with CUDA forward and fused backward kernels.
+"""Flash attention with CUDA forward and backward kernels.
 
 Port of ``pytorch_operator_tpu/ops/flash_attention.py``.  One
 ``torch.autograd.Function`` carries both public entries:
@@ -8,27 +8,44 @@ Port of ``pytorch_operator_tpu/ops/flash_attention.py``.  One
                                          outputs take gradients
 
 For CUDA tensors the forward launches ``csrc/flash_fwd.cu`` (counterpart
-of the TPU kernel ``_fwd_kernel``) and the backward ``csrc/flash_bwd.cu``
-(counterpart of ``_bwd_fused_kernel``).  As in the JAX module, two pieces
-of the backward stay outside the kernel, in plain torch:
+of the TPU kernel ``_fwd_kernel``).  The backward takes one of the JAX
+module's two routes, by the same rule (``_use_fused_bwd``):
+
+  fused       ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``): one pass,
+              dq summed with f32 atomics
+  two-kernel  ``csrc/flash_bwd_dq.cu`` (``_bwd_dq_kernel``) then
+              ``csrc/flash_bwd_dkv.cu`` (``_bwd_dkv_kernel``): no
+              atomics, dq bit-identical from run to run
+
+On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
+(T, D) f32 dq resident, so past ``_FUSED_DQ_BYTES`` (T > 8192 at
+D = 128) the JAX backward runs the two kernels.  Nothing on the H100
+binds at that size (dq lives in device memory); the rule is kept so that
+the same shapes reach the same kernels as in the reference, and
+``PERF.md`` records B2 against B3 + B4 at T8192 and T16384 for a later
+re-derivation.  As in the JAX module, two pieces of the backward stay
+outside the kernels, in plain torch:
 
   delta = rowsum(dO * O) - g_lse   (the lse cotangent only shifts delta:
                                     ds = p * (dp - delta) picks up
                                     + p * g_lse, since d lse_i / d s_ij
-                                    = p_ij)
+                                    = p_ij; both routes)
   _reduce_kv_partials              per-q-head dk / dv summed over each
                                    GQA group
 
-CPU tensors take the plain versions: ``_flash_fwd_reference`` and
-``_flash_bwd_reference`` beside the kernels, and ``_dense_reference`` /
-``_dense_path`` as in the JAX module.
+CPU tensors take the plain versions beside each kernel
+(``_flash_fwd_reference``, ``_flash_bwd_reference``,
+``_flash_bwd_dq_reference``, ``_flash_bwd_dkv_reference``), and
+``_dense_reference`` / ``_dense_path`` are as in the JAX module.  The
+forward is the operator ``torch.ops.ptt.flash_fwd`` so that a
+checkpoint policy can name it (``models/llama.py``'s ``save_attn``).
 
-The TPU-tuned dispatch is not carried over: ``_auto_block``, the
-short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``) and the
-fused-backward VMEM gate (``_FUSED_DQ_VMEM_BYTES``).  On CUDA every call,
-forward-only or not, goes through the kernels, which tile T by 64 and
-mask the tail themselves.  The kernels take bf16 with D in {64, 128};
-anything else on a CUDA tensor raises.
+The rest of the TPU-tuned dispatch is not carried over: ``_auto_block``
+and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
+On CUDA every call, forward-only or not, goes through the kernels, which
+tile T by 64 and mask the tail themselves.  The kernels take float32 or
+bfloat16 with D in {16, 32, 64, 128}; anything else on a CUDA tensor
+raises.
 """
 
 from __future__ import annotations
@@ -40,13 +57,26 @@ import torch
 from pytorch_operator_tpu_torch import kernels
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128)
+# the C entries' dtype codes, and the head dims they are built for
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-FWD_KERNEL = kernels.CudaKernel(
-    "flash_fwd", [_P] * 5 + [_I] * 6 + [_F, _I, _P])
-BWD_KERNEL = kernels.CudaKernel(
-    "flash_bwd", [_P] * 9 + [_I] * 6 + [_F, _I, _P])
+_TAIL = [_I] * 6 + [_F, _I, _I, _P]  # B H Hk T D bh, scale causal dtype s
+FWD_KERNEL = kernels.CudaKernel("flash_fwd", [_P] * 5 + _TAIL)
+BWD_KERNEL = kernels.CudaKernel("flash_bwd", [_P] * 9 + _TAIL)
+BWD_DQ_KERNEL = kernels.CudaKernel("flash_bwd_dq", [_P] * 7 + _TAIL)
+BWD_DKV_KERNEL = kernels.CudaKernel("flash_bwd_dkv", [_P] * 8 + _TAIL)
+
+# The JAX module's _FUSED_DQ_VMEM_BYTES: the fused backward while its
+# (T, D) f32 dq takes at most this many bytes, else the two kernels.
+_FUSED_DQ_BYTES = 4 * 1024 * 1024
+
+
+def _use_fused_bwd(T: int, D: int) -> bool:
+    """The JAX dispatch rule (``_use_fused_bwd`` there, whose tile clamp
+    never binds at the port's 64-row tiles)."""
+    return T * D * 4 <= _FUSED_DQ_BYTES
 
 
 # --------------------------------------------------------------------------
@@ -108,24 +138,44 @@ def _flash_fwd_reference(q, k, v, scale, causal, bh):
             lse.reshape(B * H, 1, T))
 
 
-def _flash_bwd_reference(q, k, v, g, lse, delta, scale, causal, bh):
-    """Plain version of the backward kernel, in f32.
-
-    lse and delta are (B*H, T) f32.  Returns dq and the per-q-head dk /
-    dv partials, all f32 in q's layout."""
+def _bwd_probs(q, k, v, g, lse, delta, scale, causal, bh):
+    """The backward's recomputed p and ds, (B, H, T, T) f32, with q, k
+    (repeated per q head) and g as (B, H, T, D) f32.  lse and delta are
+    (B*H, T) f32."""
     q4, k4, v4, g4 = (_heads_first(x, bh).float() for x in (q, k, v, g))
     B, H, T, _ = q4.shape
     group = H // k4.shape[1]
     k4 = k4.repeat_interleave(group, dim=1)
     v4 = v4.repeat_interleave(group, dim=1)
-    lse = lse.reshape(B, H, T, 1)
-    delta = delta.reshape(B, H, T, 1)
-    p = torch.exp((q4 @ k4.transpose(-1, -2)) * scale - lse)
+    p = torch.exp((q4 @ k4.transpose(-1, -2)) * scale
+                  - lse.reshape(B, H, T, 1))
     if causal:
         p = p.masked_fill(~_causal_mask(T, p.device), 0.0)
     dp = g4 @ v4.transpose(-1, -2)
-    ds = p * (dp - delta) * scale
+    ds = p * (dp - delta.reshape(B, H, T, 1)) * scale
+    return q4, k4, g4, p, ds
+
+
+def _flash_bwd_reference(q, k, v, g, lse, delta, scale, causal, bh):
+    """Plain version of the fused backward kernel, in f32: dq and the
+    per-q-head dk / dv partials, all f32 in q's layout."""
+    q4, k4, g4, p, ds = _bwd_probs(q, k, v, g, lse, delta, scale, causal, bh)
     out = (ds @ k4, ds.transpose(-1, -2) @ q4, p.transpose(-1, -2) @ g4)
+    return tuple(_from_heads_first(x, bh).contiguous() for x in out)
+
+
+def _flash_bwd_dq_reference(q, k, v, g, lse, delta, scale, causal, bh):
+    """Plain version of the dq kernel: dq = ds K in f32, in q's dtype and
+    layout."""
+    _, k4, _, _, ds = _bwd_probs(q, k, v, g, lse, delta, scale, causal, bh)
+    return _from_heads_first(ds @ k4, bh).to(q.dtype).contiguous()
+
+
+def _flash_bwd_dkv_reference(q, k, v, g, lse, delta, scale, causal, bh):
+    """Plain version of the dk / dv kernel: the per-q-head partials
+    ds^T Q and p^T dO, f32 in q's layout."""
+    q4, _, g4, p, ds = _bwd_probs(q, k, v, g, lse, delta, scale, causal, bh)
+    out = (ds.transpose(-1, -2) @ q4, p.transpose(-1, -2) @ g4)
     return tuple(_from_heads_first(x, bh).contiguous() for x in out)
 
 
@@ -143,46 +193,82 @@ def _dims(q, k, bh):
     return B, H, k.shape[2], T, D
 
 
-def _check_cuda(tensors, D):
-    dev = tensors[0].device
+def _checked_dims(q, k, bh, tensors):
+    """(B, H, Hk, T, D) of a kernel call, after checking that ``tensors``
+    are what the kernels take."""
+    B, H, Hk, T, D = _dims(q, k, bh)
+    dev, dtype = q.device, q.dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError("flash attention inputs must share one device")
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash attention kernels take bfloat16, got "
-                            f"{t.dtype}")
+        if t.dtype != dtype or dtype not in KERNEL_DTYPES:
+            raise TypeError(f"flash attention kernels take float32 or "
+                            f"bfloat16 inputs of one dtype, got "
+                            f"{[x.dtype for x in tensors]}")
     if D not in KERNEL_HEAD_DIMS:
         raise ValueError(f"flash attention kernels take head dim "
                          f"{KERNEL_HEAD_DIMS}, got {D}")
     if dev.type != "cuda":
         raise ValueError(f"flash attention kernels take CUDA tensors, got "
                          f"{dev}")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError("flash attention kernels take 16-byte aligned "
+                         "tensors")
+    if B * H > 65535:
+        raise ValueError(f"batch * heads = {B * H} exceeds the grid limit")
+    return B, H, Hk, T, D
+
+
+def _launch(kernel, tensors, q, k, bh, scale, causal):
+    B, H, Hk, T, D = _dims(q, k, bh)
+    kernel(*(kernels.ptr(t) for t in tensors), B, H, Hk, T, D, int(bh),
+           float(scale), int(causal), KERNEL_DTYPES[q.dtype],
+           kernels.stream(q.device))
 
 
 def _flash_fwd_cuda(q, k, v, scale, causal, bh):
-    B, H, Hk, T, D = _dims(q, k, bh)
-    _check_cuda((q, k, v), D)
-    if B * H > 65535:
-        raise ValueError(f"batch * heads = {B * H} exceeds the grid limit")
+    B, H, _, T, _ = _checked_dims(q, k, bh, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(B * H, 1, T, dtype=torch.float32, device=q.device)
-    FWD_KERNEL(*(kernels.ptr(t) for t in (q, k, v, out, lse)),
-               B, H, Hk, T, D, int(bh), float(scale), int(causal),
-               kernels.stream(q.device))
+    _launch(FWD_KERNEL, (q, k, v, out, lse), q, k, bh, scale, causal)
     return out, lse
 
 
 def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh):
-    B, H, Hk, T, D = _dims(q, k, bh)
-    _check_cuda((q, k, v, g), D)
+    _checked_dims(q, k, bh, (q, k, v, g))
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    BWD_KERNEL(*(kernels.ptr(t) for t in (q, k, v, g, lse, delta, dq, dkp,
-                                          dvp)),
-               B, H, Hk, T, D, int(bh), float(scale), int(causal),
-               kernels.stream(q.device))
+    _launch(BWD_KERNEL, (q, k, v, g, lse, delta, dq, dkp, dvp), q, k, bh,
+            scale, causal)
     return dq, dkp, dvp
+
+
+def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal, bh):
+    _checked_dims(q, k, bh, (q, k, v, g))
+    dq = torch.empty_like(q)
+    _launch(BWD_DQ_KERNEL, (q, k, v, g, lse, delta, dq), q, k, bh, scale,
+            causal)
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal, bh):
+    _checked_dims(q, k, bh, (q, k, v, g))
+    dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    _launch(BWD_DKV_KERNEL, (q, k, v, g, lse, delta, dkp, dvp), q, k, bh,
+            scale, causal)
+    return dkp, dvp
+
+
+@torch.library.custom_op("ptt::flash_fwd", mutates_args=())
+def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              scale: float, causal: bool, bh: bool
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The forward kernel (CUDA tensors) or its plain version (CPU
+    tensors) as one operator, which a checkpoint policy can name."""
+    return kernels.dispatch(q, _flash_fwd_cuda, _flash_fwd_reference, q, k,
+                            v, scale, causal, bh)
 
 
 def _reduce_kv_partials(partials, group, out_dtype, bh):
@@ -207,8 +293,8 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, bh):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = kernels.dispatch(q, _flash_fwd_cuda, _flash_fwd_reference,
-                                    q, k, v, scale, causal, bh)
+        kernels.on_cuda(q)  # any other device raises before the operator
+        out, lse = flash_fwd(q, k, v, scale, causal, bh)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale, ctx.causal, ctx.bh = scale, causal, bh
         ctx.set_materialize_grads(False)
@@ -218,7 +304,7 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, g, g_lse):
         q, k, v, out, lse = ctx.saved_tensors
         bh = ctx.bh
-        B, H, Hk, T, _ = _dims(q, k, bh)
+        B, H, Hk, T, D = _dims(q, k, bh)
         g = torch.zeros_like(out) if g is None else g.contiguous()
         # delta = rowsum(dO * O) - g_lse, (B*H, T) f32
         delta = (g.float() * out.float()).sum(-1)
@@ -226,13 +312,19 @@ class _Flash(torch.autograd.Function):
             delta = delta.transpose(1, 2).reshape(B * H, T)
         if g_lse is not None:
             delta = delta - g_lse.reshape(B * H, T).float()
-        delta = delta.contiguous()
-        lse2 = lse.reshape(B * H, T)
-        dq, dkp, dvp = kernels.dispatch(
-            q, _flash_bwd_cuda, _flash_bwd_reference, q, k, v, g, lse2, delta,
-            ctx.scale, ctx.causal, bh)
+        args = (q, k, v, g, lse.reshape(B * H, T), delta.contiguous(),
+                ctx.scale, ctx.causal, bh)
+        if _use_fused_bwd(T, D):
+            dq, dkp, dvp = kernels.dispatch(q, _flash_bwd_cuda,
+                                            _flash_bwd_reference, *args)
+            dq = dq.to(q.dtype)
+        else:
+            dq = kernels.dispatch(q, _flash_bwd_dq_cuda,
+                                  _flash_bwd_dq_reference, *args)
+            dkp, dvp = kernels.dispatch(q, _flash_bwd_dkv_cuda,
+                                        _flash_bwd_dkv_reference, *args)
         group = H // Hk
-        return (dq.to(q.dtype), _reduce_kv_partials(dkp, group, k.dtype, bh),
+        return (dq, _reduce_kv_partials(dkp, group, k.dtype, bh),
                 _reduce_kv_partials(dvp, group, v.dtype, bh), None, None,
                 None)
 

@@ -3,9 +3,13 @@
 Port of ``pytorch_operator_tpu/ops/rms_norm.py``.  The forward of a CUDA
 tensor launches ``csrc/rms_norm.cu`` (the counterpart of the TPU kernel
 ``_rms_kernel``); a CPU tensor takes ``rms_norm_reference``, the plain
-version.  The backward is the JAX module's analytic VJP
-(``_rms_vjp_bwd``) in plain torch on either device: the JAX backward is
-no Pallas kernel either.
+version.  The forward is the operator ``torch.ops.ptt.rms_norm_fwd``:
+a kernel launched through ctypes is invisible to a checkpoint policy,
+so as one operator its output is what the ``normed`` region of
+``models/llama.py`` saves, and the recompute takes it from the forward
+instead of launching the kernel again.  The backward is the JAX
+module's analytic VJP (``_rms_vjp_bwd``) in plain torch on either
+device: the JAX backward is no Pallas kernel either.
 
 The TPU dispatch limits (rows a multiple of the row block, D <= 2048,
 the VMEM budget of the row block) were TPU VMEM constants; the CUDA
@@ -76,13 +80,22 @@ def rms_norm_backward(x2: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     return gx.to(x2.dtype), gw
 
 
+@torch.library.custom_op("ptt::rms_norm_fwd", mutates_args=())
+def rms_norm_fwd(x2: torch.Tensor, weight: torch.Tensor,
+                 eps: float) -> torch.Tensor:
+    """The kernel (CUDA tensors) or its plain version (CPU tensors) as one
+    operator, which a checkpoint policy can name."""
+    return kernels.dispatch(x2, rms_norm_cuda, rms_norm_reference, x2,
+                            weight, eps)
+
+
 class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x2, weight, eps):
         ctx.save_for_backward(x2, weight)
         ctx.eps = eps
-        return kernels.dispatch(x2, rms_norm_cuda, rms_norm_reference, x2,
-                                weight, eps)
+        kernels.on_cuda(x2)  # any other device raises before the operator
+        return rms_norm_fwd(x2, weight, eps)
 
     @staticmethod
     def backward(ctx, g):

@@ -18,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from pytorch_operator_tpu_torch import kernels
+from pytorch_operator_tpu_torch import kernels, train_llama
 from pytorch_operator_tpu_torch.models import llama
 
 fa = importlib.import_module("pytorch_operator_tpu_torch.ops.flash_attention")
@@ -103,3 +103,106 @@ def test_tiny_llama_kernels_match_plain(cuda):
     # rounding the plain bf16 model already has (see chip_smoke.py)
     assert e_on.max() <= 2 * e_off.max() + 2e-3
     assert e_on.mean() <= 2 * e_off.mean() + 2e-3
+
+
+FLASH_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+
+
+def _launches():
+    return {n: kernels.KERNELS[n].launches for n in FLASH_KERNELS}
+
+
+def _flash_case(gen, B, T, H, Hk, D, causal, dtype, bh):
+    def r(h):
+        shape = (B * h, T, D) if bh else (B, T, h, D)
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, g = r(H), r(Hk), r(Hk), r(H)
+    g_lse = (torch.randn(B * H, 1, T, generator=gen, device="cuda")
+             if bh else None)
+
+    def grads(xs, ref):
+        xs = [x.detach().requires_grad_(True) for x in xs]
+        fwd = fa._flash_fwd_reference if ref else fa._Flash.apply
+        out, lse = fwd(*xs, D ** -0.5, causal, bh)
+        loss = (out.float() * g.float()).sum()
+        if g_lse is not None:
+            loss = loss + (lse * g_lse).sum()
+        loss.backward()
+        return [out] + [x.grad for x in xs]
+
+    before = _launches()
+    got = grads((q, k, v), ref=False)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launches().items()}
+    want = grads([x.float() for x in (q, k, v)], ref=True)
+    return got, want, launched
+
+
+# bf16: p and ds rounded to bf16 before their products, bf16 outputs;
+# f32 runs its products in TF32 (10-bit mantissa)
+TOL = {torch.bfloat16: 1e-2, torch.float32: 5e-3}
+
+
+@pytest.mark.parametrize("route", ["fused", "two_kernel"])
+@pytest.mark.parametrize("dtype,D,B,T,H,Hk,causal,bh", [
+    (torch.bfloat16, 16, 2, 200, 4, 2, True, False),
+    (torch.bfloat16, 32, 1, 130, 4, 4, False, False),
+    (torch.bfloat16, 128, 1, 300, 4, 1, True, True),
+    (torch.float32, 16, 2, 200, 4, 2, True, False),
+    (torch.float32, 64, 1, 257, 2, 2, False, False),
+    (torch.float32, 128, 1, 300, 4, 2, True, True)])
+def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
+                                           D, B, T, H, Hk, causal, bh):
+    """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
+    force it) at every kernel dtype and head dim, against autograd
+    through the f32 plain forward, with exact launch counts."""
+    if route == "two_kernel":
+        monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
+                                      bh)
+    two = route == "two_kernel"
+    assert launched == {"flash_fwd": 1, "flash_bwd": int(not two),
+                        "flash_bwd_dq": int(two), "flash_bwd_dkv": int(two)}
+    assert got[1].dtype == dtype
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL[dtype] * b.abs().max().item() + 1e-3, err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_two_kernel_dq_is_bitwise_stable(cuda, dtype):
+    """B3 sums dq without atomics: two runs give the same bits."""
+    B, T, H, D = 1, 700, 4, 64
+    q, k, v, g = (torch.randn(B, T, H, D, generator=cuda,
+                              device="cuda").to(dtype) for _ in range(4))
+    out, lse = fa._flash_fwd_cuda(q, k, v, D ** -0.5, True, False)
+    lse2 = lse.reshape(B * H, T)
+    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+        B * H, T).contiguous()
+    args = (q, k, v, g, lse2, delta, D ** -0.5, True, False)
+    first = fa._flash_bwd_dq_cuda(*args)
+    second = fa._flash_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    # the dk / dv kernel is the fused kernel's walk without dq
+    dkv = fa._flash_bwd_dkv_cuda(*args)
+    fused = fa._flash_bwd_cuda(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(dkv, fused[1:]):
+        assert torch.equal(a, b)
+
+
+def test_train_llama_tiny_on_cuda(cuda, capsys):
+    """The trainer's default tiny model (f32, head dim 16) through the
+    kernels: two steps."""
+    before = kernels.launch_counts()
+    rc = train_llama.main(["--model", "tiny", "--steps", "2",
+                           "--batch-size", "2", "--seq-len", "64",
+                           "--log-interval", "1"])
+    out = capsys.readouterr().out
+    assert rc == 0 and "training complete" in out
+    assert "flash=True fused_norm=True" in out
+    after = kernels.launch_counts()
+    assert all(after[n] > before[n] for n in ("flash_fwd", "flash_bwd",
+                                              "rms_norm_fwd"))

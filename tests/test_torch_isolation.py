@@ -59,7 +59,8 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         from pytorch_operator_tpu_torch import kernels
         assert kernels._lib is None, "importing loaded the library"
         assert sorted(kernels.KERNELS) == [
-            "flash_bwd", "flash_fwd", "rms_norm_fwd"], kernels.KERNELS
+            "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
+            "rms_norm_fwd"], kernels.KERNELS
         try:
             kernels.build()
         except RuntimeError as e:
@@ -109,7 +110,15 @@ def _cuda_wrappers():
         "flash_fwd": lambda: fa._flash_fwd_cuda(q, q, q, 0.125, True, False),
         "flash_bwd": lambda: fa._flash_bwd_cuda(q, q, q, q, lse, lse, 0.125,
                                                 True, False),
+        "flash_bwd_dq": lambda: fa._flash_bwd_dq_cuda(q, q, q, q, lse, lse,
+                                                      0.125, True, False),
+        "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_cuda(q, q, q, q, lse, lse,
+                                                        0.125, True, False),
     }
+
+
+KERNEL_NAMES = ["rms_norm_fwd", "flash_fwd", "flash_bwd", "flash_bwd_dq",
+                "flash_bwd_dkv"]
 
 
 def _dummy_args(kernel):
@@ -117,7 +126,7 @@ def _dummy_args(kernel):
             for a in kernel.argtypes]
 
 
-@pytest.mark.parametrize("name", ["rms_norm_fwd", "flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_wrapper_refuses_cpu_tensors_and_builds_nothing(no_toolkit, name):
     """The CUDA path given CPU tensors raises; it does not take the plain
     version in their place."""
@@ -129,7 +138,7 @@ def test_wrapper_refuses_cpu_tensors_and_builds_nothing(no_toolkit, name):
     assert kernels._lib is None
 
 
-@pytest.mark.parametrize("name", ["rms_norm_fwd", "flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_kernel_without_toolkit_raises_and_counts_nothing(no_toolkit, name):
     k = kernels.KERNELS[name]
     before = k.launches
@@ -153,7 +162,7 @@ class _FakeLib:
         return entry
 
 
-@pytest.mark.parametrize("name", ["rms_norm_fwd", "flash_fwd", "flash_bwd"])
+@pytest.mark.parametrize("name", KERNEL_NAMES)
 def test_launch_counts_only_launches_that_succeed(monkeypatch, name):
     k = kernels.KERNELS[name]
     start = k.launches
@@ -181,8 +190,8 @@ class TestWrappersRefuseWhatTheKernelsDoNotTake:
             rn.rms_norm_cuda(torch.ones(4, 8).half(), torch.ones(8).half(),
                              1e-5)
 
-    @pytest.mark.parametrize("dtype,D,exc", [(torch.float32, 64, TypeError),
-                                             (torch.bfloat16, 32, ValueError)])
+    @pytest.mark.parametrize("dtype,D,exc", [(torch.float16, 64, TypeError),
+                                             (torch.bfloat16, 48, ValueError)])
     def test_flash_dtype_and_head_dim(self, dtype, D, exc):
         q = torch.ones(1, 8, 2, D, dtype=dtype)
         with pytest.raises(exc):

@@ -7,6 +7,8 @@ Tolerances are tests/test_ops.py's: 2e-5 / 1e-4 forward, 5e-5 / 1e-3
 gradients.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,8 +26,14 @@ from pytorch_operator_tpu_torch.ops import rms_norm
 from pytorch_operator_tpu_torch.ops.flash_attention import (
     _dense_path,
     _Flash,
+    _flash_bwd_dkv_reference,
+    _flash_bwd_dq_reference,
     _flash_bwd_reference,
 )
+
+# the modules (ops/__init__ re-exports functions of the same names)
+jax_fa = importlib.import_module("pytorch_operator_tpu.ops.flash_attention")
+fa = importlib.import_module("pytorch_operator_tpu_torch.ops.flash_attention")
 
 FWD = dict(atol=2e-5, rtol=1e-4)
 GRAD = dict(atol=5e-5, rtol=1e-3)
@@ -99,33 +107,103 @@ class TestFlashAttention:
 
     @pytest.mark.parametrize("with_out", [True, False])  # False: g_out None
     def test_flash_with_lse_cotangent_matches_jax(self, with_out):
-        BH, T, D, group = 4, 128, 16, 2
-        q = randn(30, BH, T, D)
-        k, v = randn(31, BH // group, T, D), randn(32, BH // group, T, D)
-        g_out, g_lse = randn(33, BH, T, D) * with_out, randn(34, BH, 1, T)
-        scale = D ** -0.5
+        check_flash_with_lse(with_out)
 
-        def jloss(q, k, v):
-            out, lse = jax_flash_with_lse(q, k, v, scale, True, 128, 128,
-                                          True)
-            return jnp.sum(out * g_out) + jnp.sum(lse * g_lse), (out, lse)
 
-        (_, (jout, jlse)), gj = jax.value_and_grad(
-            jloss, argnums=(0, 1, 2), has_aux=True)(
-                *map(jnp.asarray, (q, k, v)))
+def check_flash_with_lse(with_out):
+    """flash_with_lse's (out, lse) and grads under an lse cotangent (and an
+    out cotangent, or none), against JAX's."""
+    BH, T, D, group = 4, 128, 16, 2
+    q = randn(30, BH, T, D)
+    k, v = randn(31, BH // group, T, D), randn(32, BH // group, T, D)
+    g_out, g_lse = randn(33, BH, T, D) * with_out, randn(34, BH, 1, T)
+    scale = D ** -0.5
+
+    def jloss(q, k, v):
+        out, lse = jax_flash_with_lse(q, k, v, scale, True, 128, 128, True)
+        return jnp.sum(out * g_out) + jnp.sum(lse * g_lse), (out, lse)
+
+    (_, (jout, jlse)), gj = jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True)(
+            *map(jnp.asarray, (q, k, v)))
+    ts = [t(a, True) for a in (q, k, v)]
+    out, lse = flash_with_lse(*ts, scale, True)
+    assert lse.shape == (BH, 1, T) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout), **FWD)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse), **FWD)
+    loss = (lse * t(g_lse)).sum()
+    if with_out:
+        loss = loss + (out * t(g_out)).sum()
+    loss.backward()
+    for a, b in zip(ts, gj):
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), **GRAD)
+
+
+@pytest.fixture()
+def two_kernel_route(monkeypatch):
+    """Both packages' backward forced onto the two-kernel route (dq, then
+    dk/dv), as tests/test_ops.py forces the JAX one; returns the names of
+    the port's plain versions as they run."""
+    monkeypatch.setattr(jax_fa, "_FUSED_DQ_VMEM_BYTES", 0)
+    monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    ran = []
+
+    def counted(name):
+        fn = getattr(fa, name)
+
+        def wrapper(*args):
+            ran.append(name)
+            return fn(*args)
+        return wrapper
+
+    for name in ("_flash_bwd_dq_reference", "_flash_bwd_dkv_reference"):
+        monkeypatch.setattr(fa, name, counted(name))
+
+    def fused(*args):
+        raise AssertionError("the fused backward ran")
+
+    monkeypatch.setattr(fa, "_flash_bwd_reference", fused)
+    return ran
+
+
+class TestTwoKernelRoute:
+    """The JAX long-T backward (_bwd_dq_kernel then _bwd_dkv_kernel) and
+    the port's (flash_bwd_dq / flash_bwd_dkv, plain versions here)."""
+
+    @pytest.mark.parametrize("T,causal,groups", [
+        (384, True, 1), (256, False, 1), (384, True, 2), (200, False, 2)])
+    def test_grads_match_jax_twokernel(self, two_kernel_route, T, causal,
+                                       groups):
+        q, k, v = qkv(50, 1, T, 2 * groups, 2, 32)
+        gj = jax.grad(
+            lambda *a: jnp.sum(jax_flash(*a, causal=causal) ** 2),
+            argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
         ts = [t(a, True) for a in (q, k, v)]
-        out, lse = flash_with_lse(*ts, scale, True)
-        assert lse.shape == (BH, 1, T) and lse.dtype == torch.float32
-        np.testing.assert_allclose(out.detach().numpy(), np.asarray(jout),
-                                   **FWD)
-        np.testing.assert_allclose(lse.detach().numpy(), np.asarray(jlse),
-                                   **FWD)
-        loss = (lse * t(g_lse)).sum()
-        if with_out:
-            loss = loss + (out * t(g_out)).sum()
-        loss.backward()
+        (flash_attention(*ts, causal=causal) ** 2).sum().backward()
+        assert two_kernel_route == ["_flash_bwd_dq_reference",
+                                    "_flash_bwd_dkv_reference"]
         for a, b in zip(ts, gj):
             np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), **GRAD)
+
+    @pytest.mark.parametrize("with_out", [True, False])
+    def test_flash_with_lse_cotangent_twokernel(self, two_kernel_route,
+                                                with_out):
+        check_flash_with_lse(with_out)
+        assert two_kernel_route == ["_flash_bwd_dq_reference",
+                                    "_flash_bwd_dkv_reference"]
+
+    @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+    def test_route_rule_matches_jax(self, D):
+        """The same (T, D) take the same backward in both packages: JAX
+        decides on T padded to its block, the port (which pads nothing) on
+        T itself."""
+        for T in (1, 100, 1000, 1024, 4096, 8000, 8191, 8192, 8193, 9000,
+                  16384, 16385, 32768, 40000, 65536, 65537):
+            b = _auto_block(T, D)
+            t_pad = -(-T // b) * b
+            want = jax_fa._use_fused_bwd(t_pad, D, b, b)
+            assert fa._use_fused_bwd(T, D) == want, (T, D)
+        assert fa._FUSED_DQ_BYTES == jax_fa._FUSED_DQ_VMEM_BYTES
 
 
 class TestPlainVersions:
@@ -149,3 +227,12 @@ class TestPlainVersions:
         dv = dvp.view(B, T, H // groups, groups, D).sum(3)
         for a, b in zip((dq, dk, dv), (q.grad, k.grad, v.grad)):
             np.testing.assert_allclose(a.numpy(), b.numpy(), **GRAD)
+        # the two-kernel route's plain versions: the same dq (in q's
+        # dtype) and the same per-q-head partials
+        args = (q.detach(), k.detach(), v.detach(), g,
+                lse.reshape(B * H, T), delta, scale, causal, False)
+        dq2 = _flash_bwd_dq_reference(*args)
+        assert dq2.dtype == q.dtype
+        torch.testing.assert_close(dq2, dq, atol=0, rtol=0)
+        for a, b in zip(_flash_bwd_dkv_reference(*args), (dkp, dvp)):
+            torch.testing.assert_close(a, b, atol=0, rtol=0)

@@ -180,3 +180,63 @@ class TestTrainLlamaEntry:
                     ffn_dim=5632, vocab_size=32000, dtype=torch.bfloat16)
         assert {k: getattr(cfg, k) for k in want} == want
         assert dataclasses.replace(cfg, max_seq_len=2048) == cfg
+
+
+class TestRematPolicyFlag:
+    """--remat-policy: the JAX entry's checks and its ``auto``."""
+
+    @pytest.mark.parametrize("argv", [
+        ["--remat-policy", "bogus"],
+        ["--remat-policy", "nothing_saveable"],
+        ["--remat-policy", "save_attn+bogus", "--flash"],
+        ["--model", "flagship", "--remat-policy", "save_attn"],
+        ["--no-remat", "--remat-policy", "dots_saveable"],
+        ["--remat-policy", "save_attn", "--device", "cpu"],
+        ["--remat-policy", "auto", "--no-flash"]])
+    def test_rejected(self, argv):
+        with pytest.raises(SystemExit):
+            train_llama.parse_args(argv)
+
+    @pytest.mark.parametrize("policy", [
+        "save_attn", "save_attn+qkv", "save_attn+gateup+normed",
+        "dots_saveable", "dots_with_no_batch_dims_saveable"])
+    def test_taken_as_given(self, policy):
+        args = train_llama.parse_args(["--remat-policy", policy])
+        cfg = train_llama.build_config(args, torch.device("cuda"))
+        assert cfg.remat and cfg.remat_policy == policy
+
+    def test_long_context_command(self):
+        args = train_llama.parse_args(
+            ["--model", "flagship", "--batch-size", "1", "--seq-len",
+             "16384", "--remat", "--remat-policy", "save_attn+qkv",
+             "--chunked-ce"])
+        cfg = train_llama.build_config(args, torch.device("cuda"))
+        assert (cfg.remat, cfg.remat_policy, cfg.use_flash,
+                cfg.max_seq_len) == (True, "save_attn+qkv", True, 16384)
+        assert args.chunked_ce and args.ce_chunk == 1024
+
+    @pytest.mark.parametrize("total_gib,want", [
+        (80, "save_attn+qkv+gateup+normed"), (16, "save_attn+gateup")])
+    def test_auto_takes_the_card_memory(self, monkeypatch, capsys,
+                                        total_gib, want):
+        class Props:
+            total_memory = total_gib * 2 ** 30
+
+        monkeypatch.setattr(torch.cuda, "get_device_properties",
+                            lambda device: Props)
+        args = train_llama.parse_args(
+            ["--model", "flagship", "--batch-size", "1", "--seq-len",
+             "16384", "--remat", "--remat-policy", "auto"])
+        cfg = train_llama.build_config(args, torch.device("cuda"))
+        assert cfg.remat_policy == want == llama.auto_remat_policy(
+            cfg, 1, 16384, hbm_gb=total_gib)
+        assert f"--remat-policy auto -> {want}" in capsys.readouterr().out
+
+    def test_tiny_run_with_a_tier_on_cpu(self, capsys):
+        rc = train_llama.main(["--model", "tiny", "--device", "cpu",
+                               "--flash", "--remat-policy", "auto",
+                               "--steps", "2", "--batch-size", "2",
+                               "--seq-len", "16", "--log-interval", "1"])
+        out = capsys.readouterr().out
+        assert rc == 0 and "training complete" in out
+        assert "remat_policy=save_attn+qkv+gateup+normed" in out
