@@ -7,15 +7,23 @@ Port of ``pytorch_operator_tpu/ops/flash_attention.py``.  One
   flash_with_lse(q, k, v, scale, causal) (BH, T, D) -> (out, lse), both
                                          outputs take gradients
 
-For CUDA tensors the forward launches ``csrc/flash_fwd.cu`` (counterpart
-of the TPU kernel ``_fwd_kernel``).  The backward takes one of the JAX
-module's two routes, by the same rule (``_use_fused_bwd``):
+For CUDA tensors the forward launches ``csrc/flash_fwd_sm90.cu`` or
+``csrc/flash_fwd.cu`` (counterparts of the TPU kernel ``_fwd_kernel``).
+The backward takes one of the JAX module's two routes, by the same rule
+(``_use_fused_bwd``):
 
-  fused       ``csrc/flash_bwd.cu`` (``_bwd_fused_kernel``): one pass,
-              dq summed with f32 atomics
+  fused       ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``
+              (``_bwd_fused_kernel``): one pass, dq summed with f32
+              atomics
   two-kernel  ``csrc/flash_bwd_dq.cu`` (``_bwd_dq_kernel``) then
               ``csrc/flash_bwd_dkv.cu`` (``_bwd_dkv_kernel``): no
               atomics, dq bit-identical from run to run
+
+Which of the two forward and fused backward kernels runs is a fixed rule
+on dtype and head dim (``_sm90``), not a fallback: bf16 at D in {64, 128}
+(every model's attention but the tiny one's) takes the Hopper kernels
+built on ``wgmma``, TMA and a warp-specialized mbarrier ring; f32 and D
+16/32 take the WMMA kernels.  A build or launch failure of either raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
 (T, D) f32 dq resident, so past ``_FUSED_DQ_BYTES`` (T > 8192 at
@@ -43,9 +51,9 @@ checkpoint policy can name it (``models/llama.py``'s ``save_attn``).
 The rest of the TPU-tuned dispatch is not carried over: ``_auto_block``
 and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
 On CUDA every call, forward-only or not, goes through the kernels, which
-tile T by 64 and mask the tail themselves.  The kernels take float32 or
-bfloat16 with D in {16, 32, 64, 128}; anything else on a CUDA tensor
-raises.
+tile T by 64 or 128 and mask the tail themselves.  The kernels take
+float32 or bfloat16 with D in {16, 32, 64, 128}; anything else on a CUDA
+tensor raises.
 """
 
 from __future__ import annotations
@@ -65,12 +73,21 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 6 + [_F, _I, _I, _P]  # B H Hk T D bh, scale causal dtype s
 FWD_KERNEL = kernels.CudaKernel("flash_fwd", [_P] * 5 + _TAIL)
 BWD_KERNEL = kernels.CudaKernel("flash_bwd", [_P] * 9 + _TAIL)
+FWD_SM90_KERNEL = kernels.CudaKernel("flash_fwd_sm90", [_P] * 5 + _TAIL)
+BWD_SM90_KERNEL = kernels.CudaKernel("flash_bwd_sm90", [_P] * 9 + _TAIL)
 BWD_DQ_KERNEL = kernels.CudaKernel("flash_bwd_dq", [_P] * 7 + _TAIL)
 BWD_DKV_KERNEL = kernels.CudaKernel("flash_bwd_dkv", [_P] * 8 + _TAIL)
 
 # The JAX module's _FUSED_DQ_VMEM_BYTES: the fused backward while its
 # (T, D) f32 dq takes at most this many bytes, else the two kernels.
 _FUSED_DQ_BYTES = 4 * 1024 * 1024
+
+
+def _sm90(dtype: torch.dtype, D: int) -> bool:
+    """True where the forward and the fused backward run the Hopper
+    kernels (``flash_fwd_sm90``, ``flash_bwd_sm90``): bf16 at D 64 or 128.
+    Elsewhere the WMMA kernels (``flash_fwd``, ``flash_bwd``) run."""
+    return dtype == torch.bfloat16 and D in (64, 128)
 
 
 def _use_fused_bwd(T: int, D: int) -> bool:
@@ -226,21 +243,29 @@ def _launch(kernel, tensors, q, k, bh, scale, causal):
            kernels.stream(q.device))
 
 
-def _flash_fwd_cuda(q, k, v, scale, causal, bh):
-    B, H, _, T, _ = _checked_dims(q, k, bh, (q, k, v))
+def _flash_fwd_cuda(q, k, v, scale, causal, bh, kernel=None):
+    """The forward kernel ``_sm90`` picks, or ``kernel`` where the caller
+    names one (``chip_smoke.py`` times the WMMA kernel beside the Hopper
+    one on the same inputs)."""
+    B, H, _, T, D = _checked_dims(q, k, bh, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(B * H, 1, T, dtype=torch.float32, device=q.device)
-    _launch(FWD_KERNEL, (q, k, v, out, lse), q, k, bh, scale, causal)
+    if kernel is None:
+        kernel = FWD_SM90_KERNEL if _sm90(q.dtype, D) else FWD_KERNEL
+    _launch(kernel, (q, k, v, out, lse), q, k, bh, scale, causal)
     return out, lse
 
 
-def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh):
-    _checked_dims(q, k, bh, (q, k, v, g))
+def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh, kernel=None):
+    """The fused backward kernel ``_sm90`` picks, or ``kernel``."""
+    D = _checked_dims(q, k, bh, (q, k, v, g))[-1]
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch(BWD_KERNEL, (q, k, v, g, lse, delta, dq, dkp, dvp), q, k, bh,
-            scale, causal)
+    if kernel is None:
+        kernel = BWD_SM90_KERNEL if _sm90(q.dtype, D) else BWD_KERNEL
+    _launch(kernel, (q, k, v, g, lse, delta, dq, dkp, dvp), q, k, bh, scale,
+            causal)
     return dq, dkp, dvp
 
 

@@ -61,13 +61,13 @@ def test_flash_kernels_match_plain(cuda, B, T, H, Hk, D, causal):
 
     q, k, v, g = r(H), r(Hk), r(Hk), r(H)
     qk = [x.clone().requires_grad_(True) for x in (q, k, v)]
-    counts = {n: kernels.KERNELS[n].launches for n in ("flash_fwd",
-                                                       "flash_bwd")}
+    counts = _launches()
     out = fa.flash_attention(*qk, causal=causal)
     out.backward(g)
     torch.cuda.synchronize()
-    assert {n: kernels.KERNELS[n].launches - c
-            for n, c in counts.items()} == {"flash_fwd": 1, "flash_bwd": 1}
+    # bf16 at D 64/128: the Hopper kernels, never the WMMA ones
+    assert {n: c - counts[n] for n, c in _launches().items()} == _want(
+        hopper=True, two=False)
 
     qf = [x.float().requires_grad_(True) for x in (q, k, v)]
     ref = fa._dense_path(*qf, D ** -0.5, causal)
@@ -105,11 +105,21 @@ def test_tiny_llama_kernels_match_plain(cuda):
     assert e_on.mean() <= 2 * e_off.mean() + 2e-3
 
 
-FLASH_KERNELS = ("flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd",
+                 "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _launches():
     return {n: kernels.KERNELS[n].launches for n in FLASH_KERNELS}
+
+
+def _want(hopper, two):
+    """One forward and backward's launches: the Hopper forward and fused
+    backward or the WMMA ones; the fused backward or B3 + B4."""
+    return {"flash_fwd_sm90": int(hopper), "flash_fwd": int(not hopper),
+            "flash_bwd_sm90": int(hopper and not two),
+            "flash_bwd": int(not hopper and not two),
+            "flash_bwd_dq": int(two), "flash_bwd_dkv": int(two)}
 
 
 def _flash_case(gen, B, T, H, Hk, D, causal, dtype, bh):
@@ -145,25 +155,26 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 5e-3}
 
 
 @pytest.mark.parametrize("route", ["fused", "two_kernel"])
-@pytest.mark.parametrize("dtype,D,B,T,H,Hk,causal,bh", [
-    (torch.bfloat16, 16, 2, 200, 4, 2, True, False),
-    (torch.bfloat16, 32, 1, 130, 4, 4, False, False),
-    (torch.bfloat16, 128, 1, 300, 4, 1, True, True),
-    (torch.float32, 16, 2, 200, 4, 2, True, False),
-    (torch.float32, 64, 1, 257, 2, 2, False, False),
-    (torch.float32, 128, 1, 300, 4, 2, True, True)])
+@pytest.mark.parametrize("dtype,D,B,T,H,Hk,causal,bh,hopper", [
+    (torch.bfloat16, 16, 2, 200, 4, 2, True, False, False),
+    (torch.bfloat16, 32, 1, 130, 4, 4, False, False, False),
+    (torch.bfloat16, 128, 1, 300, 4, 1, True, True, True),
+    (torch.float32, 16, 2, 200, 4, 2, True, False, False),
+    (torch.float32, 64, 1, 257, 2, 2, False, False, False),
+    (torch.float32, 128, 1, 300, 4, 2, True, True, False)])
 def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
-                                           D, B, T, H, Hk, causal, bh):
+                                           D, B, T, H, Hk, causal, bh,
+                                           hopper):
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
-    through the f32 plain forward, with exact launch counts."""
+    through the f32 plain forward, with exact launch counts: the Hopper
+    forward and fused backward for bf16 at D 128 only, the WMMA ones for
+    f32 and D 16/32."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
                                       bh)
-    two = route == "two_kernel"
-    assert launched == {"flash_fwd": 1, "flash_bwd": int(not two),
-                        "flash_bwd_dq": int(two), "flash_bwd_dkv": int(two)}
+    assert launched == _want(hopper, two=route == "two_kernel")
     assert got[1].dtype == dtype
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
@@ -185,12 +196,29 @@ def test_two_kernel_dq_is_bitwise_stable(cuda, dtype):
     second = fa._flash_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
     assert torch.equal(first, second)
-    # the dk / dv kernel is the fused kernel's walk without dq
+    # the dk / dv kernel is the WMMA fused kernel's walk without dq
     dkv = fa._flash_bwd_dkv_cuda(*args)
-    fused = fa._flash_bwd_cuda(*args)
+    fused = fa._flash_bwd_cuda(*args, kernel=fa.BWD_KERNEL)
     torch.cuda.synchronize()
     for a, b in zip(dkv, fused[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("T", [1, 129, 1000, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_kernels_match_plain(cuda, D, causal, T, bh):
+    """flash_fwd_sm90 and flash_bwd_sm90 (bf16, GQA H16 / Hk4) against
+    autograd through the f32 plain forward, at T = 1, ragged T (not a
+    multiple of the 64- and 128-row tiles) and T2048, in both layouts,
+    with exactly one launch of each and none of the WMMA kernels."""
+    got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
+                                      torch.bfloat16, bh)
+    assert launched == _want(hopper=True, two=False)
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * b.abs().max().item() + 1e-3, err
 
 
 def test_train_llama_tiny_on_cuda(cuda, capsys):

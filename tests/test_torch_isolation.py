@@ -59,8 +59,8 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         from pytorch_operator_tpu_torch import kernels
         assert kernels._lib is None, "importing loaded the library"
         assert sorted(kernels.KERNELS) == [
-            "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_fwd",
-            "rms_norm_fwd"], kernels.KERNELS
+            "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_sm90",
+            "flash_fwd", "flash_fwd_sm90", "rms_norm_fwd"], kernels.KERNELS
         try:
             kernels.build()
         except RuntimeError as e:
@@ -100,16 +100,23 @@ def no_toolkit(tmp_path, monkeypatch):
 
 
 def _cuda_wrappers():
-    """Each kernel's wrapper, called with (CPU) bf16 tensors it takes."""
+    """Each kernel's wrapper, called with (CPU) tensors it takes: bf16 at
+    D 64 for the Hopper flash kernels, f32 for the WMMA ones."""
     x = torch.randn(8, 64).bfloat16()
     w = torch.ones(64).bfloat16()
     q = torch.randn(1, 16, 2, 64).bfloat16()
+    q32 = q.float()
     lse = torch.zeros(2, 16)
     return {
         "rms_norm_fwd": lambda: rn.rms_norm_cuda(x, w, 1e-5),
-        "flash_fwd": lambda: fa._flash_fwd_cuda(q, q, q, 0.125, True, False),
-        "flash_bwd": lambda: fa._flash_bwd_cuda(q, q, q, q, lse, lse, 0.125,
-                                                True, False),
+        "flash_fwd_sm90": lambda: fa._flash_fwd_cuda(q, q, q, 0.125, True,
+                                                     False),
+        "flash_bwd_sm90": lambda: fa._flash_bwd_cuda(q, q, q, q, lse, lse,
+                                                     0.125, True, False),
+        "flash_fwd": lambda: fa._flash_fwd_cuda(q32, q32, q32, 0.125, True,
+                                                False),
+        "flash_bwd": lambda: fa._flash_bwd_cuda(q32, q32, q32, q32, lse, lse,
+                                                0.125, True, False),
         "flash_bwd_dq": lambda: fa._flash_bwd_dq_cuda(q, q, q, q, lse, lse,
                                                       0.125, True, False),
         "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_cuda(q, q, q, q, lse, lse,
@@ -117,8 +124,8 @@ def _cuda_wrappers():
     }
 
 
-KERNEL_NAMES = ["rms_norm_fwd", "flash_fwd", "flash_bwd", "flash_bwd_dq",
-                "flash_bwd_dkv"]
+KERNEL_NAMES = ["rms_norm_fwd", "flash_fwd_sm90", "flash_bwd_sm90",
+                "flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 
 def _dummy_args(kernel):

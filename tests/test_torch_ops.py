@@ -21,6 +21,7 @@ from pytorch_operator_tpu.ops.flash_attention import _auto_block
 from pytorch_operator_tpu.ops.flash_attention import (
     flash_with_lse as jax_flash_with_lse,
 )
+from pytorch_operator_tpu_torch import kernels
 from pytorch_operator_tpu_torch.ops import flash_attention, flash_with_lse
 from pytorch_operator_tpu_torch.ops import rms_norm
 from pytorch_operator_tpu_torch.ops.flash_attention import (
@@ -204,6 +205,58 @@ class TestTwoKernelRoute:
             want = jax_fa._use_fused_bwd(t_pad, D, b, b)
             assert fa._use_fused_bwd(T, D) == want, (T, D)
         assert fa._FUSED_DQ_BYTES == jax_fa._FUSED_DQ_VMEM_BYTES
+
+
+class TestHopperDispatch:
+    """Which forward and fused backward kernel a CUDA call launches: the
+    Hopper ones (``flash_fwd_sm90`` / ``flash_bwd_sm90``) for bf16 at D 64
+    or 128, the WMMA ones (``flash_fwd`` / ``flash_bwd``) elsewhere."""
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                       torch.float16])
+    @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
+    def test_sm90_rule(self, dtype, D):
+        want = dtype == torch.bfloat16 and D in (64, 128)
+        assert fa._sm90(dtype, D) is want
+
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_cpu_tensors_take_the_plain_versions(self, monkeypatch, D):
+        """bf16 at D 64/128 would take the Hopper kernels on the card; CPU
+        tensors of that kind run the plain versions, build and launch
+        nothing, and agree with the f32 plain path to bf16's rounding."""
+        def refuse():
+            raise AssertionError("a CPU call built or loaded the kernels")
+
+        monkeypatch.setattr(kernels, "build", refuse)
+        monkeypatch.setattr(kernels, "load", refuse)
+        ran = []
+
+        def counted(name):
+            fn = getattr(fa, name)
+
+            def wrapper(*args):
+                ran.append(name)
+                return fn(*args)
+            return wrapper
+
+        for name in ("_flash_fwd_reference", "_flash_bwd_reference"):
+            monkeypatch.setattr(fa, name, counted(name))
+        before = kernels.launch_counts()
+        q, k, v = qkv(60, 1, 96, 4, 2, D)
+        g = randn(63, 1, 96, 4, D)
+        grads = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            ts = [t(a).to(dtype).requires_grad_(True) for a in (q, k, v)]
+            out = flash_attention(*ts, causal=True)
+            out.backward(t(g).to(dtype))
+            grads[dtype] = [out] + [x.grad for x in ts]
+        assert ran == ["_flash_fwd_reference", "_flash_bwd_reference"] * 2
+        assert kernels.launch_counts() == before
+        assert kernels._lib is None
+        for a, b in zip(grads[torch.bfloat16], grads[torch.float32]):
+            assert a.dtype == torch.bfloat16
+            err = (a.float() - b.detach()).abs().max().item()
+            assert err <= 2e-2 * b.abs().max().item(), err
 
 
 class TestPlainVersions:
