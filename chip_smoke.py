@@ -7,7 +7,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
 1. card     nvidia-smi's name and power limit, the device name, and the
             nvcc build of every kernel from pytorch_operator_tpu_torch/
-            csrc (timed, with ptxas' register and spill counts);
+            csrc (timed, with ptxas' register and spill counts by kernel);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
             card: the fused backward's route at the main path's shapes
             (plus GQA, T=1, a ragged T, non-causal, D=64/16, f32 and the
@@ -15,9 +15,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             then dk/dv) at T4096 and on the same variety with the route
             forced; the WMMA forward and fused backward, which bf16 at
             D 64/128 no longer reaches, at the main path's shape; at the
-            long path's full shape B1, B3 and B4 against their plain
-            versions on two of the heads, the two-kernel route against
-            the fused kernel, and dq bitwise equal over two runs;
+            long path's full shape B1 and the Hopper and WMMA B3 and B4
+            against their plain versions on two of the heads, the
+            two-kernel route against the fused kernel on every head, B3's
+            dq bitwise equal over two runs and B4's dk/dv bitwise equal
+            to B2's;
 3. timing   each kernel, its plain version and the one PyTorch library
             call that computes the same function (a yardstick only: the
             port never calls it): device time per call from
@@ -25,7 +27,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             again), with CUDA events around repeated calls beside it;
             the Hopper flash kernels and their WMMA predecessors on the
             same inputs in turns (new, old, old, new), the forward also
-            at T16384; the backward kernels also at T8192 and T16384;
+            at T16384, B3 and B4 at T16384; the fused backward against
+            B3 + B4 at T8192 and T16384;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -269,9 +272,11 @@ FLASH_CASES = {
 TWO_KERNEL_CASES = {
     "main": (1, 4096, 16, 16, 128, True, False, BF16),
     "gqa_h16_kv4": (1, 4096, 16, 4, 128, True, False, BF16),
+    "t1_gqa": (2, 1, 16, 4, 128, True, False, BF16),
     "ragged_t1000": (2, 1000, 16, 16, 128, True, False, BF16),
     "non_causal": (1, 2048, 16, 16, 128, False, False, BF16),
     "d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, BF16),
+    "d64_non_causal_bh": (1, 1000, 16, 4, 64, False, True, BF16),
     "d32": (2, 500, 8, 8, 32, True, False, BF16),
     "d16_gqa": (2, 500, 8, 4, 16, True, False, BF16),
     "f32": (1, 2048, 16, 16, 128, True, False, F32),
@@ -296,6 +301,16 @@ def _rel_errs(got, ref) -> tuple[float, float]:
             float(d.norm() / ref.norm().clamp_min(1e-30)))
 
 
+def _grad_errs(got, ref) -> tuple[dict, bool]:
+    """Max abs, max |ref| and Frobenius errors of one gradient, and
+    whether it is within the flash_bwd checks' bounds."""
+    err, rel = _rel_errs(got, ref)
+    scale_ref = float(ref.abs().max())
+    return ({"max_abs_err": err, "max_abs_ref": scale_ref,
+             "rel_fro_err": rel},
+            err <= 1e-2 * scale_ref and rel <= 1e-2)
+
+
 BWD_TOLERANCE = ("max|err| <= 1e-2 * max|ref| and rel <= 1e-2, against "
                  "autograd through the plain version in f32: p and ds are "
                  "rounded to the input type (bf16, or TF32 in the f32 "
@@ -308,7 +323,8 @@ BWD_TOLERANCE = ("max|err| <= 1e-2 * max|ref| and rel <= 1e-2, against "
 GRAD_FLOOR = 1e-5
 
 
-FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd", "flash_bwd",
+FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
+                 "flash_bwd_dkv_sm90", "flash_fwd", "flash_bwd",
                  "flash_bwd_dq", "flash_bwd_dkv")
 
 
@@ -319,10 +335,14 @@ def flash_launches(torch, dtype, D, two) -> dict:
     from pytorch_operator_tpu_torch.ops.flash_attention import _sm90
 
     sm90 = _sm90(getattr(torch, dtype), D)
+    fused = not two
     return {"flash_fwd_sm90": int(sm90), "flash_fwd": int(not sm90),
-            "flash_bwd_sm90": int(sm90 and not two),
-            "flash_bwd": int(not sm90 and not two),
-            "flash_bwd_dq": int(two), "flash_bwd_dkv": int(two)}
+            "flash_bwd_sm90": int(sm90 and fused),
+            "flash_bwd": int(not sm90 and fused),
+            "flash_bwd_dq_sm90": int(sm90 and two),
+            "flash_bwd_dkv_sm90": int(sm90 and two),
+            "flash_bwd_dq": int(not sm90 and two),
+            "flash_bwd_dkv": int(not sm90 and two)}
 
 
 def check_flash(torch, gen, cases, route) -> dict:
@@ -455,11 +475,8 @@ def check_wmma_at_main(torch, gen) -> dict:
     ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-3
     errs = {}
     for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
-        err, rel = _rel_errs(a, b)
-        scale_ref = float(b.abs().max())
-        errs[gname] = {"max_abs_err": err, "max_abs_ref": scale_ref,
-                       "rel_fro_err": rel}
-        ok &= err <= 1e-2 * scale_ref and rel <= 1e-2
+        errs[gname], grad_ok = _grad_errs(a, b)
+        ok &= grad_ok
     del got, ref
     emit({"check": "wmma_at_main", "shape": [B, T, H, H, D],
           "out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
@@ -496,13 +513,17 @@ LONG_PLAIN_HEADS = (0, 15)
 
 def check_long_routes(torch, gen) -> dict:
     """At the long path's full shape (B1 T16384 H16 D128 causal bf16):
-    B1, B3 and B4 launched on every head, and their outputs on the heads
-    LONG_PLAIN_HEADS held against the plain versions on those heads'
-    inputs (B3 and B4 given B1's lse and the delta of its out).  Beside
-    that, B3 + B4 against the fused kernel B2, and B3's dq bitwise equal
-    over two runs.  Returns the max abs errors against the plain
+    B1 and the Hopper and WMMA B3 and B4 launched on every head, and
+    their outputs on the heads LONG_PLAIN_HEADS held against the plain
+    versions on those heads' inputs (B3 and B4 given B1's lse and the
+    delta of its out).  Beside that, the Hopper B3 + B4 against the
+    Hopper fused kernel B2 on every head: B4's dk/dv bitwise equal to
+    B2's (the same walk), B3's dq within the bounds; and B3's dq bitwise
+    equal over two runs.  Returns the max abs errors against the plain
     versions."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_DKV_KERNEL,
+        BWD_DQ_KERNEL,
         _flash_bwd_cuda,
         _flash_bwd_dkv_cuda,
         _flash_bwd_dkv_reference,
@@ -520,6 +541,10 @@ def check_long_routes(torch, gen) -> dict:
     dq_again = _flash_bwd_dq_cuda(*args)
     dkp, dvp = _flash_bwd_dkv_cuda(*args)
     dq2, dkp2, dvp2 = _flash_bwd_cuda(*args)
+    kernels = {"sm90": {"dq": dq, "dk": dkp, "dv": dvp},
+               "wmma": dict(zip(("dq", "dk", "dv"), (
+                   _flash_bwd_dq_cuda(*args, kernel=BWD_DQ_KERNEL),
+                   *_flash_bwd_dkv_cuda(*args, kernel=BWD_DKV_KERNEL))))}
     torch.cuda.synchronize()
 
     heads = list(LONG_PLAIN_HEADS)
@@ -535,54 +560,55 @@ def check_long_routes(torch, gen) -> dict:
     l_err = float((lse[rows] - ref_lse.reshape(len(rows), T)).abs().max())
     del ref_out, ref_lse
     plain_args = (sq, sk, sv, sg, lse[rows], delta[rows], scale, causal, bh)
-    plain = {"dq": (dq, _flash_bwd_dq_reference(*plain_args))}
-    plain.update(zip(("dk", "dv"), zip(
-        (dkp, dvp), _flash_bwd_dkv_reference(*plain_args))))
+    plain = {"dq": _flash_bwd_dq_reference(*plain_args)}
+    plain.update(zip(("dk", "dv"), _flash_bwd_dkv_reference(*plain_args)))
     errs = {"out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
                     "lse_max_abs_err": l_err}}
     plain_ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-3
-    for name, (got, ref) in plain.items():
-        err, rel = _rel_errs(sl(got), ref)
-        scale_ref = float(ref.abs().max())
-        errs[name] = {"max_abs_err": err, "max_abs_ref": scale_ref,
-                      "rel_fro_err": rel}
-        plain_ok &= err <= 1e-2 * scale_ref and rel <= 1e-2
+    for version, grads in kernels.items():
+        errs[version] = {}
+        for name, ref in plain.items():
+            errs[version][name], ok = _grad_errs(sl(grads[name]), ref)
+            plain_ok &= ok
     del plain
 
-    bitwise = bool(torch.equal(dq, dq_again))
+    bitwise = {"dq_over_two_runs": bool(torch.equal(dq, dq_again)),
+               "dk_dv_equal_fused": bool(torch.equal(dkp, dkp2)
+                                         and torch.equal(dvp, dvp2))}
     vs_fused = {}
     fused_ok = True
     for name, a, b in (("dq", dq, dq2), ("dk", dkp, dkp2),
                        ("dv", dvp, dvp2)):
-        err, rel = _rel_errs(a, b)
-        scale_ref = float(b.abs().max())
-        vs_fused[name] = {"max_abs_err": err, "max_abs_ref": scale_ref,
-                          "rel_fro_err": rel}
-        fused_ok &= err <= 1e-2 * scale_ref and rel <= 1e-2
-    ok = plain_ok and bitwise and fused_ok
+        vs_fused[name], ok = _grad_errs(a, b)
+        fused_ok &= ok
+    ok = plain_ok and all(bitwise.values()) and fused_ok
     res = {"check": "flash_bwd_long_routes", "shape": [B, T, H, H, D],
-           "plain_heads": heads, "vs_plain": errs,
-           "dq_bitwise_equal_over_two_runs": bitwise,
+           "plain_heads": heads, "vs_plain": errs, "bitwise": bitwise,
            "vs_fused": vs_fused,
            "tolerance": "against the plain versions on the heads "
                         f"{heads}: out and lse as the flash_fwd checks "
                         "(out max|err| <= 2e-2 and rel <= 1e-2, lse 1e-3), "
-                        "dq and the dk/dv partials as the flash_bwd checks "
-                        "(max|err| <= 1e-2 * max|ref| and rel <= 1e-2 "
-                        "against the f32 plain versions: p and ds are "
-                        "rounded to bf16 before their products, dq is "
-                        "cast to bf16); B3 + B4 against the Hopper fused "
-                        "B2 on every head, the same bounds (B2 rounds p "
-                        "to bf16 before ds, B3/B4 after; B3 rounds dq to "
-                        "bf16; B2's f32 atomics sum in another order); dq "
-                        "of B3 bitwise equal over two runs",
+                        "dq and the dk/dv partials of the Hopper (sm90) and "
+                        "WMMA B3/B4 as the flash_bwd checks (max|err| <= "
+                        "1e-2 * max|ref| and rel <= 1e-2 against the f32 "
+                        "plain versions: p or ds rounded to bf16 before "
+                        "their products, dq cast to bf16); the Hopper B3 + "
+                        "B4 against the Hopper fused B2 on every head, the "
+                        "same bounds (B3 forms ds from the f32 p, B2 from p "
+                        "rounded to bf16; B3 rounds dq to bf16; B2's f32 "
+                        "atomics sum in another order), and B4's dk/dv "
+                        "bitwise equal to B2's; dq of B3 bitwise equal "
+                        "over two runs",
            "ok": ok}
     emit(res)
     require(ok, "at the long shape a kernel disagrees with its plain "
-                "version, the two-kernel backward with the fused one, or "
-                "B3's dq is not bitwise stable")
-    return {"out": o_err, "dq": errs["dq"]["max_abs_err"],
-            "dkv": max(errs["dk"]["max_abs_err"], errs["dv"]["max_abs_err"])}
+                "version, the two-kernel backward with the fused one, B3's "
+                "dq is not bitwise stable or B4's dk/dv not bitwise B2's")
+    worst = {version: {"dq": e["dq"]["max_abs_err"],
+                       "dkv": max(e["dk"]["max_abs_err"],
+                                  e["dv"]["max_abs_err"])}
+             for version, e in errs.items() if version != "out"}
+    return {"out": o_err, **worst}
 
 
 # --------------------------------------------------------------------------
@@ -722,13 +748,16 @@ def time_kernels(torch, gen) -> dict:
 
 def time_long_kernels(torch, gen) -> dict:
     """At the long path's shape: B1 (Hopper and WMMA in turns) beside
-    SDPA's forward; the two-kernel backward beside its bounds, its plain
-    versions at PLAIN_T and aten's flash backward (which computes dq, dk
-    and dv: compare it with B3 + B4); then the fused kernel against B3 +
-    B4 at T8192 (where the rule still takes the fused one) and T16384."""
+    SDPA's forward; B3 and B4 (Hopper and WMMA in turns) beside their
+    bounds, their plain versions at PLAIN_T and aten's flash backward
+    (which computes dq, dk and dv: compare it with B3 + B4); then the
+    fused kernel against the Hopper B3 + B4 at T8192 (where the rule
+    still takes the fused one) and T16384."""
     import torch.nn.functional as F
 
     from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_DKV_KERNEL,
+        BWD_DQ_KERNEL,
         FWD_KERNEL,
         _flash_bwd_cuda,
         _flash_bwd_dkv_cuda,
@@ -775,36 +804,41 @@ def time_long_kernels(torch, gen) -> dict:
 
     library = aten_flash_bwd(torch, *args[:4], args[6])
     lib = library and time_ms(library, **few)
-    for name, fn, plain, nbytes, flops in (
+    for name, fn, plain, wmma, nbytes, flops in (
             ("flash_bwd_dq", _flash_bwd_dq_cuda, _flash_bwd_dq_reference,
-             5 * io + rows, 6 * D * pairs),
+             BWD_DQ_KERNEL, 5 * io + rows, 6 * D * pairs),
             ("flash_bwd_dkv", _flash_bwd_dkv_cuda, _flash_bwd_dkv_reference,
-             4 * io + rows + 2 * f32, 8 * D * pairs)):
+             BWD_DKV_KERNEL, 4 * io + rows + 2 * f32, 8 * D * pairs)):
         b_ms, b_by = bound(nbytes, flops)
-        res[name] = {
-            **timing_row(time_ms(lambda fn=fn: fn(*args), **few),
-                         time_ms(lambda plain=plain: plain(*plain_args),
-                                 **slow), lib),
-            "library":"aten._scaled_dot_product_flash_attention_backward "
-                       "(dq, dk and dv: compare with flash_bwd_dq + "
-                       "flash_bwd_dkv)",
-            "bound_ms": b_ms, "bound_by": b_by, "shape": [B, T, H, H, D],
-            "plain_shape": [B, PLAIN_T, H, H, D]}
-        emit({"timing": name, **res[name]})
+        new, old = in_turns(lambda fn=fn: fn(*args),
+                            lambda fn=fn, kn=wmma: fn(*args, kernel=kn),
+                            **few)
+        plain_t = time_ms(lambda plain=plain: plain(*plain_args), **slow)
+        row = {"library": "aten._scaled_dot_product_flash_attention_backward"
+                          " (dq, dk and dv: compare with B3 + B4)",
+               "bound_ms": b_ms, "bound_by": b_by, "shape": [B, T, H, H, D],
+               "plain_shape": [B, PLAIN_T, H, H, D]}
+        res[name + "_sm90"] = {**timing_row(new, plain_t, lib), **row,
+                               **previous(new, old)}
+        res[name] = {**timing_row(old, plain_t, lib), **row}
+        for key in (name + "_sm90", name):
+            emit({"timing": key, **res[key]})
     routes = {}
     for t in (8192, T):
         targs = args if t == T else _bwd_args(torch, gen, B, t, H, D)
         times = {name: time_ms(lambda fn=fn: fn(*targs), **few)
                  for name, fn in (("flash_bwd_sm90", _flash_bwd_cuda),
-                                  ("flash_bwd_dq", _flash_bwd_dq_cuda),
-                                  ("flash_bwd_dkv", _flash_bwd_dkv_cuda))}
+                                  ("flash_bwd_dq_sm90", _flash_bwd_dq_cuda),
+                                  ("flash_bwd_dkv_sm90",
+                                   _flash_bwd_dkv_cuda))}
         ms = {name: tm["ms"] for name, tm in times.items()}
         pairs_t = B * H * causal_pairs(t, True)
         routes[f"T{t}"] = {
             "shape": [B, t, H, H, D],
             "rule_takes": "fused" if _use_fused_bwd(t, D) else "two_kernel",
             "fused_ms": ms["flash_bwd_sm90"],
-            "two_kernel_ms": ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+            "two_kernel_ms": ms["flash_bwd_dq_sm90"]
+            + ms["flash_bwd_dkv_sm90"],
             "ms": ms,
             "event_ms": {name: tm["event_ms"] for name, tm in times.items()},
             "profiles": {name: tm["profiles"] for name, tm in times.items()},
@@ -891,7 +925,8 @@ def run_main_path(torch) -> dict:
 
     L = llama.flagship().n_layers
     expect = {"rms_norm_fwd": 2 * L + 1, "flash_fwd_sm90": L,
-              "flash_bwd_sm90": L, "flash_fwd": 0, "flash_bwd": 0,
+              "flash_bwd_sm90": L, "flash_bwd_dq_sm90": 0,
+              "flash_bwd_dkv_sm90": 0, "flash_fwd": 0, "flash_bwd": 0,
               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     return run_path(torch, "main_path", llama.flagship(), MAIN["B"],
                     MAIN["T"], STEPS, expect)
@@ -911,21 +946,25 @@ def run_long_path(torch) -> dict:
                          remat_policy=LONG_POLICY)
     L = cfg.n_layers
     expect = {"rms_norm_fwd": 4 * L + 1, "flash_fwd_sm90": L,
-              "flash_bwd_sm90": 0, "flash_fwd": 0, "flash_bwd": 0,
-              "flash_bwd_dq": L, "flash_bwd_dkv": L}
+              "flash_bwd_sm90": 0, "flash_bwd_dq_sm90": L,
+              "flash_bwd_dkv_sm90": L, "flash_fwd": 0, "flash_bwd": 0,
+              "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     return run_path(torch, "long_path", cfg, LONG["B"], LONG["T"],
                     LONG_STEPS, expect, chunked_ce=True, ce_chunk=1024)
 
 
-# the profile class of each kernel's launches
+# the profile class of each kernel's launches: the C symbol's name, but
+# for RMSNorm
 PROFILE_CLASS = {"rms_norm_fwd": "rms_norm",
-                 "flash_fwd_sm90": "flash_fwd_sm90",
-                 "flash_bwd_sm90": "flash_bwd_sm90", "flash_fwd": "flash_fwd",
-                 "flash_bwd": "flash_bwd", "flash_bwd_dq": "flash_bwd_dq",
-                 "flash_bwd_dkv": "flash_bwd_dkv"}
+                 **{s: s for s in FLASH_SYMBOLS}}
+# a device record's class is the first whose key is in its name: the
+# Hopper kernels' __global__ names come first, though no WMMA key is a
+# substring of them (nor the reverse)
 KERNEL_CLASSES = (("rms_norm", ("rms_norm_kernel",)),
                   ("flash_fwd_sm90", ("flash_fwd_sm90_kernel",)),
                   ("flash_bwd_sm90", ("flash_bwd_sm90_kernel",)),
+                  ("flash_bwd_dq_sm90", ("flash_bwd_dq_sm90_kernel",)),
+                  ("flash_bwd_dkv_sm90", ("flash_bwd_dkv_sm90_kernel",)),
                   ("flash_fwd", ("flash_fwd_kernel",)),
                   ("flash_bwd", ("flash_bwd_kernel",)),
                   ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -1141,6 +1180,14 @@ KERNEL_INFO = {
     "flash_bwd_sm90": ("flash_bwd_sm90",
                        "pytorch_operator_tpu_torch/csrc/flash_bwd_sm90.cu",
                        "pytorch_operator_tpu/ops/flash_attention.py:356"),
+    "flash_bwd_dq_sm90": (
+        "flash_bwd_dq_sm90",
+        "pytorch_operator_tpu_torch/csrc/flash_bwd_dq_sm90.cu",
+        "pytorch_operator_tpu/ops/flash_attention.py:264"),
+    "flash_bwd_dkv_sm90": (
+        "flash_bwd_dkv_sm90",
+        "pytorch_operator_tpu_torch/csrc/flash_bwd_dkv_sm90.cu",
+        "pytorch_operator_tpu/ops/flash_attention.py:325"),
     "flash_fwd": ("flash_fwd", "pytorch_operator_tpu_torch/csrc/flash_fwd.cu",
                   "pytorch_operator_tpu/ops/flash_attention.py:118"),
     "flash_bwd": ("flash_bwd", "pytorch_operator_tpu_torch/csrc/flash_bwd.cu",
@@ -1179,9 +1226,13 @@ def run() -> tuple[str, list[dict]]:
     kernels.load()
     build_s = time.perf_counter() - t0
     log = so.with_suffix(".log")
+    # per kernel, in ptxas' order: its entry, spills and registers, and
+    # any warning that wgmma products were serialized (C7512)
     ptxas = [ln.strip() for ln in (log.read_text().splitlines()
                                    if log.exists() else [])
-             if "registers" in ln or "spill" in ln or ln.startswith("==")]
+             if any(key in ln for key in ("entry function", "registers",
+                                          "spill", "wgmma"))
+             or ln.startswith("==")]
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1194,7 +1245,10 @@ def run() -> tuple[str, list[dict]]:
     errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
             "flash_fwd_sm90": fused["out"],
             "flash_bwd_sm90": max(fused["dq"], fused["dkv"]), **wmma,
-            "flash_bwd_dq": long["dq"], "flash_bwd_dkv": long["dkv"]}
+            "flash_bwd_dq_sm90": long["sm90"]["dq"],
+            "flash_bwd_dkv_sm90": long["sm90"]["dkv"],
+            "flash_bwd_dq": long["wmma"]["dq"],
+            "flash_bwd_dkv": long["wmma"]["dkv"]}
     seconds = {"kernels": time.perf_counter() - phase}
     phase = time.perf_counter()
     timing = time_kernels(torch, gen)
@@ -1228,9 +1282,9 @@ def run() -> tuple[str, list[dict]]:
                "shape": tm["shape"]}
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
-        if short in ("flash_fwd", "flash_bwd"):
-            row["path"] = ("f32 and D 16/32 only; timed at the main "
-                           "path's shape as the yardstick")
+        if "sm90" not in short and short != "rms_norm":
+            row["path"] = ("f32 and D 16/32 only; timed beside its Hopper "
+                           "successor at its shape as the yardstick")
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (

@@ -33,8 +33,8 @@
 //    consumer warpgroups run their products interleaved on the SM.
 //  - dK and dV are written once, rows at or past T skipped; TMA zero-fills
 //    the tiles past T, so the host pads nothing.
-// The walk is flash_bwd_sm90.cuh's walk<D, DQ> with DQ; a dk/dv-only
-// kernel can run it without.
+// The walk is flash_bwd_sm90.cuh's walk<D, DQ> with DQ; the dk/dv kernel
+// flash_bwd_dkv_sm90.cu runs it without.
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -61,21 +61,16 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, float* dq, float* dkp,
            float* dvp, int B, int H, int Hk, int T, int bh_layout,
            float scale, int causal, cudaStream_t stream) {
-  CUtensorMap mq, mk, mv, mdo;
-  const int Bq = bh_layout ? B * H : B, Bk = bh_layout ? B * Hk : B;
-  const int Hq = bh_layout ? 1 : H, Hkv = bh_layout ? 1 : Hk;
-  int e = make_map(&mq, q, D, Hq, T, Bq, BQ);
-  if (!e) e = make_map(&mdo, dout, D, Hq, T, Bq, BQ);
-  if (!e) e = make_map(&mk, k, D, Hkv, T, Bk, BK);
-  if (!e) e = make_map(&mv, v, D, Hkv, T, Bk, BK);
+  Maps m;
+  int e = make_maps(&m, q, k, v, dout, B, H, Hk, T, D, bh_layout);
   if (e) return e;
   const int bytes = BwdSmem<D, true>::BYTES;
   e = ptt::allow_smem(flash_bwd_sm90_kernel<D>, bytes);
   if (e) return e;
   dim3 grid((T + BK - 1) / BK, B * H);
   flash_bwd_sm90_kernel<D><<<grid, THREADS, bytes, stream>>>(
-      mq, mk, mv, mdo, lse, delta, dq, dkp, dvp, H, Hk, T, bh_layout, scale,
-      causal);
+      m.q, m.k, m.v, m.dout, lse, delta, dq, dkp, dvp, H, Hk, T, bh_layout,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
-// The key-tile walk of the Hopper flash backward (flash_bwd_sm90.cu).
+// The key-tile walk of the Hopper flash backward (flash_bwd_sm90.cu) and
+// of the Hopper dk/dv kernel (flash_bwd_dkv_sm90.cu).
 //
 // One CTA per (128-key tile, q head), three warpgroups: the producer warp
 // streams the q tiles, the two consumer warpgroups own 64 keys each and
 // keep dK and dV in wgmma accumulators (see flash_bwd_sm90.cu).  With DQ
 // the walk also forms dq_tile = dS K and adds it to dq; without it the
-// walk is a dk/dv-only kernel's, as flash_bwd_kv.cuh's walk<E, D, DQ> is
-// for the WMMA kernels.
+// walk is the dk/dv kernel's, whose dk and dv are therefore bitwise the
+// fused kernel's.
 #pragma once
 
 #include "common.cuh"
@@ -41,6 +42,21 @@ template <int D, bool DQ> struct BwdSmem {
   // align the dynamic shared memory to the swizzle's 1024-byte period
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
 };
+
+// The walk's tensor maps: q and dO in boxes of BQ rows, k and v of BK.
+struct Maps {
+  CUtensorMap q, k, v, dout;
+};
+
+inline int make_maps(Maps* m, const void* q, const void* k, const void* v,
+                     const void* dout, int B, int H, int Hk, int T, int D,
+                     int bh_layout) {
+  int e = make_head_map(&m->q, q, D, H, T, B, bh_layout, BQ);
+  if (!e) e = make_head_map(&m->dout, dout, D, H, T, B, bh_layout, BQ);
+  if (!e) e = make_head_map(&m->k, k, D, Hk, T, B, bh_layout, BK);
+  if (!e) e = make_head_map(&m->v, v, D, Hk, T, B, bh_layout, BK);
+  return e;
+}
 
 // The body of a kernel launched with THREADS threads and
 // BwdSmem<D, DQ>::BYTES of dynamic shared memory on a grid of

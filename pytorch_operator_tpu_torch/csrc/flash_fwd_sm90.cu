@@ -225,11 +225,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hk, int T, int bh_layout, float scale,
            int causal, cudaStream_t stream) {
   CUtensorMap mq, mk, mv;
-  const int Bq = bh_layout ? B * H : B, Bk = bh_layout ? B * Hk : B;
-  const int Hq = bh_layout ? 1 : H, Hkv = bh_layout ? 1 : Hk;
-  int e = make_map(&mq, q, D, Hq, T, Bq, BQ);
-  if (!e) e = make_map(&mk, k, D, Hkv, T, Bk, BK);
-  if (!e) e = make_map(&mv, v, D, Hkv, T, Bk, BK);
+  int e = make_head_map(&mq, q, D, H, T, B, bh_layout, BQ);
+  if (!e) e = make_head_map(&mk, k, D, Hk, T, B, bh_layout, BK);
+  if (!e) e = make_head_map(&mv, v, D, Hk, T, B, bh_layout, BK);
   if (e) return e;
   const int bytes = FwdSmem<D>::BYTES;
   e = ptt::allow_smem(flash_fwd_sm90_kernel<D>, bytes);

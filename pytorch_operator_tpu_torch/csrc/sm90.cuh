@@ -396,6 +396,14 @@ inline int make_map(CUtensorMap* map, const void* base, int D, int Hx,
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
+// make_map for a tensor of Hx heads in one of the port's layouts
+// (bh_layout 0: (B, T, Hx, D); 1: (B*Hx, T, D)).
+inline int make_head_map(CUtensorMap* map, const void* base, int D, int Hx,
+                         int T, int B, int bh_layout, int rows) {
+  return bh_layout ? make_map(map, base, D, 1, T, B * Hx, rows)
+                   : make_map(map, base, D, Hx, T, B, rows);
+}
+
 // Map coordinates (c1, c3) of head h of batch b in either layout.
 __device__ __forceinline__ int2 head_coords(int b, int h, int Hx,
                                             int bh_layout) {

@@ -15,12 +15,13 @@ The backward takes one of the JAX module's two routes, by the same rule
   fused       ``csrc/flash_bwd_sm90.cu`` or ``csrc/flash_bwd.cu``
               (``_bwd_fused_kernel``): one pass, dq summed with f32
               atomics
-  two-kernel  ``csrc/flash_bwd_dq.cu`` (``_bwd_dq_kernel``) then
-              ``csrc/flash_bwd_dkv.cu`` (``_bwd_dkv_kernel``): no
+  two-kernel  ``csrc/flash_bwd_dq_sm90.cu`` or ``csrc/flash_bwd_dq.cu``
+              (``_bwd_dq_kernel``), then ``csrc/flash_bwd_dkv_sm90.cu``
+              or ``csrc/flash_bwd_dkv.cu`` (``_bwd_dkv_kernel``): no
               atomics, dq bit-identical from run to run
 
-Which of the two forward and fused backward kernels runs is a fixed rule
-on dtype and head dim (``_sm90``), not a fallback: bf16 at D in {64, 128}
+Each of the four kernels has two versions, picked by a fixed rule on
+dtype and head dim (``_sm90``), not a fallback: bf16 at D in {64, 128}
 (every model's attention but the tiny one's) takes the Hopper kernels
 built on ``wgmma``, TMA and a warp-specialized mbarrier ring; f32 and D
 16/32 take the WMMA kernels.  A build or launch failure of either raises.
@@ -77,6 +78,9 @@ FWD_SM90_KERNEL = kernels.CudaKernel("flash_fwd_sm90", [_P] * 5 + _TAIL)
 BWD_SM90_KERNEL = kernels.CudaKernel("flash_bwd_sm90", [_P] * 9 + _TAIL)
 BWD_DQ_KERNEL = kernels.CudaKernel("flash_bwd_dq", [_P] * 7 + _TAIL)
 BWD_DKV_KERNEL = kernels.CudaKernel("flash_bwd_dkv", [_P] * 8 + _TAIL)
+BWD_DQ_SM90_KERNEL = kernels.CudaKernel("flash_bwd_dq_sm90", [_P] * 7 + _TAIL)
+BWD_DKV_SM90_KERNEL = kernels.CudaKernel("flash_bwd_dkv_sm90",
+                                         [_P] * 8 + _TAIL)
 
 # The JAX module's _FUSED_DQ_VMEM_BYTES: the fused backward while its
 # (T, D) f32 dq takes at most this many bytes, else the two kernels.
@@ -84,9 +88,11 @@ _FUSED_DQ_BYTES = 4 * 1024 * 1024
 
 
 def _sm90(dtype: torch.dtype, D: int) -> bool:
-    """True where the forward and the fused backward run the Hopper
-    kernels (``flash_fwd_sm90``, ``flash_bwd_sm90``): bf16 at D 64 or 128.
-    Elsewhere the WMMA kernels (``flash_fwd``, ``flash_bwd``) run."""
+    """True where the flash kernels run their Hopper versions
+    (``flash_fwd_sm90``, ``flash_bwd_sm90``, ``flash_bwd_dq_sm90``,
+    ``flash_bwd_dkv_sm90``): bf16 at D 64 or 128.  Elsewhere the WMMA
+    versions (``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``) run."""
     return dtype == torch.bfloat16 and D in (64, 128)
 
 
@@ -269,20 +275,27 @@ def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh, kernel=None):
     return dq, dkp, dvp
 
 
-def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal, bh):
-    _checked_dims(q, k, bh, (q, k, v, g))
+def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal, bh,
+                       kernel=None):
+    """The dq kernel ``_sm90`` picks, or ``kernel``."""
+    D = _checked_dims(q, k, bh, (q, k, v, g))[-1]
     dq = torch.empty_like(q)
-    _launch(BWD_DQ_KERNEL, (q, k, v, g, lse, delta, dq), q, k, bh, scale,
-            causal)
+    if kernel is None:
+        kernel = BWD_DQ_SM90_KERNEL if _sm90(q.dtype, D) else BWD_DQ_KERNEL
+    _launch(kernel, (q, k, v, g, lse, delta, dq), q, k, bh, scale, causal)
     return dq
 
 
-def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal, bh):
-    _checked_dims(q, k, bh, (q, k, v, g))
+def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal, bh,
+                        kernel=None):
+    """The dk / dv kernel ``_sm90`` picks, or ``kernel``."""
+    D = _checked_dims(q, k, bh, (q, k, v, g))[-1]
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    _launch(BWD_DKV_KERNEL, (q, k, v, g, lse, delta, dkp, dvp), q, k, bh,
-            scale, causal)
+    if kernel is None:
+        kernel = BWD_DKV_SM90_KERNEL if _sm90(q.dtype, D) else BWD_DKV_KERNEL
+    _launch(kernel, (q, k, v, g, lse, delta, dkp, dvp), q, k, bh, scale,
+            causal)
     return dkp, dvp
 
 

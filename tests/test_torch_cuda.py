@@ -105,8 +105,9 @@ def test_tiny_llama_kernels_match_plain(cuda):
     assert e_on.mean() <= 2 * e_off.mean() + 2e-3
 
 
-FLASH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_fwd",
-                 "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv")
+FLASH_KERNELS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
+                 "flash_bwd_dkv_sm90", "flash_fwd", "flash_bwd",
+                 "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def _launches():
@@ -114,12 +115,16 @@ def _launches():
 
 
 def _want(hopper, two):
-    """One forward and backward's launches: the Hopper forward and fused
-    backward or the WMMA ones; the fused backward or B3 + B4."""
+    """One forward and backward's launches: the Hopper kernels or the WMMA
+    ones; the fused backward or B3 + B4."""
+    fused = not two
     return {"flash_fwd_sm90": int(hopper), "flash_fwd": int(not hopper),
-            "flash_bwd_sm90": int(hopper and not two),
-            "flash_bwd": int(not hopper and not two),
-            "flash_bwd_dq": int(two), "flash_bwd_dkv": int(two)}
+            "flash_bwd_sm90": int(hopper and fused),
+            "flash_bwd": int(not hopper and fused),
+            "flash_bwd_dq_sm90": int(hopper and two),
+            "flash_bwd_dkv_sm90": int(hopper and two),
+            "flash_bwd_dq": int(not hopper and two),
+            "flash_bwd_dkv": int(not hopper and two)}
 
 
 def _flash_case(gen, B, T, H, Hk, D, causal, dtype, bh):
@@ -168,8 +173,7 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
     through the f32 plain forward, with exact launch counts: the Hopper
-    forward and fused backward for bf16 at D 128 only, the WMMA ones for
-    f32 and D 16/32."""
+    kernels for bf16 at D 128 only, the WMMA ones for f32 and D 16/32."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
@@ -181,24 +185,41 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
         assert err <= TOL[dtype] * b.abs().max().item() + 1e-3, err
 
 
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_two_kernel_dq_is_bitwise_stable(cuda, dtype):
-    """B3 sums dq without atomics: two runs give the same bits."""
-    B, T, H, D = 1, 700, 4, 64
-    q, k, v, g = (torch.randn(B, T, H, D, generator=cuda,
-                              device="cuda").to(dtype) for _ in range(4))
-    out, lse = fa._flash_fwd_cuda(q, k, v, D ** -0.5, True, False)
-    lse2 = lse.reshape(B * H, T)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
-        B * H, T).contiguous()
-    args = (q, k, v, g, lse2, delta, D ** -0.5, True, False)
+def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
+    """Backward-kernel arguments from the forward kernel's lse and the
+    delta of its out."""
+    def r(h):
+        shape = (B * h, T, D) if bh else (B, T, h, D)
+        return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
+
+    q, k, v, g = r(H), r(Hk), r(Hk), r(H)
+    out, lse = fa._flash_fwd_cuda(q, k, v, D ** -0.5, causal, bh)
+    delta = (g.float() * out.float()).sum(-1)
+    if not bh:
+        delta = delta.transpose(1, 2)
+    return (q, k, v, g, lse.reshape(B * H, T),
+            delta.reshape(B * H, T).contiguous(), D ** -0.5, causal, bh)
+
+
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.bfloat16, 128),
+                                     (torch.float32, 64)])
+def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
+    """B3 sums dq without atomics: two runs give the same bits.  B4 is the
+    fused kernel's walk without dq: the Hopper B4 (bf16) gives the Hopper
+    B2's dk / dv bit for bit, the WMMA B4 (f32) the WMMA B2's (GQA H16 /
+    Hk4, ragged T)."""
+    args = _bwd_args(cuda, 1, 1000, 16, 4, D, dtype, bh, causal)
     first = fa._flash_bwd_dq_cuda(*args)
     second = fa._flash_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
+    assert first.dtype == dtype
     assert torch.equal(first, second)
-    # the dk / dv kernel is the WMMA fused kernel's walk without dq
     dkv = fa._flash_bwd_dkv_cuda(*args)
-    fused = fa._flash_bwd_cuda(*args, kernel=fa.BWD_KERNEL)
+    fused = fa._flash_bwd_cuda(*args, kernel=(
+        fa.BWD_SM90_KERNEL if dtype == torch.bfloat16 else fa.BWD_KERNEL))
     torch.cuda.synchronize()
     for a, b in zip(dkv, fused[1:]):
         assert torch.equal(a, b)
@@ -216,6 +237,24 @@ def test_sm90_kernels_match_plain(cuda, D, causal, T, bh):
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)
     assert launched == _want(hopper=True, two=False)
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * b.abs().max().item() + 1e-3, err
+
+
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("T", [1, 129, 1000, 2048])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128])
+def test_sm90_two_kernel_match_plain(cuda, monkeypatch, D, causal, T, bh):
+    """flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 (bf16, GQA H16 / Hk4, the
+    two-kernel route forced) against autograd through the f32 plain
+    forward, at T = 1, ragged T and T2048, in both layouts, with exactly
+    one launch of each and none of the WMMA kernels."""
+    monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
+                                      torch.bfloat16, bh)
+    assert launched == _want(hopper=True, two=True)
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= TOL[torch.bfloat16] * b.abs().max().item() + 1e-3, err

@@ -59,7 +59,8 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         from pytorch_operator_tpu_torch import kernels
         assert kernels._lib is None, "importing loaded the library"
         assert sorted(kernels.KERNELS) == [
-            "flash_bwd", "flash_bwd_dkv", "flash_bwd_dq", "flash_bwd_sm90",
+            "flash_bwd", "flash_bwd_dkv", "flash_bwd_dkv_sm90",
+            "flash_bwd_dq", "flash_bwd_dq_sm90", "flash_bwd_sm90",
             "flash_fwd", "flash_fwd_sm90", "rms_norm_fwd"], kernels.KERNELS
         try:
             kernels.build()
@@ -117,15 +118,20 @@ def _cuda_wrappers():
                                                 False),
         "flash_bwd": lambda: fa._flash_bwd_cuda(q32, q32, q32, q32, lse, lse,
                                                 0.125, True, False),
-        "flash_bwd_dq": lambda: fa._flash_bwd_dq_cuda(q, q, q, q, lse, lse,
-                                                      0.125, True, False),
-        "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_cuda(q, q, q, q, lse, lse,
-                                                        0.125, True, False),
+        "flash_bwd_dq_sm90": lambda: fa._flash_bwd_dq_cuda(
+            q, q, q, q, lse, lse, 0.125, True, False),
+        "flash_bwd_dkv_sm90": lambda: fa._flash_bwd_dkv_cuda(
+            q, q, q, q, lse, lse, 0.125, True, False),
+        "flash_bwd_dq": lambda: fa._flash_bwd_dq_cuda(
+            q32, q32, q32, q32, lse, lse, 0.125, True, False),
+        "flash_bwd_dkv": lambda: fa._flash_bwd_dkv_cuda(
+            q32, q32, q32, q32, lse, lse, 0.125, True, False),
     }
 
 
 KERNEL_NAMES = ["rms_norm_fwd", "flash_fwd_sm90", "flash_bwd_sm90",
-                "flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"]
+                "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "flash_fwd",
+                "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 
 def _dummy_args(kernel):

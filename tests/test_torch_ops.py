@@ -186,6 +186,22 @@ class TestTwoKernelRoute:
         for a, b in zip(ts, gj):
             np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), **GRAD)
 
+    @pytest.mark.parametrize("D,T", [(64, 333), (128, 200)])
+    def test_grads_match_jax_twokernel_hopper_dims(self, two_kernel_route,
+                                                    D, T):
+        """At the head dims the Hopper B3 / B4 take on the card (64, 128):
+        GQA 2, causal, T not a multiple of any tile."""
+        q, k, v = qkv(51, 1, T, 4, 2, D)
+        gj = jax.grad(
+            lambda *a: jnp.sum(jax_flash(*a, causal=True) ** 2),
+            argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+        ts = [t(a, True) for a in (q, k, v)]
+        (flash_attention(*ts, causal=True) ** 2).sum().backward()
+        assert two_kernel_route == ["_flash_bwd_dq_reference",
+                                    "_flash_bwd_dkv_reference"]
+        for a, b in zip(ts, gj):
+            np.testing.assert_allclose(a.grad.numpy(), np.asarray(b), **GRAD)
+
     @pytest.mark.parametrize("with_out", [True, False])
     def test_flash_with_lse_cotangent_twokernel(self, two_kernel_route,
                                                 with_out):
@@ -257,6 +273,37 @@ class TestHopperDispatch:
             assert a.dtype == torch.bfloat16
             err = (a.float() - b.detach()).abs().max().item()
             assert err <= 2e-2 * b.abs().max().item(), err
+
+
+class TestTwoKernelDispatch:
+    """Which dq and dk / dv kernel a CUDA call launches: the Hopper ones
+    (``flash_bwd_dq_sm90`` / ``flash_bwd_dkv_sm90``) for bf16 at D 64 or
+    128, the WMMA ones (``flash_bwd_dq`` / ``flash_bwd_dkv``) for f32 and
+    D 16/32, by the same ``_sm90`` rule as the forward."""
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+    @pytest.mark.parametrize("D", [16, 32, 64, 128])
+    def test_wrappers_pick_by_the_rule(self, monkeypatch, dtype, D):
+        picked = []
+        monkeypatch.setattr(fa, "_checked_dims",
+                            lambda q, k, bh, tensors: fa._dims(q, k, bh))
+        monkeypatch.setattr(fa, "_launch",
+                            lambda kernel, *a: picked.append(kernel))
+        q = torch.zeros(1, 8, 2, D, dtype=dtype)
+        lse = torch.zeros(2, 8)
+        args = (q, q, q, q, lse, lse, D ** -0.5, True, False)
+        dq = fa._flash_bwd_dq_cuda(*args)
+        dkp, dvp = fa._flash_bwd_dkv_cuda(*args)
+        if dtype == torch.bfloat16 and D in (64, 128):
+            assert picked == [fa.BWD_DQ_SM90_KERNEL, fa.BWD_DKV_SM90_KERNEL]
+        else:
+            assert picked == [fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL]
+        assert dq.dtype == dtype
+        assert dkp.dtype == dvp.dtype == torch.float32
+        # a kernel the caller names is the one launched
+        fa._flash_bwd_dq_cuda(*args, kernel=fa.BWD_DQ_KERNEL)
+        fa._flash_bwd_dkv_cuda(*args, kernel=fa.BWD_DKV_KERNEL)
+        assert picked[2:] == [fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL]
 
 
 class TestPlainVersions:
