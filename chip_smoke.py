@@ -43,7 +43,23 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             of train_llama at that shape with --remat-policy auto;
 7. tiers    the tiny model in bf16 through the kernels at every ported
             remat tier: grads against no remat and the flash forward's
-            launches per step (L under save_attn*, 2L under full remat).
+            launches per step (L under save_attn*, 2L under full remat);
+8. sharded  the T2048 path of phase 4 through the sharded code path at
+            world size 1 over NCCL: make_mesh(1, 1, 1), sharded_init
+            (FSDP2 over the one rank), make_train_step(mesh=...), the
+            same seed and batch, its step wrapped in with_step_profiler:
+            exact launch counts, losses within 2e-2 of phase 4's step by
+            step, step time, device time and peak memory beside phase
+            4's, the profiler's tokens/s and 6·N·B·T MFU beside this
+            script's;
+9. resume   train_llama --model flagship --layers 2 at B2 x T2048 in a
+            process that checkpoints at steps 2 and 4, a second process
+            that restores step 4 and trains to step 6, and the same six
+            steps uninterrupted: the log strings, no step retrained,
+            steps 4-5 within 2e-2 of the uninterrupted run's, save and
+            restore seconds;
+10. mnist   train_mnist --device cuda on the synthetic digits until
+            accuracy >= 0.98: images/s and seconds.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -53,6 +69,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import itertools
 import json
@@ -78,6 +95,9 @@ STEPS = 6
 LONG = dict(B=1, T=16384, H=16, D=128)
 LONG_STEPS = 5
 LONG_POLICY = "save_attn+qkv"
+# steps of the sharded path through with_step_profiler, after its timed
+# steps (the profiler counts the first as its warm-up)
+PROFILER_STEPS = 5
 PLAIN_T = 4096  # the plain backward versions' f32 (T, T) buffers fit here
 
 
@@ -854,12 +874,18 @@ def time_long_kernels(torch, gen) -> dict:
 # --------------------------------------------------------------------------
 
 
-def run_path(torch, label, cfg, B, T, steps, expect, **step_kw) -> dict:
+def run_path(torch, label, cfg, B, T, steps, expect, mesh=None,
+             **step_kw) -> dict:
     """Train ``cfg`` from seed 0 for ``steps`` steps on one seeded (B, T)
     batch through make_train_step with AdamW(3e-4, wd 0.1): every launch
     count reset just before and read just after, the loss finite and
     falling, launches per step exactly ``expect``; then one profiled
-    step."""
+    step.  ``host_ms`` is the time until the step returns, before the
+    wait for the device: a step whose host time reaches its step time is
+    bound by the host.  With ``mesh`` the model is sharded_init's on it
+    (the same values as the unsharded init), and PROFILER_STEPS more
+    steps run through with_step_profiler, whose numbers are returned
+    beside this function's."""
     import numpy as np
 
     from pytorch_operator_tpu_torch import kernels
@@ -868,23 +894,29 @@ def run_path(torch, label, cfg, B, T, steps, expect, **step_kw) -> dict:
         TrainState,
         adamw,
         make_train_step,
+        sharded_init,
+        with_step_profiler,
     )
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    model = llama.Llama(cfg, device="cuda", generator=gen)
+    if mesh is None:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = llama.Llama(cfg, device="cuda", generator=gen)
+    else:
+        model = sharded_init(cfg, mesh, seed=0)
     optimizer = adamw(model, 3e-4, weight_decay=0.1)
     state = TrainState(model, optimizer)
-    step_fn = make_train_step(cfg, model, optimizer, **step_kw)
+    step_fn = make_train_step(cfg, model, optimizer, mesh=mesh, **step_kw)
     batch = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (B, T + 1))).cuda()
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, norms, times = [], [], []
+    losses, norms, times, host = [], [], [], []
     kernels.reset_launches()
     for _ in range(steps):
         t0 = time.perf_counter()
         state, metrics = step_fn(state, batch)
+        host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
@@ -904,10 +936,18 @@ def run_path(torch, label, cfg, B, T, steps, expect, **step_kw) -> dict:
            "step_kw": step_kw, "losses": losses, "grad_norms": norms,
            "step_ms_all": [t * 1e3 for t in times],
            "step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+           "host_ms_all": [t * 1e3 for t in host],
+           "host_ms": statistics.median(host[1:]) * 1e3,
            "model_tflops_per_step": flops / 1e12,
            "mfu": flops / step_s / PEAK_BF16_FLOPS,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": counts, "launches_per_step": per_step}
+    if mesh is not None:
+        profiled, profiler = with_step_profiler(step_fn, cfg, mesh, batch=B,
+                                                seq_len=T, job=label)
+        for _ in range(PROFILER_STEPS):
+            state, _ = profiled(state, batch)
+        res["step_profiler"] = profiler.summary()
     emit({label: res})
     require(all(math.isfinite(x) for x in losses + norms),
             f"{label}: non-finite loss or grad norm: {losses} {norms}")
@@ -951,6 +991,74 @@ def run_long_path(torch) -> dict:
               "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
     return run_path(torch, "long_path", cfg, LONG["B"], LONG["T"],
                     LONG_STEPS, expect, chunked_ce=True, ce_chunk=1024)
+
+
+def free_memory(torch) -> None:
+    """Drop what an earlier phase left: an FSDP2 model's hooks hold
+    reference cycles, which only the collector frees, and a path's peak
+    memory would count them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_sharded_path(torch, main: dict) -> dict:
+    """Phase 8: the T2048 path of phase 4 through the sharded code path
+    at world size 1 (NCCL), held against phase 4's run."""
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(1, 1, 1, "cuda")
+    try:
+        backend = dist.get_backend()
+        require(backend == "nccl", f"the cuda mesh runs {backend}, not nccl")
+        L = llama.flagship().n_layers
+        expect = {"rms_norm_fwd": 2 * L + 1, "flash_fwd_sm90": L,
+                  "flash_bwd_sm90": L, "flash_bwd_dq_sm90": 0,
+                  "flash_bwd_dkv_sm90": 0, "flash_fwd": 0, "flash_bwd": 0,
+                  "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+        res = run_path(torch, "sharded_path", llama.flagship(), MAIN["B"],
+                       MAIN["T"], STEPS, expect, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    diffs = [abs(a - b) for a, b in zip(res["losses"], main["losses"])]
+    prof = res["step_profiler"]
+    out = {"backend": backend, "mesh": {"dp": 1, "fsdp": 1, "tp": 1},
+           "world_size": 1,
+           "losses": {"sharded": res["losses"], "main": main["losses"]},
+           "max_loss_abs_diff": max(diffs),
+           "tolerance": "each step's loss within 2e-2 of phase 4's (bf16; "
+                        "the fused backward's dq sums with atomics)",
+           "step_ms": {"sharded": res["step_ms"], "main": main["step_ms"]},
+           "device_ms": {"sharded": res["profile"]["device_ms"],
+                         "main": main["profile"]["device_ms"]},
+           "peak_mem_gib": {"sharded": res["peak_mem_gib"],
+                            "main": main["peak_mem_gib"]},
+           "launches_per_step": {"sharded": res["launches_per_step"],
+                                 "main": main["launches_per_step"]},
+           "step_profiler": {
+               "tokens_per_s": prof["tokens_per_sec"],
+               "mfu_6nbt": prof["mfu"],
+               "mean_step_ms": prof["mean_step_time_s"] * 1e3,
+               "first_step_ms": prof["compile_time_s"] * 1e3,
+               "convention": f"{PROFILER_STEPS} steps after the timed ones, "
+                             f"the mean of all but the first; MFU = "
+                             f"6·N·B·T / step time / 989 TFLOP/s "
+                             f"(attention left out)"},
+           "host_ms": {"sharded": res["host_ms"], "main": main["host_ms"]},
+           "this_script": {
+               "tokens_per_s": res["tokens_per_s"], "mfu": res["mfu"],
+               "median_step_ms": res["step_ms"],
+               "convention": "median of the steps after the first; MFU = "
+                             "(6·N·B·T + 12·L·B·T²·D/2) / step time / "
+                             "989 TFLOP/s"}}
+    emit({"sharded_vs_main": out})
+    require(len(diffs) == STEPS and max(diffs) <= 2e-2,
+            f"sharded path's losses off phase 4's: {out['losses']}")
+    require(res["profile"]["complete"],
+            "the sharded step's profile lost kernel records")
+    return res
 
 
 # the profile class of each kernel's launches: the C symbol's name, but
@@ -1169,6 +1277,121 @@ def check_remat_tiers(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 9: checkpoint and resume through the trainer
+# --------------------------------------------------------------------------
+
+
+RESUME_ARGV = ["--model", "flagship", "--layers", "2", "--batch-size", "2",
+               "--seq-len", "2048", "--log-interval", "1"]
+
+
+def _trainer(argv: list[str]) -> str:
+    """train_llama in a process of its own (the card's first process keeps
+    its memory); its output, or the phase fails."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        env.pop(name, None)
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytorch_operator_tpu_torch.train_llama",
+         *argv], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True, timeout=600)
+    require(proc.returncode == 0,
+            f"train_llama {argv} failed: {proc.stderr[-3000:]}")
+    return proc.stdout
+
+
+def _step_losses(text: str) -> dict[int, float]:
+    return {int(i): float(x) for i, x in re.findall(
+        r"^step (\d+): loss=(\S+)", text, re.MULTILINE)}
+
+
+def run_checkpoint_resume(torch) -> dict:
+    """Phase 9: a process trains 4 steps and checkpoints at 2 and 4 (each
+    checkpoint about 1 GB: bf16 params and both AdamW moments of the
+    2-layer flagship at full width), a second one restores step 4 and
+    trains to 6; the same 6 steps uninterrupted in this process give the
+    losses the resumed steps must continue."""
+    import tempfile
+
+    from pytorch_operator_tpu_torch import train_llama
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = ["--checkpoint-dir", os.path.join(tmp, "ckpt"),
+                "--checkpoint-every", "2"]
+        t0 = time.perf_counter()
+        first = _trainer(RESUME_ARGV + ckpt + ["--steps", "4"])
+        t1 = time.perf_counter()
+        second = _trainer(RESUME_ARGV + ckpt + ["--steps", "6"])
+        t2 = time.perf_counter()
+    free_memory(torch)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = train_llama.main(RESUME_ARGV + ["--steps", "6"])
+    whole = _step_losses(out.getvalue())
+    resumed = _step_losses(second)
+    saves = [float(x) for x in re.findall(
+        r"checkpointed step \d+ in (\S+) s", first + second)]
+    restore = re.search(r"restored checkpoint at step 4 onto 1 device\(s\) "
+                        r"in (\S+) s", second)
+    diffs = [abs(resumed.get(i, math.inf) - whole.get(i, math.inf))
+             for i in (4, 5)]
+    res = {"argv": RESUME_ARGV, "save_s": saves,
+           "restore_s": restore and float(restore.group(1)),
+           "process_s": [t1 - t0, t2 - t1],
+           "losses": {"first": _step_losses(first), "resumed": resumed,
+                      "uninterrupted": whole},
+           "max_loss_abs_diff": max(diffs),
+           "tolerance": "steps 4-5 within 2e-2 of the uninterrupted run's "
+                        "(bf16; the fused backward's atomics)",
+           "output": (first + second).splitlines()}
+    emit({"checkpoint_resume": res})
+    require("checkpointed step 2" in first and "checkpointed step 4" in first
+            and "restored checkpoint" not in first,
+            f"the first run did not checkpoint at 2 and 4: {first}")
+    require(restore is not None and "checkpointed step 6" in second
+            and "training complete" in second,
+            f"the second run did not restore step 4: {second}")
+    require(sorted(resumed) == [4, 5],
+            f"the resumed run trained steps {sorted(resumed)}, not 4-5")
+    require(rc == 0 and max(diffs) <= 2e-2,
+            f"resumed losses {resumed} do not continue {whole}")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 10: dist-MNIST on the card
+# --------------------------------------------------------------------------
+
+
+MNIST_ARGV = ["--device", "cuda", "--synthetic-size", "16384",
+              "--batch-size", "128", "--epochs", "5", "--lr", "0.05",
+              "--momentum", "0.9", "--log-interval", "1000",
+              "--target-accuracy", "0.98"]
+
+
+def run_mnist(torch) -> dict:
+    from pytorch_operator_tpu_torch import train_mnist
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = train_mnist.main(MNIST_ARGV)
+    seconds = time.perf_counter() - t0
+    text = out.getvalue()
+    acc = [float(a) for a in re.findall(r"^accuracy=(\S+)", text,
+                                        re.MULTILINE)]
+    rate = [float(r) for r in re.findall(r"(\d+) img/s", text)]
+    res = {"argv": MNIST_ARGV, "rc": rc, "accuracy_by_epoch": acc,
+           "img_per_s_by_epoch": rate, "seconds_to_target": seconds,
+           "output": text.splitlines()[-6:]}
+    emit({"mnist": res})
+    require(rc == 0 and acc and acc[-1] >= 0.98,
+            f"train_mnist did not reach 0.98: {acc}")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -1257,12 +1480,19 @@ def run() -> tuple[str, list[dict]]:
     phase = time.perf_counter()
     paths = {"main_path": run_main_path(torch)}
     check_tiny_model(torch)
-    torch.cuda.empty_cache()
+    free_memory(torch)
     paths["long_path"] = run_long_path(torch)
-    torch.cuda.empty_cache()
+    free_memory(torch)
     run_long_cli(torch)
     check_remat_tiers(torch)
     seconds["paths"] = time.perf_counter() - phase
+    phase = time.perf_counter()
+    free_memory(torch)
+    paths["sharded_path"] = run_sharded_path(torch, paths["main_path"])
+    free_memory(torch)
+    run_checkpoint_resume(torch)
+    run_mnist(torch)
+    seconds["distributed"] = time.perf_counter() - phase
     emit({"phase_seconds": seconds})
 
     rows = []

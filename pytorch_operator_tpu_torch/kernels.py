@@ -26,6 +26,7 @@ import tempfile
 from pathlib import Path
 
 import torch
+from torch.distributed.tensor import DTensor
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC / "build"
@@ -150,9 +151,17 @@ class CudaKernel:
         self.launches += 1
 
 
-def on_cuda(x: torch.Tensor) -> bool:
+def on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor; any other device
-    raises."""
+    raises, and so does a ``DTensor`` among ``x`` and ``others``: the
+    kernels and their plain versions take each rank's local tensors
+    (the tensor-parallel layers hand those on), so a sharded tensor here
+    is a bug and never goes to the plain version."""
+    for t in (x, *others):
+        if isinstance(t, DTensor):
+            raise TypeError(
+                f"a DTensor ({t.placements} on {t.device_mesh}) reached a "
+                f"kernel wrapper; the port's ops take local tensors")
     if x.is_cuda:
         return True
     if x.device.type == "cpu":

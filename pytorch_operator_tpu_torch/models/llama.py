@@ -28,6 +28,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor.parallel import (
+    ColwiseParallel,
+    ParallelStyle,
+    RowwiseParallel,
+)
 from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
@@ -109,6 +115,35 @@ def flagship(**kw) -> LlamaConfig:
     return LlamaConfig(**defaults)
 
 
+def param_specs(cfg: LlamaConfig) -> Dict[str, ParallelStyle]:
+    """The tensor-parallel plan for ``parallelize_module`` on the mesh's
+    tp dim, the port of the JAX ``param_specs``' tp half: the q/k/v and
+    SwiGLU gate/up projections split their output features over tp
+    (column-wise: each rank computes n_heads/tp q heads, n_kv_heads/tp
+    kv heads and ffn_dim/tp hidden units), the o and down projections
+    their input features (row-wise, summed over tp); norms are absent,
+    so replicated.  The embedding (the tied head) stays replicated over
+    tp where JAX shards it over (tp, fsdp): a layout difference, not one
+    of values.  The fsdp half is ``fully_shard`` (``sharded_init``).
+
+    Both styles keep ``use_local_output``: the attention and the norms
+    get each rank's local tensors, never DTensors."""
+    del cfg
+    col, row = ColwiseParallel(), RowwiseParallel()
+    return {f"layers.*.{name}": col
+            for name in ("wq", "wk", "wv", "w_gate", "w_up")} | {
+        "layers.*.wo": row, "layers.*.w_down": row}
+
+
+def check_tp(cfg: LlamaConfig, tp: int) -> None:
+    """Each tp rank owns whole q and kv heads: tp must divide both head
+    counts (the JAX ``head_shard_degree`` rule)."""
+    if cfg.n_heads % tp or cfg.n_kv_heads % tp:
+        raise ValueError(
+            f"the mesh's tp degree {tp} must divide both head counts; "
+            f"got n_heads={cfg.n_heads}, n_kv_heads={cfg.n_kv_heads}")
+
+
 # ---------------------------------------------------------------------------
 # Forward pieces
 
@@ -143,9 +178,12 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def _attention(q, k, v, cfg: LlamaConfig):
-    """Causal attention (B,T,H,Dh) x (B,T,KV,Dh) with GQA broadcast."""
+    """Causal attention (B,T,H,Dh) x (B,T,KV,Dh) with GQA broadcast.
+
+    The head counts come from the tensors: under tensor parallelism a
+    rank holds n_heads/tp q heads and n_kv_heads/tp kv heads."""
     B, T, H, Dh = q.shape
-    groups = cfg.n_heads // cfg.n_kv_heads
+    groups = H // k.shape[2]
     if cfg.use_flash:
         return ops.flash_attention(q, k, v, causal=True)
     if groups > 1:
@@ -331,7 +369,7 @@ class Block(nn.Module):
     def forward(self, h, cos, sin):
         cfg = self.cfg
         B, T, _ = h.shape
-        hd, nh, nkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        hd = cfg.head_dim
         # the save-group regions matter only under a selective remat
         # policy (remat_context_fn); elsewhere they change nothing
         with _save_region("normed"):
@@ -339,10 +377,12 @@ class Block(nn.Module):
                          cfg.use_fused_norm)
         with _save_region("qkv"):
             q, k, v = self.wq(x), self.wk(x), self.wv(x)
-        q = apply_rope(q.view(B, T, nh, hd), cos, sin)
-        k = apply_rope(k.view(B, T, nkv, hd), cos, sin)
-        attn = _attention(q, k, v.view(B, T, nkv, hd), cfg)
-        h = h + self.wo(attn.reshape(B, T, nh * hd))
+        # -1 heads: a tensor-parallel rank's projections give it
+        # n_heads/tp q and n_kv_heads/tp kv heads
+        q = apply_rope(q.view(B, T, -1, hd), cos, sin)
+        k = apply_rope(k.view(B, T, -1, hd), cos, sin)
+        attn = _attention(q, k, v.view(B, T, -1, hd), cfg)
+        h = h + self.wo(attn.reshape(B, T, -1))
         with _save_region("normed"):
             x = rms_norm(h, self.mlp_norm, cfg.norm_eps, cfg.use_fused_norm)
         with _save_region("gateup"):
@@ -355,11 +395,15 @@ class Llama(nn.Module):
 
     def __init__(self, cfg: LlamaConfig, *, device=None,
                  generator: torch.Generator | None = None):
+        """``device="meta"`` builds the shapes only and draws nothing:
+        ``parallel.train.sharded_init`` shards such a model and then
+        fills each rank's shards with ``init_params``."""
         super().__init__()
         # the layers' checkpoint context (raises on a policy it cannot
         # run, as the JAX model does when it builds the layer body)
         self.remat_context = remat_context_fn(cfg) if cfg.remat else None
-        dev = default_device(device)
+        meta = device is not None and torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else default_device(device)
         self.cfg = cfg
         self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim,
                                               device=dev, dtype=cfg.dtype))
@@ -367,7 +411,8 @@ class Llama(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=dev,
                                                   dtype=cfg.dtype))
-        init_params(self, generator)
+        if not meta:
+            init_params(self, generator)
 
     def _forward_with(self, tokens: torch.Tensor,
                       return_hidden: bool = False) -> torch.Tensor:
@@ -416,15 +461,17 @@ def init_params(model: Llama, generator: torch.Generator | None = None
     ``generator`` lives on the model's device (one is made from seed 0
     when none is given); it gives other numbers than ``jax.random`` for
     the same seed, so parity tests carry weights across with
-    ``load_jax_params``."""
+    ``load_jax_params``.  A sharded model (DTensor parameters) gets the
+    same values: each matrix is drawn whole, one at a time, and each
+    rank keeps its shard (``assign``)."""
     cfg = model.cfg
     dev = model.embed.device
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
     def dense(p: torch.Tensor, fan_in: int):
-        p.copy_(torch.randn(p.shape, generator=generator, device=dev,
-                            dtype=torch.float32) * fan_in ** -0.5)
+        assign(p, torch.randn(p.shape, generator=generator, device=dev,
+                              dtype=torch.float32) * fan_in ** -0.5)
 
     dense(model.embed, cfg.dim)
     for blk in model.layers:
@@ -441,6 +488,26 @@ _LINEARS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 _NORMS = ("attn_norm", "mlp_norm")
 
 
+def assign(p: torch.Tensor, full: torch.Tensor) -> None:
+    """Copy the full value ``full`` into parameter ``p``, cast to its
+    dtype.  For a DTensor parameter each rank keeps only its shard of
+    ``full`` (which every rank holds): no communication."""
+    if tuple(full.shape) != tuple(p.shape):
+        raise ValueError(f"shape {tuple(full.shape)} does not fit "
+                         f"parameter {tuple(p.shape)}")
+    full = full.to(device=p.device, dtype=p.dtype)
+    if isinstance(p, DTensor):
+        full = distribute_tensor(full, p.device_mesh, p.placements,
+                                 src_data_rank=None)
+    p.copy_(full)
+
+
+def full_value(p: torch.Tensor) -> torch.Tensor:
+    """The whole value of a parameter or gradient (a DTensor is
+    all-gathered)."""
+    return p.full_tensor() if isinstance(p, DTensor) else p
+
+
 def _to_torch(a: np.ndarray) -> torch.Tensor:
     a = np.array(a)  # a writable, contiguous copy
     if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16 from jax arrays
@@ -449,7 +516,7 @@ def _to_torch(a: np.ndarray) -> torch.Tensor:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    t = t.detach().cpu()
+    t = full_value(t).detach().cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy()
@@ -460,14 +527,11 @@ def load_jax_params(model: Llama, tree: Dict[str, Any]) -> Llama:
     """Copy a JAX ``init_params``-layout tree of numpy arrays into
     ``model``: ``layers/*`` leaves carry a leading L axis, and matrices
     are ``(in, out)`` (used as ``x @ w``), transposed here into
-    ``nn.Linear``'s ``(out, in)``."""
+    ``nn.Linear``'s ``(out, in)``.  A sharded model takes each rank's
+    shard of the full arrays."""
 
     def put(p: torch.Tensor, a) -> None:
-        t = _to_torch(np.asarray(a))
-        if tuple(t.shape) != tuple(p.shape):
-            raise ValueError(f"shape {tuple(t.shape)} does not fit "
-                             f"parameter {tuple(p.shape)}")
-        p.copy_(t.to(p.dtype))
+        assign(p, _to_torch(np.asarray(a)))
 
     put(model.embed, tree["embed"])
     put(model.final_norm, tree["final_norm"])

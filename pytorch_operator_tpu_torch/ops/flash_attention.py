@@ -331,7 +331,7 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, scale, causal, bh):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        kernels.on_cuda(q)  # any other device raises before the operator
+        kernels.on_cuda(q, k, v)  # another device or a DTensor raises
         out, lse = flash_fwd(q, k, v, scale, causal, bh)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.scale, ctx.causal, ctx.bh = scale, causal, bh

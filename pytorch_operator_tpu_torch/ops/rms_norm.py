@@ -94,7 +94,7 @@ class _RMSNorm(torch.autograd.Function):
     def forward(ctx, x2, weight, eps):
         ctx.save_for_backward(x2, weight)
         ctx.eps = eps
-        kernels.on_cuda(x2)  # any other device raises before the operator
+        kernels.on_cuda(x2, weight)  # another device or a DTensor raises
         return rms_norm_fwd(x2, weight, eps)
 
     @staticmethod

@@ -1,25 +1,44 @@
-"""Single-device training step for the Llama model.
+"""Training step for the Llama model, on one device or over a mesh.
 
-Port of the single-device half of ``pytorch_operator_tpu/parallel/
-train.py``: next-token cross entropy (optionally with the tied head
-applied per sequence chunk), the AdamW update and the global gradient
-norm.  The JAX step is one jitted function over a mesh; here it is an
-eager step over one device that updates the model and the optimizer in
-place.  Mesh, sharding, the sequence-parallel and pipeline steps wait
-for later slices.
+Port of ``pytorch_operator_tpu/parallel/train.py``: next-token cross
+entropy (optionally with the tied head applied per sequence chunk), the
+AdamW update, the global gradient norm, ``sharded_init``, checkpoint
+save and restore at any mesh shape (``restore_on_mesh``) and
+``with_step_profiler``.  The JAX step is one jitted function over a
+mesh; here it is an eager step that updates the model and the optimizer
+in place, on one device (``mesh=None``) or on each rank of a
+(dp, fsdp, tp) ``DeviceMesh``: parameters sharded by FSDP2 over
+(dp, fsdp) and by the DTensor tp plan over tp, the global batch split
+over (dp, fsdp).  The sequence-parallel and pipeline steps and the
+in-memory ``reshard_state`` wait for later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+from pathlib import Path
 from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.checkpoint as dcp
 import torch.nn.functional as F
+from torch.distributed.checkpoint.state_dict import (
+    get_state_dict,
+    set_state_dict,
+)
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.fsdp import fully_shard, register_fsdp_forward_method
+from torch.distributed.tensor import DTensor, Partial, Replicate
+from torch.distributed.tensor.parallel import parallelize_module
 from torch.utils.checkpoint import checkpoint
 
+from pytorch_operator_tpu_torch.models import llama
 from pytorch_operator_tpu_torch.models.llama import Llama, LlamaConfig
+from pytorch_operator_tpu_torch.parallel.mesh import AXIS_TP, local_rows
+from pytorch_operator_tpu_torch.telemetry import StepProfiler
 
 
 @dataclasses.dataclass
@@ -77,8 +96,68 @@ def chunked_tied_ce(h: torch.Tensor, embed: torch.Tensor,
 
 def global_norm(grads) -> torch.Tensor:
     """sqrt(sum of squares) over every gradient, as ``optax.global_norm``
-    (accumulated in f32)."""
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+    (accumulated in f32): the norm of the full gradient on every rank.
+
+    A DTensor gradient adds its local sum of squares; the sums of the
+    gradients that share a mesh and placements are reduced together
+    over the mesh dims that shard them (one all-reduce per layout), and
+    not over the dims that replicate them or have one rank: a
+    collective over one rank changes no value, and on the card it makes
+    the host wait for the device."""
+    plain, by_layout = [], {}
+    for g in grads:
+        if isinstance(g, DTensor):
+            by_layout.setdefault((g.device_mesh, tuple(g.placements)),
+                                 []).append(
+                g.to_local().float().square().sum())
+        else:
+            plain.append(g.float().square().sum())
+    total = sum(plain)
+    for (mesh, placements), sums in by_layout.items():
+        # every placement but Replicate splits the gradient (FSDP2's
+        # strided shard under tp is no Shard subclass)
+        partial = [Replicate() if p.is_replicate() or mesh.size(dim) == 1
+                   else Partial() for dim, p in enumerate(placements)]
+        sq = torch.stack(sums).sum()
+        if any(p.is_partial() for p in partial):
+            sq = DTensor.from_local(sq, mesh, partial,
+                                    run_check=False).full_tensor()
+        total = total + sq
+    return torch.sqrt(total)
+
+
+def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0) -> Llama:
+    """The Llama model built straight into its shards on ``mesh``.
+
+    The model is built on the meta device, the tp plan
+    (``llama.param_specs``) is applied over the mesh's tp dim when it
+    is larger than 1, each ``Block`` and then the root are
+    ``fully_shard``-ed over (dp, fsdp) (HSDP: replicated over dp,
+    sharded over fsdp), and only then is memory allocated, for each
+    rank's shards.  ``init_params`` draws every matrix whole, one at a
+    time, from ``torch.Generator(seed)`` on the mesh's device, and each
+    rank keeps its shard, so the values are bit for bit those of the
+    unsharded ``Llama(cfg, generator=seed)`` on that device."""
+    tp = mesh[AXIS_TP].size()
+    llama.check_tp(cfg, tp)
+    if mesh.device_type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    else:
+        device = torch.device(mesh.device_type)
+    model = Llama(cfg, device="meta")
+    if tp > 1:
+        parallelize_module(model, mesh[AXIS_TP], llama.param_specs(cfg))
+    data_mesh = mesh["dp", "fsdp"]
+    for block in model.layers:
+        fully_shard(block, mesh=data_mesh)
+    fully_shard(model, mesh=data_mesh)
+    # the chunked-CE step calls forward_hidden, not forward: it must
+    # gather the root's parameters (the embedding, the final norm) too
+    register_fsdp_forward_method(model, "forward_hidden")
+    model.to_empty(device=device)
+    llama.init_params(model,
+                      torch.Generator(device=device).manual_seed(seed))
+    return model
 
 
 def make_train_step(
@@ -86,6 +165,7 @@ def make_train_step(
     model: Llama,
     optimizer: torch.optim.Optimizer,
     *,
+    mesh: DeviceMesh | None = None,
     chunked_ce: bool = False,
     ce_chunk: int = 1024,
 ) -> Callable[[TrainState, torch.Tensor], tuple[TrainState, dict]]:
@@ -97,11 +177,22 @@ def make_train_step(
     before the update), as 0-d tensors on the model's device.  The model
     and the optimizer update in place; the returned state carries the
     step count.  ``chunked_ce`` applies the tied head per ``ce_chunk``
-    tokens (see chunked_tied_ce)."""
+    tokens (see chunked_tied_ce).
+
+    With ``mesh`` the model is ``sharded_init``'s and every rank calls
+    the step with the same global batch: each takes its rows
+    (``mesh.local_rows``), FSDP2 averages the gradients over (dp, fsdp)
+    and the loss is all-reduced, so ``loss`` is the mean over the global
+    batch and ``grad_norm`` the norm of the full gradient, as the JAX
+    mesh step's.  AdamW's moments are DTensors sharded as their
+    parameters."""
     if ce_chunk < 1:
         raise ValueError(f"ce_chunk must be >= 1, got {ce_chunk}")
     if model.cfg != cfg:
         raise ValueError("the model was built from another config")
+    if isinstance(model.embed, DTensor) != (mesh is not None):
+        raise ValueError("a sharded model (sharded_init) needs its mesh, "
+                         "and a mesh needs a sharded model")
     device = model.embed.device
     params = list(model.parameters())
 
@@ -118,6 +209,8 @@ def make_train_step(
                              "optimizer")
         if isinstance(batch, np.ndarray):
             batch = torch.from_numpy(batch)
+        if mesh is not None:
+            batch = local_rows(batch, mesh)
         batch = batch.to(device=device, dtype=torch.long)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch)
@@ -125,7 +218,88 @@ def make_train_step(
         with torch.no_grad():
             gnorm = global_norm(p.grad for p in params if p.grad is not None)
         optimizer.step()
+        loss = loss.detach()
+        if mesh is not None and mesh.size() > 1:
+            # equal rows on every rank, the same loss on the tp ranks of
+            # a shard: the world mean is the global batch's mean
+            loss = loss.clone()
+            dist.all_reduce(loss)
+            loss /= dist.get_world_size()
         return (TrainState(model, optimizer, state.step + 1),
-                {"loss": loss.detach(), "grad_norm": gnorm})
+                {"loss": loss, "grad_norm": gnorm})
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: torch.distributed.checkpoint, one directory per step
+
+
+def save_checkpoint(state: TrainState, directory: str | os.PathLike) -> Path:
+    """Write the model and optimizer state at ``state.step`` to
+    ``directory/<step>`` (every rank calls it; each writes its shards).
+
+    The files hold global shapes and each shard's offsets, so
+    ``restore_on_mesh`` reads them back at any world size and mesh
+    shape.  The AdamW step count is part of the optimizer state."""
+    path = Path(directory) / str(state.step)
+    model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+    dcp.save({"model": model_sd, "optim": optim_sd}, checkpoint_id=path)
+    return path
+
+
+def latest_checkpoint(directory: str | os.PathLike) -> int | None:
+    """The highest step under ``directory`` whose checkpoint is whole
+    (its ``.metadata`` is written last), or None."""
+    root = Path(directory)
+    if not root.is_dir():
+        return None
+    steps = [int(p.name) for p in root.iterdir()
+             if p.name.isdigit() and (p / ".metadata").is_file()]
+    return max(steps, default=None)
+
+
+def restore_on_mesh(directory: str | os.PathLike, step: int,
+                    target: TrainState) -> TrainState:
+    """Read checkpoint ``step`` into ``target``'s model and optimizer, in
+    their own layout (the port of the JAX ``restore_on_mesh``).
+
+    ``target`` is a freshly built state on the current mesh; the
+    checkpoint may come from another world size or mesh shape:
+    ``torch.distributed.checkpoint`` reads each rank's shards out of
+    the saved ones, so the restored values are the saved ones, bit for
+    bit."""
+    model_sd, optim_sd = get_state_dict(target.model, target.optimizer)
+    sd = {"model": model_sd, "optim": optim_sd}
+    dcp.load(sd, checkpoint_id=Path(directory) / str(step))
+    set_state_dict(target.model, target.optimizer,
+                   model_state_dict=sd["model"], optim_state_dict=sd["optim"])
+    return TrainState(target.model, target.optimizer, step)
+
+
+def with_step_profiler(
+    step_fn: Callable,
+    cfg: LlamaConfig,
+    mesh: DeviceMesh | None = None,
+    *,
+    batch: int,
+    seq_len: int,
+    device: str | torch.device | None = None,
+    job: str = "",
+    jsonl_path: str | None = None,
+    on_record: Callable | None = None,
+    window: int = 32,
+):
+    """Instrument a ``make_train_step`` product with telemetry.
+
+    Returns ``(profiled_step, profiler)``: the wrapped step has the same
+    signature and return and waits for the device
+    (``torch.cuda.synchronize`` on cuda) so that its time covers the
+    device's work; the profiler holds the first-step vs steady split,
+    rolling tokens/s and the 6·N·B·T MFU estimate sized from ``cfg``
+    and the mesh (``telemetry/step_timer.py``).  The device is the
+    mesh's, else ``device`` (cuda unless the caller names cpu)."""
+    profiler = StepProfiler.for_llama(
+        cfg, mesh, batch=batch, seq_len=seq_len, device=device, job=job,
+        jsonl_path=jsonl_path, on_record=on_record, window=window)
+    return profiler.wrap(step_fn), profiler

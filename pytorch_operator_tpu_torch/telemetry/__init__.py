@@ -1,0 +1,19 @@
+"""Data-plane telemetry: per-step timing, tokens/s and MFU.
+
+Port of ``pytorch_operator_tpu/telemetry``' step profiler
+(``step_timer``), and the trainers' ``torch.profiler`` trace of a window
+of steps (``trace``).  The push path to the operator (``push.py``) waits for
+the slice that ports the operator seams.
+"""
+
+from pytorch_operator_tpu_torch.telemetry.step_timer import (
+    PEAK_FLOPS_PER_CHIP,
+    StepProfiler,
+    StepRecord,
+    peak_flops_per_chip,
+    read_step_log,
+    train_step_flops,
+)
+
+__all__ = ["PEAK_FLOPS_PER_CHIP", "StepProfiler", "StepRecord",
+           "peak_flops_per_chip", "read_step_log", "train_step_flops"]

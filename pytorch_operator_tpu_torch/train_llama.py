@@ -1,9 +1,21 @@
-"""Single-GPU Llama pretraining on synthetic tokens.
+"""Llama pretraining on synthetic tokens, on one GPU or many.
 
-Port of the single-device branch of ``examples/llama/train_llama.py``:
+Port of ``examples/llama/train_llama.py`` (its (dp, fsdp, tp) mesh
+branch):
 
     python -m pytorch_operator_tpu_torch.train_llama --model flagship \\
         --batch-size 2 --seq-len 2048 --steps 10
+
+Multi-process runs read the env the operator injects (``WORLD_SIZE``,
+``RANK``, ``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``;
+``torch.distributed.run`` sets the same), one process per GPU, NCCL
+between them (gloo with ``--device cpu``).  ``--dp/--fsdp/--tp`` shape
+the mesh (all 0: ``factor_devices`` over the world size, tp at most 4);
+``--batch-size`` is the global batch:
+
+    python -m torch.distributed.run --nproc-per-node 4 \\
+        -m pytorch_operator_tpu_torch.train_llama --model tiny \\
+        --device cpu --fsdp 2 --tp 2 --dp 1 --checkpoint-dir ckpt
 
 Long-context training keeps the flash (out, lse) pair and the q/k/v
 projections per layer and applies the tied head per 1024 tokens:
@@ -14,8 +26,11 @@ projections per layer and applies the tied head per 1024 tokens:
 
 The CUDA kernels (flash attention, RMSNorm) are on by default on a GPU,
 as the JAX entry turns the Pallas kernels on for a TPU.  Batches are
-seeded per step index, as in the JAX entry.  The parallel layouts
-(--dp/--fsdp/--tp/--pp/--sp) are not ported yet.
+seeded per step index, as in the JAX entry, so a resumed run continues
+the data stream.  ``--checkpoint-dir`` saves every
+``--checkpoint-every`` steps and a new run restores the latest
+checkpoint at whatever world size it has.  The pipeline (``--pp``) and
+sequence-parallel (``--sp``) layouts are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -27,14 +42,22 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.models import llama
+from pytorch_operator_tpu_torch.parallel.mesh import factor_devices, make_mesh
 from pytorch_operator_tpu_torch.parallel.train import (
     TrainState,
     adamw,
+    latest_checkpoint,
     make_train_step,
+    restore_on_mesh,
+    save_checkpoint,
+    sharded_init,
 )
+from pytorch_operator_tpu_torch.telemetry.trace import StepTrace
+from pytorch_operator_tpu_torch.utils import maybe_init_distributed
 
 MODELS = {"7b": llama.llama2_7b, "tiny": llama.tiny,
           "flagship": llama.flagship}
@@ -47,9 +70,14 @@ def _flag(parser, name, dest, help_on):
 
 
 def parse_args(argv=None) -> argparse.Namespace:
-    parser = argparse.ArgumentParser(description="single-GPU Llama training")
+    parser = argparse.ArgumentParser(description="Llama training over a "
+                                                 "(dp, fsdp, tp) mesh")
     parser.add_argument("--model", choices=sorted(MODELS), default="tiny")
-    parser.add_argument("--batch-size", type=int, default=8)
+    parser.add_argument("--layers", type=int, default=None,
+                        help="cut the model's depth to this many layers "
+                             "(widths stay the model's)")
+    parser.add_argument("--batch-size", type=int, default=8,
+                        help="global batch size in sequences")
     parser.add_argument("--seq-len", type=int, default=256)
     parser.add_argument("--steps", type=int, default=20)
     parser.add_argument("--lr", type=float, default=3e-4)
@@ -72,11 +100,38 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--chunked-ce", action="store_true",
                         help="apply the tied head per --ce-chunk tokens")
     parser.add_argument("--ce-chunk", type=int, default=1024)
+    parser.add_argument("--dp", type=int, default=0, help="0 = auto")
+    parser.add_argument("--fsdp", type=int, default=0)
+    parser.add_argument("--tp", type=int, default=0)
+    parser.add_argument("--pp", type=int, default=0,
+                        help="pipeline stages: not ported yet")
+    parser.add_argument("--sp", type=int, default=0,
+                        help="sequence-parallel degree: not ported yet")
+    parser.add_argument("--checkpoint-dir", type=str, default=None)
+    parser.add_argument("--checkpoint-every", type=int, default=100)
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="write a torch.profiler trace (Chrome JSON, "
+                             "one file per rank) of steps "
+                             "2..--profile-steps here")
+    parser.add_argument("--profile-steps", type=int, default=5)
     parser.add_argument("--log-interval", type=int, default=5)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    for name in ("pp", "sp"):
+        if getattr(args, name):
+            parser.error(f"--{name} is not ported yet: the pipeline and "
+                         f"sequence-parallel layouts wait for a later "
+                         f"slice (use --dp/--fsdp/--tp)")
+    mesh_flags = (args.dp, args.fsdp, args.tp)
+    if any(mesh_flags) and not all(mesh_flags):
+        parser.error("--dp/--fsdp/--tp must be given together (or none)")
     if args.ce_chunk < 1:
         parser.error(f"--ce-chunk must be >= 1, got {args.ce_chunk}")
+    if args.checkpoint_every < 1:
+        parser.error(f"--checkpoint-every must be >= 1, got "
+                     f"{args.checkpoint_every}")
+    if args.layers is not None and args.layers < 1:
+        parser.error(f"--layers must be >= 1, got {args.layers}")
     _check_remat_policy(parser, args)
     return args
 
@@ -111,16 +166,36 @@ def _check_remat_policy(parser, args) -> None:
                      f"residuals and requires --flash")
 
 
-def build_config(args: argparse.Namespace,
-                 device: torch.device) -> llama.LlamaConfig:
+def mesh_shape(args: argparse.Namespace, world: int) -> tuple[int, int, int]:
+    """(dp, fsdp, tp) from the flags: all three given (parse_args
+    refuses some without the others) and their product the world size,
+    or none (``factor_devices`` over the world size, tp at most 4, as
+    the JAX entry does)."""
+    flags = (args.dp, args.fsdp, args.tp)
+    if not all(flags):
+        return factor_devices(world, tp_max=4)
+    if args.dp * args.fsdp * args.tp != world:
+        raise SystemExit(f"train_llama: --dp*--fsdp*--tp = "
+                         f"{args.dp * args.fsdp * args.tp} != {world} "
+                         f"processes")
+    return flags
+
+
+def build_config(args: argparse.Namespace, device: torch.device,
+                 shape: tuple[int, int, int] = (1, 1, 1),
+                 rank: int = 0, world: int = 1) -> llama.LlamaConfig:
     """The model's config from the command line.  --remat-policy auto
     resolves, as in the JAX entry, to the richest save_attn tier whose
     residuals fit the device's memory (the card's total memory on cuda,
-    auto_remat_policy's default 16 GiB on the CPU)."""
+    auto_remat_policy's default 16 GiB on the CPU), with the params and
+    optimizer state divided by fsdp*tp and the tokens by dp*fsdp of the
+    mesh ``shape``."""
     on_cuda = device.type == "cuda"
     kw = dict(max_seq_len=args.seq_len)
     if args.model != "flagship":
         kw["remat"] = True  # the JAX entry's default
+    if args.layers is not None:
+        kw["n_layers"] = args.layers
     cfg = MODELS[args.model](**kw)
     cfg = dataclasses.replace(
         cfg,
@@ -130,45 +205,87 @@ def build_config(args: argparse.Namespace,
         remat=cfg.remat if args.remat is None else args.remat)
     if args.remat_policy != "auto":
         return dataclasses.replace(cfg, remat_policy=args.remat_policy)
+    dp, fsdp, tp = shape
+    state_shards, token_shards = fsdp * tp, dp * fsdp
     hbm = {} if not on_cuda else dict(
         hbm_gb=torch.cuda.get_device_properties(device).total_memory / 2 ** 30)
     policy = llama.auto_remat_policy(cfg, args.batch_size, args.seq_len,
-                                     **hbm)
-    print(f"[worker 0/1] --remat-policy auto -> {policy} (state/1, "
-          f"tokens/1)", flush=True)
+                                     state_shards=state_shards,
+                                     token_shards=token_shards, **hbm)
+    print(f"[worker {rank}/{world}] --remat-policy auto -> {policy} "
+          f"(state/{state_shards}, tokens/{token_shards})", flush=True)
     return dataclasses.replace(cfg, remat_policy=policy)
 
 
 def main(argv=None) -> int:
     args = parse_args(argv)
     device = default_device(args.device)
-    cfg = build_config(args, device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    model = llama.Llama(cfg, device=device, generator=gen)
+    created_group = not dist.is_initialized()
+    rank, world = maybe_init_distributed(device)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    dp, fsdp, tp = shape = mesh_shape(args, world)
+    cfg = build_config(args, device, shape, rank, world)
+    mesh = make_mesh(dp, fsdp, tp, device)
+    print(f"[worker {rank}/{world}] mesh dp={dp} fsdp={fsdp} tp={tp} "
+          f"over {world} device(s)", flush=True)
+    model = sharded_init(cfg, mesh, seed=0)
     optimizer = adamw(model, args.lr, weight_decay=0.1)
     state = TrainState(model, optimizer)
-    step_fn = make_train_step(cfg, model, optimizer,
+    step_fn = make_train_step(cfg, model, optimizer, mesh=mesh,
                               chunked_ce=args.chunked_ce,
                               ce_chunk=args.ce_chunk)
-    print(f"model {args.model}: {llama.n_params(cfg)} params, flash="
-          f"{cfg.use_flash} fused_norm={cfg.use_fused_norm} "
-          f"remat={cfg.remat} remat_policy={cfg.remat_policy} on {device}",
-          flush=True)
+    lead = rank == 0
+    if lead:
+        print(f"model {args.model}: {llama.n_params(cfg)} params, "
+              f"layers={cfg.n_layers} flash={cfg.use_flash} "
+              f"fused_norm={cfg.use_fused_norm} remat={cfg.remat} "
+              f"remat_policy={cfg.remat_policy} on {device}", flush=True)
+
+    start = 0
+    if args.checkpoint_dir:
+        latest = latest_checkpoint(args.checkpoint_dir)
+        if latest is not None:
+            # read into this run's own layout: the checkpoint may come
+            # from another world size or mesh shape
+            t = time.perf_counter()
+            state = restore_on_mesh(args.checkpoint_dir, latest, state)
+            start = latest
+            if lead:
+                print(f"restored checkpoint at step {latest} onto {world} "
+                      f"device(s) in {time.perf_counter() - t:.3f} s",
+                      flush=True)
 
     tokens_per_step = args.batch_size * args.seq_len
+    trace = StepTrace(args.profile_dir, args.profile_steps, start, device,
+                       rank)
     t0 = time.perf_counter()
-    for i in range(args.steps):
+    for i in range(start, args.steps):
+        trace.before(i)
+        # synthetic LM batch, seeded per step index so that a resumed
+        # run continues the data stream instead of replaying it
         batch = np.random.default_rng(i).integers(
             0, cfg.vocab_size, (args.batch_size, args.seq_len + 1))
         state, metrics = step_fn(state, batch)
-        if i % args.log_interval == 0 or i == args.steps - 1:
+        trace.after(i)
+        if lead and (i % args.log_interval == 0 or i == args.steps - 1):
             loss = float(metrics["loss"])  # waits for the step
             dt = time.perf_counter() - t0
             print(f"step {i}: loss={loss:.4f} "
                   f"grad_norm={float(metrics['grad_norm']):.3f} "
-                  f"tokens/s={(i + 1) * tokens_per_step / dt:.0f}",
+                  f"tokens/s={(i - start + 1) * tokens_per_step / dt:.0f}",
                   flush=True)
-    print("training complete", flush=True)
+        if args.checkpoint_dir and (i + 1) % args.checkpoint_every == 0:
+            t = time.perf_counter()
+            save_checkpoint(state, args.checkpoint_dir)
+            if lead:
+                print(f"checkpointed step {i + 1} in "
+                      f"{time.perf_counter() - t:.3f} s", flush=True)
+    trace.stop()
+    if lead:
+        print("training complete", flush=True)
+    if created_group:
+        dist.destroy_process_group()
     return 0
 
 

@@ -1,0 +1,172 @@
+"""Worker processes for the port's multi-rank tests (gloo on the CPU).
+
+The test files import JAX; these workers import only torch, numpy and
+the port, so each spawned rank starts fast.  ``spawn`` starts ``world``
+ranks of a worker with ``torch.multiprocessing`` on a free port and the
+rendezvous env the operator injects, and waits with a time limit.
+Rank 0 writes the results to a file the test reads.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import socket
+import time
+
+import numpy as np
+import torch
+import torch.multiprocessing as mp
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def spawn(fn, world: int, *args, timeout: float = 240.0) -> None:
+    """Run ``fn(rank, world, port, *args)`` in ``world`` processes; any
+    rank's exception fails the call, and so does the time limit (the
+    ranks are killed)."""
+    ctx = mp.start_processes(fn, args=(world, free_port(), *args),
+                             nprocs=world, join=False,
+                             start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=5.0):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"{fn.__name__} at world {world} did "
+                                   f"not finish in {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+
+
+def _rank_env(rank: int, world: int, port: int) -> None:
+    os.environ.update(WORLD_SIZE=str(world), RANK=str(rank),
+                      LOCAL_RANK=str(rank), MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    torch.set_num_threads(1)
+
+
+def init_worker(rank, world, port, out_dir):
+    """maybe_init_distributed from the env: each rank writes what it
+    got."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    got = maybe_init_distributed("cpu")
+    t = torch.tensor([rank + 1.0])
+    dist.all_reduce(t)
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump({"got": list(got), "backend": dist.get_backend(),
+                   "sum": t.item()}, f)
+    dist.destroy_process_group()
+
+
+def _full(t: torch.Tensor) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
+    return t.detach().float().numpy()
+
+
+def step_worker(rank, world, port, spec_path, out_path):
+    """The sharded step on the spec's mesh: sharded_init against the
+    unsharded init, then the JAX weights loaded and ``steps`` steps on
+    the spec's global batches; rank 0 writes losses, grad norms, the
+    first step's full gradients and the shard sizes."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, make_train_step, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    data = np.load(spec["arrays"])
+    maybe_init_distributed("cpu")
+    mesh = make_mesh(*spec["mesh"], device="cpu")
+    cfg = llama.tiny(**spec["cfg"])
+
+    model = sharded_init(cfg, mesh, seed=spec["init_seed"])
+    ref = llama.Llama(cfg, device="cpu", generator=torch.Generator(
+        ).manual_seed(spec["init_seed"]))
+    init_bitwise = all(
+        torch.equal(p.full_tensor(), r)
+        for p, r in zip(model.parameters(), ref.parameters()))
+    del ref
+
+    tree = {"embed": data["embed"], "final_norm": data["final_norm"],
+            "layers": {k[len("layers/"):]: data[k] for k in data.files
+                       if k.startswith("layers/")}}
+    llama.load_jax_params(model, tree)
+    optimizer = adamw(model, spec["lr"], weight_decay=spec["wd"])
+    step = make_train_step(cfg, model, optimizer, mesh=mesh,
+                           chunked_ce=spec["chunked_ce"],
+                           ce_chunk=spec["ce_chunk"])
+    state = TrainState(model, optimizer)
+    losses, norms, grads = [], [], {}
+    for i in range(spec["steps"]):
+        state, m = step(state, data[f"batch{i}"])
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i == 0:
+            grads = {n: _full(p.grad) for n, p in model.named_parameters()}
+
+    sizes = {}
+    for n, p in model.named_parameters():
+        st = optimizer.state[p]
+        sizes[n] = {
+            "full": p.numel(), "local": p.to_local().numel(),
+            "placements": [str(x) for x in p.placements],
+            "moments": [st[k].to_local().numel()
+                        for k in ("exp_avg", "exp_avg_sq")],
+            "moments_dtensor": all(isinstance(st[k], DTensor)
+                                   for k in ("exp_avg", "exp_avg_sq"))}
+    if rank == 0:
+        np.savez(out_path, **{f"grad/{n}": g for n, g in grads.items()})
+        with open(out_path + ".json", "w") as f:
+            json.dump({"losses": losses, "norms": norms, "sizes": sizes,
+                       "init_bitwise": init_bitwise}, f)
+    dist.destroy_process_group()
+
+
+def restore_worker(rank, world, port, ckpt_dir, step, mesh_shape, out_path):
+    """Restore checkpoint ``step`` onto a fresh sharded state of the tiny
+    trainer model on ``mesh_shape``; rank 0 writes the full parameters
+    and AdamW moments."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, restore_on_mesh, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    maybe_init_distributed("cpu")
+    mesh = make_mesh(*mesh_shape, device="cpu")
+    cfg = llama.tiny(max_seq_len=32, remat=True)
+    model = sharded_init(cfg, mesh, seed=0)
+    optimizer = adamw(model, 3e-4, weight_decay=0.1)
+    state = restore_on_mesh(ckpt_dir, step, TrainState(model, optimizer))
+    out = {}
+    for n, p in model.named_parameters():
+        out[f"model/{n}"] = _full(p)
+        for k in ("exp_avg", "exp_avg_sq"):
+            out[f"optim/{n}/{k}"] = _full(optimizer.state[p][k])
+        out[f"optim/{n}/step"] = _full(optimizer.state[p]["step"])
+    if rank == 0:
+        np.savez(out_path, step=state.step, **out)
+    dist.destroy_process_group()
