@@ -2,6 +2,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
     python3 chip_smoke.py            # every phase, needs one CUDA card
+    python3 chip_smoke.py --phases 13  # phase 1, then only those named
 
 Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
@@ -10,13 +11,16 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             csrc (timed, with ptxas' register and spill counts by kernel);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
             card: the fused backward's route at the main path's shapes
-            (plus GQA, T=1, a ragged T, non-causal, D=64/16, f32 and the
-            (BH, T, D) flash_with_lse layout), the two-kernel route (dq,
-            then dk/dv) at T4096 and on the same variety with the route
-            forced; the WMMA forward and fused backward, which bf16 at
-            D 64/128 no longer reaches, at the main path's shape; at the
-            long path's full shape B1 and the Hopper and WMMA B3 and B4
-            against their plain versions on two of the heads, the
+            (plus GQA, T=1, a ragged T, non-causal, D=64/16, f32, the
+            (BH, T, D) flash_with_lse layout, fp16, head dims 48/96/200
+            zero-padded to the kernels' 64/128/256, D 256 and B*H =
+            65,536), the two-kernel route (dq, then dk/dv) at T4096 and
+            on the same variety with the route forced; the WMMA forward
+            and fused backward, which bf16 at D 64/128 no longer
+            reaches, at the main path's shape; at the long path's full
+            shape B1 and the Hopper and WMMA B3 and B4 against their
+            plain versions on two of the heads (the Hopper B4's dk error
+            beside the WMMA B4's: both form dS from the f32 P), the
             two-kernel route against the fused kernel on every head, B3's
             dq bitwise equal over two runs and B4's dk/dv bitwise equal
             to B2's;
@@ -46,12 +50,15 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             launches per step (L under save_attn*, 2L under full remat);
 8. sharded  the T2048 path of phase 4 through the sharded code path at
             world size 1 over NCCL: make_mesh(1, 1, 1), sharded_init
-            (FSDP2 over the one rank), make_train_step(mesh=...), the
-            same seed and batch, its step wrapped in with_step_profiler:
-            exact launch counts, losses within 2e-2 of phase 4's step by
-            step, step time, device time and peak memory beside phase
-            4's, the profiler's tokens/s and 6·N·B·T MFU beside this
-            script's;
+            (at one rank the plain model: no FSDP2, no DTensor),
+            make_train_step(mesh=...), the same seed and batch, its step
+            wrapped in with_step_profiler: exact launch counts, losses
+            within 2e-2 of phase 4's step by step, step time, device
+            time and peak memory beside phase 4's, the profiler's
+            tokens/s and 6·N·B·T MFU beside this script's; then the host
+            profile, by function, of one step of the same model under
+            FSDP2 over the one rank (what sharded_init built there
+            before) beside the plain step's;
 9. resume   train_llama --model flagship --layers 2 at B2 x T2048 in a
             process that checkpoints at steps 2 and 4, a second process
             that restores step 4 and trains to step 6, and the same six
@@ -59,7 +66,29 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             steps 4-5 within 2e-2 of the uninterrupted run's, save and
             restore seconds;
 10. mnist   train_mnist --device cuda on the synthetic digits until
-            accuracy >= 0.98: images/s and seconds.
+            accuracy >= 0.98: images/s and seconds;
+11. ring    the ring attention of 4 virtual ranks in this process (the
+            loopback, parallel/ring_attention.py) at Llama-2-7B's
+            attention shape B1 T32768 H32 D128 bf16 causal, contiguous
+            and zigzag: out, the merged lse and dq/dk/dv against B1 and
+            B3 + B4 over the full T32768, exactly 10 (contiguous) or 36
+            (zigzag) chunk forward calls and as many backward ones, and
+            its device time beside the full-T kernels';
+12. sp      train_llama --model 7b --layers 4 --sp 1 --sp-impl ring at
+            B1 x T32768 (full width, depth cut to 4) under save_attn+qkv
+            with the chunked head, 4 steps, beside the same trainer
+            without --sp: losses within 2e-2 step by step, exact launch
+            counts, step time, tokens/s, MFU and peak memory;
+13. cards   only with more than one card visible (else one line says it
+            was skipped): train_llama under torch.distributed.run, one
+            process per card, Llama-2-7B at full width and depth 16, B1
+            x T32768: --sp 4 with ring, ring_zigzag and ulysses and --sp
+            1 on one card, then at B2 --fsdp 2 --sp 2 and --dp 2 --sp 2
+            (ring_zigzag); losses within 2e-2 of the last run's on the
+            same global batch step by step, the steady step time (median
+            after step 1, the profiled one), tokens/s, MFU and the NCCL
+            share of the profiled step's kernel time; then the flagship
+            at B4 x T2048 under --fsdp 2 --tp 2 and --dp 2 --fsdp 2.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -67,6 +96,7 @@ JSON line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import dataclasses
 import gc
@@ -99,6 +129,14 @@ LONG_POLICY = "save_attn+qkv"
 # steps (the profiler counts the first as its warm-up)
 PROFILER_STEPS = 5
 PLAIN_T = 4096  # the plain backward versions' f32 (T, T) buffers fit here
+# phase 11: 4 virtual ranks at Llama-2-7B's attention shape
+RING = dict(B=1, T=32768, H=32, D=128, n=4)
+# phases 12 and 13: the trainer at Llama-2-7B's full width
+SP_ARGV = ["--model", "7b", "--batch-size", "1", "--seq-len", "32768",
+           "--remat", "--remat-policy", "save_attn+qkv", "--chunked-ce",
+           "--log-interval", "1"]
+SP_LAYERS, SP_STEPS = 4, 4
+CARDS_LAYERS, CARDS_STEPS = 16, 6
 
 
 class SmokeFailure(Exception):
@@ -168,7 +206,9 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
     dropped one record of a long kernel now and then; such a profile is
     taken again, up to ``profiles`` times in all, and the records it had
     are printed.  If none is whole the phase fails.  ``profiles`` counts
-    the profiles taken."""
+    the profiles taken; with ``profiles=0`` no profile is taken and
+    ``ms`` is ``event_ms``, for calls long enough that the host runs
+    ahead of the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -185,6 +225,9 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    if profiles == 0:
+        return {"ms": statistics.median(times),
+                "event_ms": statistics.median(times), "profiles": 0}
     for taken in range(1, profiles + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -268,7 +311,7 @@ def check_rms_norm(torch, gen) -> dict:
     return {"max_abs_err": worst["main"]}
 
 
-BF16, F32 = "bfloat16", "float32"
+BF16, F32, F16 = "bfloat16", "float32", "float16"
 
 FLASH_CASES = {
     # name: (B, T, H, Hk, D, causal, bh_layout, dtype); T * D * 4 <= 4 MiB,
@@ -284,6 +327,15 @@ FLASH_CASES = {
     "f32": (2, 1000, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
+    # fp16 (WMMA), head dims zero-padded to the kernels' (96 -> 128 and
+    # 48 -> 64 on the Hopper kernels, 200 -> 256 on the WMMA ones), D 256
+    # and B*H = 65,536 (the grid's y limit is 65,535)
+    "fp16_d64_gqa": (2, 1000, 16, 4, 64, True, False, F16),
+    "fp16_d256": (1, 1000, 8, 8, 256, True, False, F16),
+    "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
+    "d48_padded_non_causal": (2, 333, 8, 2, 48, False, False, BF16),
+    "d200_padded_bh": (1, 500, 8, 4, 200, True, True, BF16),
+    "bh65536": (4096, 65, 16, 8, 64, True, False, BF16),
 }
 
 # The two-kernel route: T4096 at the long path's heads, then the same
@@ -302,6 +354,10 @@ TWO_KERNEL_CASES = {
     "f32": (1, 2048, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
+    "fp16_d128": (2, 1000, 16, 4, 128, True, False, F16),
+    "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
+    "d256_bf16": (1, 1000, 8, 8, 256, True, False, BF16),
+    "bh65536_fp16": (4096, 65, 16, 8, 64, True, False, F16),
 }
 
 
@@ -352,9 +408,13 @@ def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: the Hopper kernels for
     bf16 at D 64/128 (ops/flash_attention.py _sm90), else the WMMA ones;
     the fused backward, or B3 + B4 on the two-kernel route."""
-    from pytorch_operator_tpu_torch.ops.flash_attention import _sm90
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _kernel_dim,
+        _sm90,
+    )
 
-    sm90 = _sm90(getattr(torch, dtype), D)
+    dt = getattr(torch, dtype)
+    sm90 = _sm90(dt, _kernel_dim(D, dt))
     fused = not two
     return {"flash_fwd_sm90": int(sm90), "flash_fwd": int(not sm90),
             "flash_bwd_sm90": int(sm90 and fused),
@@ -628,6 +688,9 @@ def check_long_routes(torch, gen) -> dict:
                        "dkv": max(e["dk"]["max_abs_err"],
                                   e["dv"]["max_abs_err"])}
              for version, e in errs.items() if version != "out"}
+    # the Hopper B4's dk beside the WMMA B4's, both against the plain
+    # version on the same heads
+    emit({"dk_vs_plain_at_T16384": {v: errs[v]["dk"] for v in kernels}})
     return {"out": o_err, **worst}
 
 
@@ -887,6 +950,7 @@ def run_path(torch, label, cfg, B, T, steps, expect, mesh=None,
     steps run through with_step_profiler, whose numbers are returned
     beside this function's."""
     import numpy as np
+    from torch.distributed.tensor import DTensor
 
     from pytorch_operator_tpu_torch import kernels
     from pytorch_operator_tpu_torch.models import llama
@@ -941,7 +1005,9 @@ def run_path(torch, label, cfg, B, T, steps, expect, mesh=None,
            "model_tflops_per_step": flops / 1e12,
            "mfu": flops / step_s / PEAK_BF16_FLOPS,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "launches": counts, "launches_per_step": per_step}
+           "launches": counts, "launches_per_step": per_step,
+           "dtensor": any(isinstance(p, DTensor)
+                          for p in model.parameters())}
     if mesh is not None:
         profiled, profiler = with_step_profiler(step_fn, cfg, mesh, batch=B,
                                                 seq_len=T, job=label)
@@ -1020,6 +1086,8 @@ def run_sharded_path(torch, main: dict) -> dict:
                   "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
         res = run_path(torch, "sharded_path", llama.flagship(), MAIN["B"],
                        MAIN["T"], STEPS, expect, mesh=mesh)
+        free_memory(torch)
+        host = profile_fsdp_host(torch, mesh)
     finally:
         dist.destroy_process_group()
     diffs = [abs(a - b) for a, b in zip(res["losses"], main["losses"])]
@@ -1031,6 +1099,9 @@ def run_sharded_path(torch, main: dict) -> dict:
            "tolerance": "each step's loss within 2e-2 of phase 4's (bf16; "
                         "the fused backward's dq sums with atomics)",
            "step_ms": {"sharded": res["step_ms"], "main": main["step_ms"]},
+           "step_ratio": res["step_ms"] / main["step_ms"],
+           "model_holds_dtensor": res["dtensor"],
+           "fsdp2_host_profile": host,
            "device_ms": {"sharded": res["profile"]["device_ms"],
                          "main": main["profile"]["device_ms"]},
            "peak_mem_gib": {"sharded": res["peak_mem_gib"],
@@ -1058,7 +1129,80 @@ def run_sharded_path(torch, main: dict) -> dict:
             f"sharded path's losses off phase 4's: {out['losses']}")
     require(res["profile"]["complete"],
             "the sharded step's profile lost kernel records")
+    require(not res["dtensor"], "the world-1 model holds DTensors: "
+                                "sharded_init applied FSDP2 at one rank")
     return res
+
+
+def profile_fsdp_host(torch, mesh) -> dict:
+    """Where the host time of a step goes under FSDP2 over one rank: the
+    flagship wrapped as sharded_init did before it left FSDP2 out at one
+    rank (each Block, then the root, fully_shard-ed over (dp, fsdp)), one
+    profiled step after three, host time by function (the profiler's CPU
+    self time, FSDP2's record_function ranges beside aten's ops), beside
+    the plain step's on the same seed and batch."""
+    import numpy as np
+    from torch.distributed.fsdp import (
+        fully_shard,
+        register_fsdp_forward_method,
+    )
+    from torch.profiler import ProfilerActivity, profile
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel import train
+
+    cfg = llama.flagship()
+    batch = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (MAIN["B"], MAIN["T"] + 1))).cuda()
+    out = {}
+    for name in ("fsdp2", "plain"):
+        if name == "fsdp2":
+            model = llama.Llama(cfg, device="meta")
+            for block in model.layers:
+                fully_shard(block, mesh=mesh["dp", "fsdp"])
+            fully_shard(model, mesh=mesh["dp", "fsdp"])
+            register_fsdp_forward_method(model, "forward_hidden")
+            model.to_empty(device="cuda")
+            llama.init_params(model, torch.Generator(
+                device="cuda").manual_seed(0))
+        else:
+            model = llama.Llama(cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(0))
+        opt = train.adamw(model)
+
+        def loss_fn(b, model=model):
+            return train.cross_entropy_loss(model(b[:, :-1]), b[:, 1:])
+
+        # the step make_train_step builds, without its check that a mesh
+        # of one rank holds the plain model
+        step = train._make_step(model, opt, mesh, loss_fn)
+        state = train.TrainState(model, opt)
+        for _ in range(3):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            state, _ = step(state, batch)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        rows = sorted(prof.key_averages(),
+                      key=lambda e: -e.self_cpu_time_total)
+        fsdp = [e for e in rows if e.key.startswith("FSDP")]
+        out[name] = {
+            "host_ms": host_ms,
+            "profiled_self_cpu_ms": sum(e.self_cpu_time_total
+                                        for e in rows) / 1e3,
+            "fsdp_ranges_ms": {e.key: e.cpu_time_total / 1e3 for e in fsdp},
+            "top_self_cpu": [{"fn": e.key[:60], "count": e.count,
+                              "self_ms": e.self_cpu_time_total / 1e3,
+                              "total_ms": e.cpu_time_total / 1e3}
+                             for e in rows[:25]]}
+        del model, opt, state, step, prof
+        free_memory(torch)
+    emit({"fsdp2_host_profile": out})
+    return {k: {"host_ms": v["host_ms"],
+                "profiled_self_cpu_ms": v["profiled_self_cpu_ms"]}
+            for k, v in out.items()}
 
 
 # the profile class of each kernel's launches: the C symbol's name, but
@@ -1285,20 +1429,47 @@ RESUME_ARGV = ["--model", "flagship", "--layers", "2", "--batch-size", "2",
                "--seq-len", "2048", "--log-interval", "1"]
 
 
-def _trainer(argv: list[str]) -> str:
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _trainer(argv: list[str], nproc: int = 1) -> str:
     """train_llama in a process of its own (the card's first process keeps
-    its memory); its output, or the phase fails."""
+    its memory), or under torch.distributed.run with ``nproc`` processes
+    (one per card); its output, or the phase fails.  The processes run in
+    a session of their own, which is killed whole at the time limit."""
+    import signal
+
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
-    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+    for name in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
+                 "MASTER_PORT"):
         env.pop(name, None)
-    proc = subprocess.run(
-        [sys.executable, "-m", "pytorch_operator_tpu_torch.train_llama",
-         *argv], cwd=REPO, env=env, stdout=subprocess.PIPE,
-        stderr=subprocess.PIPE, text=True, timeout=600)
+    launch = [sys.executable]
+    if nproc > 1:
+        launch += ["-m", "torch.distributed.run", "--nproc-per-node",
+                   str(nproc), "--master-addr", "127.0.0.1",
+                   "--master-port", str(_free_port())]
+    proc = subprocess.Popen(
+        launch + ["-m", "pytorch_operator_tpu_torch.train_llama", *argv],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+    # under torch.distributed.run a rank's traceback comes before the
+    # launcher's own report
+    ranks = "\n".join(ln for ln in err.splitlines()
+                      if ln.startswith("[rank"))
     require(proc.returncode == 0,
-            f"train_llama {argv} failed: {proc.stderr[-3000:]}")
-    return proc.stdout
+            f"train_llama {argv} failed: {ranks[-4000:]}\n{err[-2000:]}")
+    return out
 
 
 def _step_losses(text: str) -> dict[int, float]:
@@ -1392,6 +1563,299 @@ def run_mnist(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 11: the ring of virtual ranks on one card
+# --------------------------------------------------------------------------
+
+
+def check_ring(torch, gen) -> dict:
+    """Phase 11: the loopback ring (4 virtual ranks, contiguous and
+    zigzag) at B1 T32768 H32 D128 against B1 and B3 + B4 over the full
+    T32768, with the chunk launches of one forward and backward reset
+    just before and read just after, and both timed."""
+    import importlib
+
+    from pytorch_operator_tpu_torch import kernels
+    from pytorch_operator_tpu_torch.ops import flash_attention
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _flash_bwd_dkv_cuda,
+        _flash_bwd_dq_cuda,
+        _flash_fwd_cuda,
+        _use_fused_bwd,
+    )
+
+    ra = importlib.import_module(
+        "pytorch_operator_tpu_torch.parallel.ring_attention")
+    B, T, H, D, n = (RING[x] for x in ("B", "T", "H", "D", "n"))
+    q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False)
+    scale = D ** -0.5
+    out_ref, lse_ref = _flash_fwd_cuda(q, k, v, scale, True, False)
+    delta = (g.float() * out_ref.float()).sum(-1).transpose(1, 2).reshape(
+        B * H, T).contiguous()
+    args = (q, k, v, g, lse_ref.reshape(B * H, T), delta, scale, True, False)
+    ref = {"out": out_ref, "dq": _flash_bwd_dq_cuda(*args)}
+    # H == Hk: the per-q-head partials are dk and dv
+    ref.update(zip(("dk", "dv"), _flash_bwd_dkv_cuda(*args)))
+    lse_ref = lse_ref.view(B, H, T).transpose(1, 2)
+    # CUDA events: calls of 70-110 ms whose host runs ahead (the profiler
+    # lost the first call's records of these in two runs)
+    few = dict(warmup=1, iters=2, reps=3, profiles=0)
+
+    def full():
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        flash_attention(*xs, causal=True).backward(g)
+
+    res = {"shape": [B, T, H, H, D], "virtual_ranks": n,
+           "ms_by": "CUDA events around 2 calls, median of 3",
+           "full_T_fwd_bwd": time_ms(full, **few)}
+    ok = True
+    for layout in ("contiguous", "zigzag"):
+        zig = layout == "zigzag"
+        pairs = ra.ring_launches(n, True, "zigzag_pre" if zig else layout)
+        chunk = T // n // (2 if zig else 1)
+        fused = _use_fused_bwd(chunk, D)
+        want = {s: 0 for s in FLASH_SYMBOLS}
+        want["flash_fwd_sm90"] = pairs
+        for s in (("flash_bwd_sm90",) if fused else
+                  ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")):
+            want[s] = pairs
+        xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        out = ra.ring_attention_loopback(*xs, n, causal=True, layout=layout)
+        out.backward(g)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        launched = {s: counts[s] for s in FLASH_SYMBOLS}
+        # the merged lse, from the forward bodies of the n ranks
+        rows = (torch.from_numpy(ra.zigzag_layout(T, n)[0]).cuda() if zig
+                else torch.arange(T, device="cuda"))
+        chunks = [x[:, rows].chunk(n, 1) for x in (q, k, v)]
+        merged = ra._lockstep([ra._ring_fwd(
+            chunks[0][r], chunks[1][r], chunks[2][r], r, n, True,
+            "zigzag_pre" if zig else layout, scale) for r in range(n)])
+        lse = torch.empty(B, T, H, device="cuda")
+        lse[:, rows] = torch.cat([m[1] for m in merged], 1)
+        del merged, chunks
+        o_err, o_rel = _rel_errs(out, ref["out"])
+        l_err = float((lse - lse_ref).abs().max())
+        errs = {"out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
+                        "lse_max_abs_err": l_err}}
+        case_ok = (o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-3
+                   and launched == want)
+        for name, x in zip(("dq", "dk", "dv"), xs):
+            errs[name], grad_ok = _grad_errs(x.grad, ref[name])
+            case_ok &= grad_ok
+        del xs, out
+
+        def ring(layout=layout):
+            xs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+            ra.ring_attention_loopback(*xs, n, causal=True,
+                                       layout=layout).backward(g)
+
+        res[layout] = {"chunk_pairs": pairs, "chunk_rows": chunk,
+                       "backward_route": "fused" if fused else "two_kernel",
+                       "launches": launched, "want": want, **errs,
+                       "fwd_bwd": time_ms(ring, **few), "ok": case_ok}
+        res[layout]["vs_full_T"] = (res[layout]["fwd_bwd"]["ms"]
+                                    / res["full_T_fwd_bwd"]["ms"])
+        res[layout]["launches_fwd_bwd"] = launched
+        ok &= case_ok
+        torch.cuda.empty_cache()
+    res["tolerance"] = ("against B1 and B3 + B4 over the full T on the same "
+                        "inputs: out max|err| <= 2e-2 and rel <= 1e-2, lse "
+                        "1e-3 (phase 2's B1 bounds); dq, dk, dv max|err| <= "
+                        "1e-2 * max|ref| and rel <= 1e-2 (phase 2's B3/B4 "
+                        "bounds: each chunk rounds its p and ds to bf16, "
+                        "the chunks' dq are summed in f32 in another order)")
+    emit({"ring": res})
+    require(ok, "the loopback ring disagrees with the full-T kernels or "
+                "launched other than its chunk pairs")
+    return res
+
+
+# --------------------------------------------------------------------------
+# phase 12: the sequence-parallel trainer on one card
+# --------------------------------------------------------------------------
+
+
+def _cli_steps(text: str, tokens: int) -> tuple[list, list]:
+    """Losses and step times (s) from train_llama's log at
+    --log-interval 1: its tokens/s is cumulative from the first step, so
+    step i ends (i + 1) * tokens / tokens_per_s after the start."""
+    rows = re.findall(r"^step (\d+): loss=(\S+) grad_norm=\S+ "
+                      r"tokens/s=(\S+)", text, re.MULTILINE)
+    ends = [(int(i) + 1) * tokens / float(tps) for i, _, tps in rows]
+    return ([float(x) for _, x, _ in rows],
+            [b - a for a, b in zip([0.0] + ends, ends)])
+
+
+def run_sp_trainer(torch) -> dict:
+    """Phase 12: train_llama --sp 1 --sp-impl ring (the sequence-parallel
+    step, its attention through the ring of one rank) beside the same
+    trainer without --sp, each in this process with every launch count
+    reset just before and read just after."""
+    from pytorch_operator_tpu_torch import kernels, train_llama
+    from pytorch_operator_tpu_torch.models import llama
+
+    argv = SP_ARGV + ["--layers", str(SP_LAYERS), "--steps", str(SP_STEPS)]
+    cfg = llama.llama2_7b(n_layers=SP_LAYERS)
+    L, T = SP_LAYERS, 32768
+    # save_attn+qkv: the chunk's (out, lse) kept, the norms recomputed;
+    # T * D * 4 = 16 MiB takes the two-kernel backward
+    per_step = {s: 0 for s in FLASH_SYMBOLS}
+    per_step.update({"rms_norm_fwd": 4 * L + 1, "flash_fwd_sm90": L,
+                     "flash_bwd_dq_sm90": L, "flash_bwd_dkv_sm90": L})
+    flops = 6.0 * llama.n_params(cfg) * T + 12.0 * L * T * T * cfg.dim * 0.5
+    res = {}
+    for name, extra in (("sp", ["--sp", "1", "--sp-impl", "ring"]),
+                        ("plain", [])):
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_llama.main(argv + extra)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        text = out.getvalue()
+        losses, steps = _cli_steps(text, T)
+        step_s = statistics.median(steps[1:]) if len(steps) > 1 else None
+        res[name] = {
+            "argv": argv + extra, "rc": rc, "losses": losses,
+            "step_ms_all": [s * 1e3 for s in steps],
+            "step_ms": step_s and step_s * 1e3,
+            "tokens_per_s": step_s and T / step_s,
+            "mfu": step_s and flops / step_s / PEAK_BF16_FLOPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts,
+            "launches_per_step": {s: counts[s] / SP_STEPS for s in per_step},
+            "output": text.splitlines()[:4]}
+        require(rc == 0 and "training complete" in text
+                and len(losses) == SP_STEPS
+                and all(map(math.isfinite, losses)),
+                f"train_llama {argv + extra} failed: {text}")
+    diffs = [abs(a - b) for a, b in zip(res["sp"]["losses"],
+                                        res["plain"]["losses"])]
+    res.update({"model": f"llama2_7b width, {L} layers, B1 x T{T}",
+                "model_tflops_per_step": flops / 1e12,
+                "want_launches_per_step": per_step,
+                "max_loss_abs_diff": max(diffs),
+                "tolerance": "each step's loss within 2e-2 of the trainer "
+                             "without --sp (bf16)"})
+    emit({"sp_trainer": res})
+    for name in ("sp", "plain"):
+        require(res[name]["launches_per_step"] == {
+            s: float(c) for s, c in per_step.items()},
+            f"phase 12 {name}: launches per step "
+            f"{res[name]['launches_per_step']} != {per_step}")
+    require(max(diffs) <= 2e-2, f"--sp 1 losses off the plain trainer's: "
+                                f"{res['sp']['losses']} "
+                                f"{res['plain']['losses']}")
+    return res["sp"]
+
+
+# --------------------------------------------------------------------------
+# phase 13: several cards
+# --------------------------------------------------------------------------
+
+
+def _nccl_share(trace_path: str) -> dict:
+    """Device time of one profiled step from a Chrome trace: all kernels,
+    and the NCCL kernels' share of it."""
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    kern = [e for e in events if e.get("cat") == "kernel" and "dur" in e]
+    total = sum(e["dur"] for e in kern) / 1e3
+    nccl = sum(e["dur"] for e in kern if "nccl" in e["name"].lower()) / 1e3
+    return {"device_ms": total, "nccl_ms": nccl,
+            "nccl_share": nccl / total if total else None}
+
+
+def run_cards(torch) -> dict | None:
+    """Phase 13, with more than one card: train_llama under
+    torch.distributed.run, one process per card.  Runs on one global
+    batch form a group whose losses are held against its last run's."""
+    import tempfile
+
+    from pytorch_operator_tpu_torch.models import llama
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        emit({"cards": {"skipped": True,
+                        "reason": f"{cards} card visible: the multi-card "
+                                  f"phase needs more than one"}})
+        return None
+    sp = min(cards, 4)
+    T, L = 32768, CARDS_LAYERS
+    long_argv = SP_ARGV + ["--layers", str(L), "--steps", str(CARDS_STEPS)]
+    flag = ["--model", "flagship", "--batch-size", "4", "--seq-len", "2048",
+            "--steps", str(CARDS_STEPS), "--log-interval", "1"]
+    # (label, processes, argv, global batch, sequence length)
+    runs = [(f"sp{sp}_{impl}", sp, long_argv + ["--sp", str(sp),
+                                                "--sp-impl", impl], 1, T)
+            for impl in ("ring", "ring_zigzag", "ulysses")]
+    runs.append(("sp1_ring", 1, long_argv + ["--sp", "1", "--sp-impl",
+                                             "ring"], 1, T))
+    if cards >= 4:
+        # the JAX entry's rule: dp * fsdp divides the batch
+        runs += [(f"{mesh}_sp2_ring_zigzag", 4, long_argv + [
+            f"--{mesh[:-1]}", "2", "--sp", "2", "--sp-impl", "ring_zigzag",
+            "--batch-size", "2"], 2, T) for mesh in ("fsdp2", "dp2")]
+        runs += [("flagship_fsdp2_tp2", 4, flag + ["--dp", "1", "--fsdp",
+                                                  "2", "--tp", "2"], 4, 2048),
+                 ("flagship_dp2_fsdp2", 4, flag + ["--dp", "2", "--fsdp",
+                                                  "2", "--tp", "1"], 4,
+                  2048)]
+    res, groups = {"cards": cards}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, nproc, argv, B, Tr in runs:
+            argv = argv + ["--profile-dir", os.path.join(tmp, label),
+                           "--profile-steps", "1"]
+            t0 = time.perf_counter()
+            text = _trainer(argv, nproc=nproc)
+            seconds = time.perf_counter() - t0
+            cfg = (llama.flagship() if label.startswith("flagship")
+                   else llama.llama2_7b(n_layers=L))
+            losses, steps = _cli_steps(text, B * Tr)
+            # step 0 builds and warms up, step 1 is the profiled one
+            step_s = statistics.median(steps[2:])
+            flops = (6.0 * llama.n_params(cfg) * B * Tr
+                     + 12.0 * cfg.n_layers * B * Tr * Tr * cfg.dim * 0.5)
+            res[label] = {
+                "processes": nproc, "batch": B, "seq": Tr, "argv": argv,
+                "losses": losses, "step_ms_all": [s * 1e3 for s in steps],
+                "steady_step_ms": step_s * 1e3,
+                "tokens_per_s": B * Tr / step_s,
+                "mfu": flops / step_s / (PEAK_BF16_FLOPS * nproc),
+                "profiled_step": _nccl_share(os.path.join(
+                    tmp, label, "trace_rank0.json")),
+                "process_s": seconds, "output": text.splitlines()[:3]}
+            emit({"cards_run": {label: res[label]}})
+            groups.setdefault((cfg.n_layers, B, Tr), []).append(label)
+    diffs = {}
+    for labels in groups.values():
+        ref = res[labels[-1]]["losses"]
+        for r in labels:
+            diffs[r] = {"vs": labels[-1], "max_loss_abs_diff": max(
+                abs(a - b) for a, b in zip(res[r]["losses"], ref))}
+    res["loss_diffs"] = diffs
+    res["tolerance"] = ("each step's loss within 2e-2 of the last run's on "
+                        "the same global batch (bf16; the same seeded init "
+                        "and batches)")
+    res["steady"] = ("median of the steps after step 1 (step 0 warms up, "
+                     "step 1 is profiled); NCCL share: the NCCL kernels' "
+                     "summed duration over all kernels' in the profiled "
+                     "step on rank 0 (a transfer overlapped with compute "
+                     "counts in both)")
+    emit({"cards": {k: v for k, v in res.items()
+                    if not isinstance(v, dict) or k == "loss_diffs"}})
+    require(all(len(res[r]["losses"]) == CARDS_STEPS for r in diffs)
+            and max(d["max_loss_abs_diff"] for d in diffs.values())
+            <= 2e-2, f"the multi-card runs' losses disagree: {diffs}")
+    return res
+
+
+# --------------------------------------------------------------------------
 
 
 KERNEL_INFO = {
@@ -1424,8 +1888,12 @@ KERNEL_INFO = {
 }
 
 
-def run() -> tuple[str, list[dict]]:
-    """Every phase; returns the card and the kernels' rows."""
+PHASES = tuple(range(2, 14))
+
+
+def run(phases=PHASES) -> tuple[str, list[dict] | None]:
+    """Phase 1, then the given phases in order; returns the card and, when
+    every phase ran, the kernels' rows."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1459,41 +1927,67 @@ def run() -> tuple[str, list[dict]]:
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase = time.perf_counter()
-    fused = check_flash(torch, gen, FLASH_CASES, "fused")
-    check_two_kernel_route(torch, gen)
-    wmma = check_wmma_at_main(torch, gen)
-    # B3 and B4 run on the long path only: their errors at its shape
-    long = check_long_routes(torch, gen)
-    errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
-            "flash_fwd_sm90": fused["out"],
-            "flash_bwd_sm90": max(fused["dq"], fused["dkv"]), **wmma,
-            "flash_bwd_dq_sm90": long["sm90"]["dq"],
-            "flash_bwd_dkv_sm90": long["sm90"]["dkv"],
-            "flash_bwd_dq": long["wmma"]["dq"],
-            "flash_bwd_dkv": long["wmma"]["dkv"]}
-    seconds = {"kernels": time.perf_counter() - phase}
-    phase = time.perf_counter()
-    timing = time_kernels(torch, gen)
-    timing.update(time_long_kernels(torch, gen))
-    seconds["timing"] = time.perf_counter() - phase
-    phase = time.perf_counter()
-    paths = {"main_path": run_main_path(torch)}
-    check_tiny_model(torch)
-    free_memory(torch)
-    paths["long_path"] = run_long_path(torch)
-    free_memory(torch)
-    run_long_cli(torch)
-    check_remat_tiers(torch)
-    seconds["paths"] = time.perf_counter() - phase
-    phase = time.perf_counter()
-    free_memory(torch)
-    paths["sharded_path"] = run_sharded_path(torch, paths["main_path"])
-    free_memory(torch)
-    run_checkpoint_resume(torch)
-    run_mnist(torch)
-    seconds["distributed"] = time.perf_counter() - phase
+    seconds, paths, errs, timing = {}, {}, {}, {}
+
+    def phase(name, *numbers):
+        return any(p in phases for p in numbers)
+
+    t = time.perf_counter()
+    if phase("kernels", 2):
+        fused = check_flash(torch, gen, FLASH_CASES, "fused")
+        check_two_kernel_route(torch, gen)
+        wmma = check_wmma_at_main(torch, gen)
+        # B3 and B4 run on the long path only: their errors at its shape
+        long = check_long_routes(torch, gen)
+        errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
+                "flash_fwd_sm90": fused["out"],
+                "flash_bwd_sm90": max(fused["dq"], fused["dkv"]), **wmma,
+                "flash_bwd_dq_sm90": long["sm90"]["dq"],
+                "flash_bwd_dkv_sm90": long["sm90"]["dkv"],
+                "flash_bwd_dq": long["wmma"]["dq"],
+                "flash_bwd_dkv": long["wmma"]["dkv"]}
+        seconds["kernels"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if phase("timing", 3):
+        timing = time_kernels(torch, gen)
+        timing.update(time_long_kernels(torch, gen))
+        seconds["timing"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if phase("paths", 4, 5, 6, 7):
+        paths["main_path"] = run_main_path(torch)
+        check_tiny_model(torch)
+        free_memory(torch)
+        paths["long_path"] = run_long_path(torch)
+        free_memory(torch)
+        run_long_cli(torch)
+        check_remat_tiers(torch)
+        seconds["paths"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if phase("distributed", 8, 9, 10):
+        free_memory(torch)
+        paths["sharded_path"] = run_sharded_path(torch, paths["main_path"])
+        free_memory(torch)
+        run_checkpoint_resume(torch)
+        run_mnist(torch)
+        seconds["distributed"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if phase("sequence parallel", 11, 12):
+        free_memory(torch)
+        ring = check_ring(torch, gen)
+        paths["ring_loopback"] = {"launches": {
+            s: ring["contiguous"]["launches"].get(s, 0)
+            + ring["zigzag"]["launches"].get(s, 0)
+            for s in KERNEL_INFO}}
+        paths["sp_path"] = run_sp_trainer(torch)
+        seconds["sequence_parallel"] = time.perf_counter() - t
+    t = time.perf_counter()
+    if phase("cards", 13):
+        free_memory(torch)
+        run_cards(torch)
+        seconds["cards"] = time.perf_counter() - t
     emit({"phase_seconds": seconds})
+    if tuple(phases) != PHASES:
+        return card, None
 
     rows = []
     for symbol, (short, src, replaces) in KERNEL_INFO.items():
@@ -1513,8 +2007,9 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("f32 and D 16/32 only; timed beside its Hopper "
-                           "successor at its shape as the yardstick")
+            row["path"] = ("f32, fp16 and D 16/32/256 only; timed beside "
+                           "its Hopper successor at its shape as the "
+                           "yardstick")
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (
@@ -1524,16 +2019,32 @@ def run() -> tuple[str, list[dict]]:
     return card, rows
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument(
+        "--phases", default=",".join(map(str, PHASES)),
+        help="the phases to run after phase 1 (card and build), as "
+             "comma-separated numbers; default every one.  The kernels "
+             "line is printed only when every phase ran")
+    args = parser.parse_args(argv)
     try:
-        card, rows = run()
+        phases = tuple(sorted({int(p) for p in args.phases.split(",")}))
+    except ValueError:
+        parser.error(f"--phases takes numbers, got {args.phases!r}")
+    if not set(phases) <= set(PHASES):
+        parser.error(f"--phases takes numbers in 2..13, got {phases}")
+    if 8 in phases and 4 not in phases:
+        parser.error("phase 8 compares with phase 4's run: name both")
+    try:
+        card, rows = run(phases)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     import torch
 
     print(card, flush=True)
-    emit({"kernels": rows})
+    if rows is not None:
+        emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -2,6 +2,7 @@
 #pragma once
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
@@ -17,8 +18,9 @@ using namespace nvcuda;
 constexpr float NEG_INF = -1e30f;
 
 // The element types the flash kernels take: the C entries' `dtype`
-// argument, as rms_norm_fwd's (0 = float32, 1 = bfloat16).
-enum Dtype { F32 = 0, BF16 = 1 };
+// argument, as rms_norm_fwd's (0 = float32, 1 = bfloat16), and float16
+// (2, the WMMA flash kernels only).
+enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -30,6 +32,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 template <typename E> __device__ __forceinline__ E from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
@@ -38,6 +41,9 @@ template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
+}
 
 // Shared-memory padding of a row: 16 bytes, so consecutive rows start on
 // other banks and every WMMA tile pointer stays 32-byte aligned.
@@ -45,13 +51,17 @@ template <typename E> constexpr int pad() { return 16 / (int)sizeof(E); }
 
 constexpr int align128(int bytes) { return (bytes + 127) / 128 * 128; }
 
-// WMMA shapes by element type: bf16 runs m16n16k16 on the bf16 tensor
-// cores; f32 runs m16n16k8 in TF32 (10-bit mantissa), both with f32
+// WMMA shapes by element type: bf16 and fp16 run m16n16k16 on the 16-bit
+// tensor cores; f32 runs m16n16k8 in TF32 (10-bit mantissa), all with f32
 // accumulators.
 template <typename E> struct Mma;
 template <> struct Mma<__nv_bfloat16> {
   static constexpr int K = 16;
   using In = __nv_bfloat16;
+};
+template <> struct Mma<__half> {
+  static constexpr int K = 16;
+  using In = __half;
 };
 template <> struct Mma<float> {
   static constexpr int K = 8;
@@ -133,7 +143,9 @@ __device__ __forceinline__ int64_t head_base(int b, int h, int Hx, int T,
 }
 
 // Host side: run Launch<E, D>::run(args...) for the element type `dtype` and a
-// head dim D in {16, 32, 64, 128}; anything else is cudaErrorInvalidValue.
+// head dim D in {16, 32, 64, 128}, or 256 for the 16-bit types (a 64-row
+// f32 tile set at D 256 passes the 227 KB of shared memory a block may
+// have); anything else is cudaErrorInvalidValue.
 template <template <typename, int> class Launch, typename... Args>
 int dispatch_dtype_dim(int dtype, int D, Args... args) {
 #define PTT_DIMS(TYPE)                                                   \
@@ -142,14 +154,34 @@ int dispatch_dtype_dim(int dtype, int D, Args... args) {
     case 32: return Launch<TYPE, 32>::run(args...);                      \
     case 64: return Launch<TYPE, 64>::run(args...);                      \
     case 128: return Launch<TYPE, 128>::run(args...);                    \
-  }                                                                      \
-  break;
+  }
   switch (dtype) {
-    case F32: PTT_DIMS(float)
-    case BF16: PTT_DIMS(__nv_bfloat16)
+    case F32: PTT_DIMS(float) break;
+    case BF16:
+      PTT_DIMS(__nv_bfloat16)
+      if (D == 256) return Launch<__nv_bfloat16, 256>::run(args...);
+      break;
+    case F16:
+      PTT_DIMS(__half)
+      if (D == 256) return Launch<__half, 256>::run(args...);
+      break;
   }
 #undef PTT_DIMS
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The flash kernels' grid is one dimension of n_tiles * B * H blocks, the
+// tile fastest, so the blocks issue in the order of a (tile, b * H + h)
+// grid while B * H may pass the 65535 of a grid's y dimension (x takes
+// 2^31 - 1).
+__device__ __forceinline__ int grid_tile(int n_tiles) {
+  return blockIdx.x % n_tiles;
+}
+__device__ __forceinline__ int grid_bh(int n_tiles) {
+  return blockIdx.x / n_tiles;
+}
+inline bool grid_fits(int n_tiles, int bh) {
+  return (int64_t)n_tiles * bh <= 0x7fffffff;
 }
 
 // Shared memory above 48 KB must be asked for before the launch.

@@ -48,11 +48,12 @@ template <typename E, int D> struct Launch {
                  float* dq, float* dkp, float* dvp, int B, int H, int Hk,
                  int T, int bh_layout, float scale, int causal,
                  cudaStream_t s) {
-    const int bytes = Smem<E, D>::BYTES;
+    const int bytes = Smem<E, D>::BYTES, tiles = (T + BK - 1) / BK;
+    if (!ptt::grid_fits(tiles, B * H))
+      return static_cast<int>(cudaErrorInvalidValue);
     int e = ptt::allow_smem(flash_bwd_kernel<E, D>, bytes);
     if (e) return e;
-    dim3 grid((T + BK - 1) / BK, B * H);
-    flash_bwd_kernel<E, D><<<grid, THREADS, bytes, s>>>(
+    flash_bwd_kernel<E, D><<<tiles * B * H, THREADS, bytes, s>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
         dq, dkp, dvp, H, Hk, T, bh_layout, scale, causal);
@@ -63,8 +64,8 @@ template <typename E, int D> struct Launch {
 }  // namespace
 
 // q, dout: (B, T, H, D) or (B*H, T, D) contiguous (bh_layout 0 / 1); k,
-// v: the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16), D in
-// {16, 32, 64, 128}.  lse, delta: (B*H, T) f32.  dq (zeroed by the
+// v: the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16, 2
+// float16), D in {16, 32, 64, 128}, or 256 for the 16-bit types.  lse, delta: (B*H, T) f32.  dq (zeroed by the
 // caller), dkp, dvp: f32 in q's shape; dkp / dvp hold one partial per q
 // head.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v,
@@ -74,7 +75,7 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v,
                          int bh_layout, float scale, int causal, int dtype,
                          void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || B * H > 65535)
+  if (Hk <= 0 || H % Hk)
     return static_cast<int>(cudaErrorInvalidValue);
   return ptt::dispatch_dtype_dim<Launch>(
       dtype, D, q, k, v, dout, lse, delta, dq, dkp, dvp, B, H, Hk, T,

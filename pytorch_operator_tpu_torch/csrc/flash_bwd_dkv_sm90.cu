@@ -20,8 +20,8 @@
 // q head), a producer warp streaming the (Q, dO) tiles by TMA through an
 // mbarrier ring, two consumer warpgroups with dK and dV in wgmma
 // accumulators.  Being the same walk, its dk and dv are bitwise those of
-// flash_bwd_sm90.  Like it, it forms dS from P already rounded to bf16
-// (the JAX kernel uses the f32 P).
+// flash_bwd_sm90.  Like it, and like the JAX kernel, it forms dS from
+// the f32 P.
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -51,11 +51,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   Maps m;
   int e = make_maps(&m, q, k, v, dout, B, H, Hk, T, D, bh_layout);
   if (e) return e;
-  const int bytes = BwdSmem<D, false>::BYTES;
+  const int bytes = BwdSmem<D, false>::BYTES, tiles = (T + BK - 1) / BK;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
   e = ptt::allow_smem(flash_bwd_dkv_sm90_kernel<D>, bytes);
   if (e) return e;
-  dim3 grid((T + BK - 1) / BK, B * H);
-  flash_bwd_dkv_sm90_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  flash_bwd_dkv_sm90_kernel<D><<<tiles * B * H, THREADS, bytes, stream>>>(
       m.q, m.k, m.v, m.dout, lse, delta, dkp, dvp, H, Hk, T, bh_layout,
       scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -74,7 +75,7 @@ extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                                   float scale, int causal, int dtype,
                                   void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || B * H > 65535 || dtype != ptt::BF16)
+  if (Hk <= 0 || H % Hk || dtype != ptt::BF16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

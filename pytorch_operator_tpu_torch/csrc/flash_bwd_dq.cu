@@ -78,8 +78,9 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   float* lse_s = reinterpret_cast<float*>(smem + S::LSE);
   float* delta_s = reinterpret_cast<float*>(smem + S::DELTA);
 
-  const int qt = gridDim.x - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;                  // b * H + q head
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - ptt::grid_tile(n_qt);  // longest causal rows first
+  const int bh = ptt::grid_bh(n_qt);               // b * H + q head
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   int64_t q_rs, kv_rs;
   const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
@@ -169,11 +170,12 @@ template <typename E, int D> struct Launch {
                  const void* dout, const float* lse, const float* delta,
                  void* dq, int B, int H, int Hk, int T, int bh_layout,
                  float scale, int causal, cudaStream_t s) {
-    const int bytes = DqSmem<E, D>::BYTES;
+    const int bytes = DqSmem<E, D>::BYTES, tiles = (T + BQ - 1) / BQ;
+    if (!ptt::grid_fits(tiles, B * H))
+      return static_cast<int>(cudaErrorInvalidValue);
     int e = ptt::allow_smem(flash_bwd_dq_kernel<E, D>, bytes);
     if (e) return e;
-    dim3 grid((T + BQ - 1) / BQ, B * H);
-    flash_bwd_dq_kernel<E, D><<<grid, THREADS, bytes, s>>>(
+    flash_bwd_dq_kernel<E, D><<<tiles * B * H, THREADS, bytes, s>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
         static_cast<E*>(dq), H, Hk, T, bh_layout, scale, causal);
@@ -184,15 +186,16 @@ template <typename E, int D> struct Launch {
 }  // namespace
 
 // q, dout, dq: (B, T, H, D) or (B*H, T, D) contiguous (bh_layout 0 / 1);
-// k, v: the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16), D
-// in {16, 32, 64, 128}.  lse, delta: (B*H, T) f32.
+// k, v: the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16, 2
+// float16), D in {16, 32, 64, 128}, or 256 for the 16-bit types.  lse,
+// delta: (B*H, T) f32.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dq, int B, int H,
                             int Hk, int T, int D, int bh_layout, float scale,
                             int causal, int dtype, void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || B * H > 65535)
+  if (Hk <= 0 || H % Hk)
     return static_cast<int>(cudaErrorInvalidValue);
   return ptt::dispatch_dtype_dim<Launch>(
       dtype, D, q, k, v, dout, lse, delta, dq, B, H, Hk, T, bh_layout, scale,

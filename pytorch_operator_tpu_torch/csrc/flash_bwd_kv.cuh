@@ -90,8 +90,9 @@ __device__ __forceinline__ void walk(const E* __restrict__ q,
   float* lse_s = reinterpret_cast<float*>(smem + S::LSE);
   float* delta_s = reinterpret_cast<float*>(smem + S::DELTA);
 
-  const int j = blockIdx.x;   // k tile
-  const int bh = blockIdx.y;  // b * H + q head
+  const int n_kt = (T + BK - 1) / BK;
+  const int j = grid_tile(n_kt);   // k tile
+  const int bh = grid_bh(n_kt);    // b * H + q head
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   int64_t q_rs, kv_rs;
   const int64_t q_base = head_base(b, h, H, T, D, bh_layout, &q_rs);

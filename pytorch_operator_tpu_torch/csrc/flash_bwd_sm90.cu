@@ -19,17 +19,17 @@
 //    warpgroups own 64 keys each and keep dK and dV in wgmma accumulator
 //    registers for the whole walk; setmaxnreg moves registers from the
 //    producer to them.
-//  - per q tile each consumer warpgroup runs, one product at a time
-//      S^T = K_wg Q^T                          (m64n64k16, shared memory)
+//  - per q tile each consumer warpgroup runs
+//      S^T = K_wg Q^T, dP^T = V_wg dO^T        (m64n64k16, shared memory,
+//                                               issued back to back)
 //      P^T = exp2(S^T scale log2 e - lse log2 e) in registers, to bf16
-//      dP^T = V_wg dO^T                        (m64n64k16, shared memory)
-//      dS^T = P^T (dP^T - delta) scale         in registers, to bf16
+//      dS^T = P^T (dP^T - delta) scale         from the f32 P^T, to bf16
 //      dV += P^T dO and dK += dS^T Q           (A from registers)
 //    writes dS^T to shared memory in bf16, and after a barrier over both
 //    warpgroups forms its half of D of dq_tile = dS K (A and B MN-major),
 //    added to dq with vector f32 reductions (red.global.add.v2.f32).
-//    One accumulator besides dK / dV at a time keeps a consumer thread in
-//    the 240 registers setmaxnreg gives it (no spill at D = 128); the two
+//    S^T and dP^T beside dK / dV keep a consumer thread in the 240
+//    registers setmaxnreg gives it (no spill at D = 128); the two
 //    consumer warpgroups run their products interleaved on the SM.
 //  - dK and dV are written once, rows at or past T skipped; TMA zero-fills
 //    the tiles past T, so the host pads nothing.
@@ -64,11 +64,12 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   Maps m;
   int e = make_maps(&m, q, k, v, dout, B, H, Hk, T, D, bh_layout);
   if (e) return e;
-  const int bytes = BwdSmem<D, true>::BYTES;
+  const int bytes = BwdSmem<D, true>::BYTES, tiles = (T + BK - 1) / BK;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
   e = ptt::allow_smem(flash_bwd_sm90_kernel<D>, bytes);
   if (e) return e;
-  dim3 grid((T + BK - 1) / BK, B * H);
-  flash_bwd_sm90_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  flash_bwd_sm90_kernel<D><<<tiles * B * H, THREADS, bytes, stream>>>(
       m.q, m.k, m.v, m.dout, lse, delta, dq, dkp, dvp, H, Hk, T, bh_layout,
       scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -86,7 +87,7 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               int bh_layout, float scale, int causal,
                               int dtype, void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || B * H > 65535 || dtype != ptt::BF16)
+  if (Hk <= 0 || H % Hk || dtype != ptt::BF16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

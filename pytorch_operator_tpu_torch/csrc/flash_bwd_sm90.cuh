@@ -60,14 +60,16 @@ inline int make_maps(Maps* m, const void* q, const void* k, const void* v,
 
 // The body of a kernel launched with THREADS threads and
 // BwdSmem<D, DQ>::BYTES of dynamic shared memory on a grid of
-// (ceil(T / BK), B * H); the maps are the kernel's __grid_constant__
-// parameters (q and dO in boxes of BQ rows, k and v of BK rows).
+// ceil(T / BK) * B * H blocks (common.cuh grid_tile / grid_bh); the maps
+// are the kernel's __grid_constant__ parameters (q and dO in boxes of BQ
+// rows, k and v of BK rows).
 //
 // Registers: a consumer thread holds dK and dV (D / 2 f32 each) for the
-// whole walk.  Beside them it holds one product's accumulator at a time:
-// S^T is reduced to bf16 P^T before dP^T is issued, and dV / dK complete
-// before dq_tile is issued, so at D = 128 the peak is 128 + 16 + 32 f32
-// (dK, dV, P^T, dP^T) and ptxas fits it without spilling.
+// whole walk.  Beside them it holds the S^T and dP^T accumulators (BQ / 2
+// f32 each, issued back to back) until P^T and dS^T are formed from them,
+// dS^T from the f32 P^T as the TPU kernel forms ds from the f32 p; dV /
+// dK complete before dq_tile is issued.  At D = 128 the peak is 128 + 64
+// f32 (dK, dV, S^T, dP^T) and the bf16 pairs that replace them.
 template <int D, bool DQ>
 __device__ __forceinline__ void walk(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
@@ -84,8 +86,8 @@ __device__ __forceinline__ void walk(
   uint64_t* q_full = kv_full + 1;
   uint64_t* q_empty = q_full + STAGES;
 
-  const int kt = blockIdx.x;  // key tile; tile 0 walks the most q tiles
-  const int bh = blockIdx.y;
+  const int kt = grid_tile((T + BK - 1) / BK);  // tile 0 walks the most q tiles
+  const int bh = grid_bh((T + BK - 1) / BK);
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   const int k0 = kt * BK;
   const int n_qt = (T + BQ - 1) / BQ;
@@ -181,11 +183,13 @@ __device__ __forceinline__ void walk(
         reinterpret_cast<const float*>(slot + S::DELTA_OFF);
     const bool mask = (causal && q0 < k0 + BK) || q0 + BQ > T || k0 + BK > T;
 
-    // P^T = exp2(S^T scale log2 e - lse log2 e) from S^T = K_wg Q^T (64
-    // keys, 64 q), rounded to bf16 pairs: the A fragments of dV += P^T dO
-    uint32_t pa[BQ / 4];
+    // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, 64 q), issued back
+    // to back; then P^T = exp2(S^T scale log2 e - lse log2 e) and
+    // dS^T = P^T (dP^T - delta) scale from the f32 P^T, each rounded to
+    // bf16 pairs: the A fragments of dV += P^T dO and dK += dS^T Q
+    uint32_t pa[BQ / 4], da[BQ / 4];
     {
-      float st[BQ / 2];
+      float st[BQ / 2], dpt[BQ / 2];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
@@ -194,32 +198,6 @@ __device__ __forceinline__ void walk(
         mma_ss<0, 0>(st, desc_k(k_addr + koff), desc_k(q_addr + qoff),
                      kk > 0);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      const float sl2 = scale * LOG2E;
-#pragma unroll
-      for (int t = 0; t < BQ / 4; ++t) {
-        const int e = 2 * t;  // columns c and c + 1 of one key row
-        const int key = key_a + 8 * ((e / 2) % 2);
-        const int c = 8 * (e / 4) + col;
-        const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
-        float p0 = ex2(fmaf(st[e], sl2, -ls.x));
-        float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
-        if (mask) {
-          const int q = q0 + c;
-          const bool kin = key < T;
-          if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
-          if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
-        }
-        pa[t] = pack_bf16(p0, p1);
-      }
-    }
-    // dS^T = P^T (dP^T - delta) scale from dP^T = V_wg dO^T, in bf16 pairs
-    uint32_t da[BQ / 4];
-    {
-      float dpt[BQ / 2];
-      wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
@@ -229,15 +207,27 @@ __device__ __forceinline__ void walk(
       }
       wgmma_commit();
       wgmma_wait<0>();
+      fence_regs(st);
       fence_regs(dpt);
+      const float sl2 = scale * LOG2E;
 #pragma unroll
       for (int t = 0; t < BQ / 4; ++t) {
-        const int e = 2 * t;
-        const float2 dl =
-            *reinterpret_cast<const float2*>(delta_s + 8 * (e / 4) + col);
-        const float2 p = unpack_bf16(pa[t]);
-        da[t] = pack_bf16(p.x * (dpt[e] - dl.x) * scale,
-                          p.y * (dpt[e + 1] - dl.y) * scale);
+        const int e = 2 * t;  // columns c and c + 1 of one key row
+        const int key = key_a + 8 * ((e / 2) % 2);
+        const int c = 8 * (e / 4) + col;
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+        float p0 = ex2(fmaf(st[e], sl2, -ls.x));
+        float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
+        if (mask) {
+          const int q = q0 + c;
+          const bool kin = key < T;
+          if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
+          if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
+        }
+        pa[t] = pack_bf16(p0, p1);
+        da[t] = pack_bf16(p0 * (dpt[e] - dl.x) * scale,
+                          p1 * (dpt[e + 1] - dl.y) * scale);
       }
     }
     unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;

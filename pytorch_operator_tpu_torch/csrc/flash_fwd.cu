@@ -56,9 +56,9 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
   E* Ks = reinterpret_cast<E*>(smem + S::K);
   E* Vs = reinterpret_cast<E*>(smem + S::V);
 
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - ptt::grid_tile(n_qt);  // longest causal rows first
+  const int bh = ptt::grid_bh(n_qt);
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   int64_t q_rs, kv_rs;
   const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
@@ -163,11 +163,12 @@ template <typename E, int D> struct Launch {
   static int run(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int H, int Hk, int T, int bh_layout,
                  float scale, int causal, cudaStream_t s) {
-    const int bytes = FwdSmem<E, D>::BYTES;
+    const int bytes = FwdSmem<E, D>::BYTES, tiles = (T + BQ - 1) / BQ;
+    if (!ptt::grid_fits(tiles, B * H))
+      return static_cast<int>(cudaErrorInvalidValue);
     int e = ptt::allow_smem(flash_fwd_kernel<E, D>, bytes);
     if (e) return e;
-    dim3 grid((T + BQ - 1) / BQ, B * H);
-    flash_fwd_kernel<E, D><<<grid, THREADS, bytes, s>>>(
+    flash_fwd_kernel<E, D><<<tiles * B * H, THREADS, bytes, s>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<E*>(o), lse, H, Hk, T,
         bh_layout, scale, causal);
@@ -178,14 +179,15 @@ template <typename E, int D> struct Launch {
 }  // namespace
 
 // q, o: (B, T, H, D) or (B*H, T, D) contiguous (bh_layout 0 / 1); k, v:
-// the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16), D in
-// {16, 32, 64, 128}.  lse: (B*H, T) f32.
+// the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16, 2
+// float16), D in {16, 32, 64, 128}, or 256 for the 16-bit types.  lse:
+// (B*H, T) f32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int Hk, int T,
                          int D, int bh_layout, float scale, int causal,
                          int dtype, void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || B * H > 65535)
+  if (Hk <= 0 || H % Hk)
     return static_cast<int>(cudaErrorInvalidValue);
   return ptt::dispatch_dtype_dim<Launch>(
       dtype, D, q, k, v, o, lse, B, H, Hk, T, bh_layout, scale, causal,

@@ -67,9 +67,9 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* kv_full = q_full + 1;
   uint64_t* kv_empty = kv_full + STAGES;
 
-  const int n_qt = gridDim.x;
-  const int qt = n_qt - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - ptt::grid_tile(n_qt);  // longest causal rows first
+  const int bh = ptt::grid_bh(n_qt);
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   const int q0 = qt * BQ;
   int n_kt = (T + BK - 1) / BK;
@@ -229,11 +229,12 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   if (!e) e = make_head_map(&mk, k, D, Hk, T, B, bh_layout, BK);
   if (!e) e = make_head_map(&mv, v, D, Hk, T, B, bh_layout, BK);
   if (e) return e;
-  const int bytes = FwdSmem<D>::BYTES;
+  const int bytes = FwdSmem<D>::BYTES, tiles = (T + BQ - 1) / BQ;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
   e = ptt::allow_smem(flash_fwd_sm90_kernel<D>, bytes);
   if (e) return e;
-  dim3 grid((T + BQ - 1) / BQ, B * H);
-  flash_fwd_sm90_kernel<D><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_sm90_kernel<D><<<tiles * B * H, THREADS, bytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(o), lse, H, Hk, T, bh_layout,
       scale, causal);
   return static_cast<int>(cudaGetLastError());
@@ -249,7 +250,7 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               int T, int D, int bh_layout, float scale,
                               int causal, int dtype, void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || B * H > 65535 || dtype != ptt::BF16)
+  if (Hk <= 0 || H % Hk || dtype != ptt::BF16)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {

@@ -15,6 +15,13 @@ plain versions on CPU tensors).  ``cfg.remat`` checkpoints each layer
 what the layer keeps, as the JAX ``make_layer_body`` does (see
 ``remat_context_fn``), and ``auto_remat_policy`` picks a tier from the
 device's memory headroom.
+
+``forward_sp`` is the sequence-parallel forward of one rank: it runs the
+stack on the rank's T/sp rows (RoPE at their true positions) with the
+attention through a ring or an all-to-all over the sp group.  The JAX
+``sp_param_specs`` / ``sp_fsdp_param_specs`` have no counterpart: the
+parameters' layout on an sp mesh is ``parallel.train.sharded_init``'s
+(replicated over sp, FSDP2 over the data dims, ``param_specs`` over tp).
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -158,14 +166,21 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
 
 
 def rope_table(cfg: LlamaConfig, seq_len: int,
-               device: torch.device | str = "cpu"
+               device: torch.device | str = "cpu",
+               positions: torch.Tensor | None = None
                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin), each (T, head_dim // 2), at positions 0..T-1, or at
+    ``positions`` (T,) where the rows carry other ones: a sequence-
+    parallel rank's rows, in the zigzag order or not."""
     half = cfg.head_dim // 2
     freqs = cfg.rope_theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=device) / half)
-    angles = (torch.arange(seq_len, dtype=torch.float32,
-                           device=device)[:, None] * freqs[None, :])
-    return torch.cos(angles), torch.sin(angles)  # each (T, head_dim // 2)
+    if positions is None:
+        pos = torch.arange(seq_len, dtype=torch.float32, device=device)
+    else:
+        pos = positions.to(device=device, dtype=torch.float32)
+    angles = pos[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
@@ -366,7 +381,9 @@ class Block(nn.Module):
         self.w_up = nn.Linear(D, F_, **kw)
         self.w_down = nn.Linear(F_, D, **kw)
 
-    def forward(self, h, cos, sin):
+    def forward(self, h, cos, sin, attn=None):
+        """``attn(q, k, v)`` in place of the model's attention: the
+        sequence-parallel forward's ring or all-to-all."""
         cfg = self.cfg
         B, T, _ = h.shape
         hd = cfg.head_dim
@@ -381,8 +398,9 @@ class Block(nn.Module):
         # n_heads/tp q and n_kv_heads/tp kv heads
         q = apply_rope(q.view(B, T, -1, hd), cos, sin)
         k = apply_rope(k.view(B, T, -1, hd), cos, sin)
-        attn = _attention(q, k, v.view(B, T, -1, hd), cfg)
-        h = h + self.wo(attn.reshape(B, T, -1))
+        v = v.view(B, T, -1, hd)
+        o = _attention(q, k, v, cfg) if attn is None else attn(q, k, v)
+        h = h + self.wo(o.reshape(B, T, -1))
         with _save_region("normed"):
             x = rms_norm(h, self.mlp_norm, cfg.norm_eps, cfg.use_fused_norm)
         with _save_region("gateup"):
@@ -415,29 +433,37 @@ class Llama(nn.Module):
             init_params(self, generator)
 
     def _forward_with(self, tokens: torch.Tensor,
-                      return_hidden: bool = False) -> torch.Tensor:
+                      return_hidden: bool = False,
+                      positions: torch.Tensor | None = None,
+                      attn: Callable | None = None) -> torch.Tensor:
         cfg = self.cfg
         h = F.embedding(tokens, self.embed)
-        cos, sin = rope_table(cfg, tokens.shape[1], h.device)
+        cos, sin = rope_table(cfg, tokens.shape[1], h.device, positions)
         for block in self.layers:
             if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(block, h, cos, sin, use_reentrant=False,
+                h = checkpoint(block, h, cos, sin, attn, use_reentrant=False,
                                context_fn=self.remat_context)
             else:
-                h = block(h, cos, sin)
+                h = block(h, cos, sin, attn)
         h = rms_norm(h, self.final_norm, cfg.norm_eps, cfg.use_fused_norm)
         if return_hidden:
             return h
         # weight-tied output head; logits in the param dtype, then f32
         return (h @ self.embed.t()).float()
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens (B, T) int -> logits (B, T, vocab) float32."""
-        return self._forward_with(tokens)
+    def forward(self, tokens: torch.Tensor,
+                positions: torch.Tensor | None = None,
+                attn: Callable | None = None) -> torch.Tensor:
+        """tokens (B, T) int -> logits (B, T, vocab) float32.  ``positions``
+        (T,): the rows' positions for RoPE (default 0..T-1); ``attn``:
+        the attention of every layer (default the model's own)."""
+        return self._forward_with(tokens, False, positions, attn)
 
-    def forward_hidden(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward_hidden(self, tokens: torch.Tensor,
+                       positions: torch.Tensor | None = None,
+                       attn: Callable | None = None) -> torch.Tensor:
         """tokens (B, T) -> final-normed hidden states (B, T, dim)."""
-        return self._forward_with(tokens, return_hidden=True)
+        return self._forward_with(tokens, True, positions, attn)
 
 
 def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
@@ -446,6 +472,95 @@ def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
 
 def forward_hidden(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
     return model.forward_hidden(tokens)
+
+
+SP_IMPLS = ("ulysses", "ring", "ring_zigzag")
+
+
+def sp_positions(T: int, sp: int, rank: int, impl: str,
+                 device: torch.device | str = "cpu") -> torch.Tensor:
+    """The global positions of sp rank ``rank``'s T/sp rows: rows
+    [rank·T/sp, (rank+1)·T/sp) for ulysses and ring, the rank's slice of
+    ``zigzag_layout``'s permutation for ring_zigzag (the tokens are
+    permuted once per forward, as in the JAX ``forward_sp``)."""
+    from pytorch_operator_tpu_torch.parallel.ring_attention import (
+        zigzag_layout,
+    )
+
+    if impl not in SP_IMPLS:
+        raise ValueError(f"unknown sp impl {impl!r}")
+    if T % sp:
+        raise ValueError(f"seq len {T} not divisible by sp={sp}")
+    Tl = T // sp
+    if impl == "ring_zigzag":
+        rows = torch.from_numpy(zigzag_layout(T, sp)[0][rank * Tl:
+                                                       (rank + 1) * Tl])
+    else:
+        rows = torch.arange(rank * Tl, (rank + 1) * Tl)
+    return rows.to(device)
+
+
+def sp_attention(cfg: LlamaConfig, group, impl: str) -> Callable:
+    """The attention of the sequence-parallel forward over the sp process
+    group ``group``, on a rank's (B, T/sp, H_local, D) q and (B, T/sp,
+    KV_local, D) k / v (under tp the local heads come from the tensors,
+    so SP×TP runs the ring or the all-to-all on each tp rank's heads).
+
+      ring         ``ring_attention`` over the unrepeated K/V chunks
+      ring_zigzag  the same on the zigzag layout (``zigzag_pre``)
+      ulysses      ``ulysses_attention``; where the local kv heads do not
+                   divide sp, K/V repeat only to lcm(kv, sp) heads, the
+                   least the all-to-all can split (the JAX forward_sp's
+                   minimal repeat), and the local attention is the flash
+                   kernels under ``cfg.use_flash``, else the dense path
+    """
+    from pytorch_operator_tpu_torch.parallel.ring_attention import (
+        RingComm,
+        ring_attention,
+    )
+    from pytorch_operator_tpu_torch.parallel.ulysses import (
+        ulysses_attention,
+    )
+
+    if impl not in SP_IMPLS:
+        raise ValueError(f"unknown sp impl {impl!r}")
+    if impl != "ulysses":
+        comm = RingComm(group)
+        layout = "zigzag_pre" if impl == "ring_zigzag" else "contiguous"
+        return lambda q, k, v: ring_attention(q, k, v, comm, causal=True,
+                                              layout=layout)
+    n = torch.distributed.get_world_size(group)
+
+    def local(q, k, v, causal):
+        return _attention(q, k, v, cfg)
+
+    def attn(q, k, v):
+        kv = k.shape[2]
+        if kv % n:
+            r = math.lcm(kv, n) // kv
+            k = k.repeat_interleave(r, dim=2)
+            v = v.repeat_interleave(r, dim=2)
+        return ulysses_attention(q, k, v, group, local_attention=(
+            None if cfg.use_flash else local))
+
+    return attn
+
+
+def forward_sp(model: Llama, tokens: torch.Tensor, group, *,
+               impl: str = "ulysses",
+               return_hidden: bool = False) -> torch.Tensor:
+    """The sequence-parallel forward of one rank of the sp process group
+    ``group``: tokens (B, T) are the rank's batch rows at full length;
+    the stack runs on its T/sp rows (``sp_positions``), RoPE at their
+    true positions, attention by ``sp_attention``.  Returns the logits
+    (f32) or, with ``return_hidden``, the final-normed hidden states of
+    those rows, (B, T/sp, ...)."""
+    sp = torch.distributed.get_world_size(group)
+    rank = torch.distributed.get_rank(group)
+    pos = sp_positions(tokens.shape[1], sp, rank, impl, tokens.device)
+    fn = model.forward_hidden if return_hidden else model
+    return fn(tokens[:, pos], positions=pos,
+              attn=sp_attention(model.cfg, group, impl))
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,9 @@ The backward takes one of the JAX module's two routes, by the same rule
 Each of the four kernels has two versions, picked by a fixed rule on
 dtype and head dim (``_sm90``), not a fallback: bf16 at D in {64, 128}
 (every model's attention but the tiny one's) takes the Hopper kernels
-built on ``wgmma``, TMA and a warp-specialized mbarrier ring; f32 and D
-16/32 take the WMMA kernels.  A build or launch failure of either raises.
+built on ``wgmma``, TMA and a warp-specialized mbarrier ring; f32, fp16
+and D 16/32/256 take the WMMA kernels.  A build or launch failure of
+either raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
 (T, D) f32 dq resident, so past ``_FUSED_DQ_BYTES`` (T > 8192 at
@@ -52,9 +53,14 @@ checkpoint policy can name it (``models/llama.py``'s ``save_attn``).
 The rest of the TPU-tuned dispatch is not carried over: ``_auto_block``
 and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
 On CUDA every call, forward-only or not, goes through the kernels, which
-tile T by 64 or 128 and mask the tail themselves.  The kernels take
-float32 or bfloat16 with D in {16, 32, 64, 128}; anything else on a CUDA
-tensor raises.
+tile T by 64 or 128 and mask the tail themselves, and any B * H (the
+grid is one dimension of tiles times B * H).  The kernels take float32,
+bfloat16 or float16 at D in {16, 32, 64, 128}, and the 16-bit types at
+D 256 too (a float32 tile set at D 256 passes a block's shared memory).
+A head dim between two of these runs at the next one: the wrappers pad
+q, k, v (and dO) with zero columns, which change neither the scores nor
+the true columns of out, dq, dk and dv, pass the scale of the true D and
+slice the outputs back.  Anything else on a CUDA tensor raises.
 """
 
 from __future__ import annotations
@@ -62,13 +68,15 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from pytorch_operator_tpu_torch import kernels
 
 NEG_INF = -1e30
-# the C entries' dtype codes, and the head dims they are built for
-KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+# the C entries' dtype codes, and the head dims they are built for (256
+# for the 16-bit types only)
+KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _TAIL = [_I] * 6 + [_F, _I, _I, _P]  # B H Hk T D bh, scale causal dtype s
@@ -90,9 +98,10 @@ _FUSED_DQ_BYTES = 4 * 1024 * 1024
 def _sm90(dtype: torch.dtype, D: int) -> bool:
     """True where the flash kernels run their Hopper versions
     (``flash_fwd_sm90``, ``flash_bwd_sm90``, ``flash_bwd_dq_sm90``,
-    ``flash_bwd_dkv_sm90``): bf16 at D 64 or 128.  Elsewhere the WMMA
-    versions (``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``,
-    ``flash_bwd_dkv``) run."""
+    ``flash_bwd_dkv_sm90``): bf16 at (kernel) head dim 64 or 128.
+    Elsewhere the WMMA versions (``flash_fwd``, ``flash_bwd``,
+    ``flash_bwd_dq``, ``flash_bwd_dkv``) run; the Hopper ones are
+    bf16-only by design."""
     return dtype == torch.bfloat16 and D in (64, 128)
 
 
@@ -216,30 +225,42 @@ def _dims(q, k, bh):
     return B, H, k.shape[2], T, D
 
 
-def _checked_dims(q, k, bh, tensors):
-    """(B, H, Hk, T, D) of a kernel call, after checking that ``tensors``
-    are what the kernels take."""
+def _kernel_dim(D: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels run a call of head dim ``D`` at: the
+    least of KERNEL_HEAD_DIMS that holds it (256 for the 16-bit types
+    only); a larger D raises."""
+    dims = KERNEL_HEAD_DIMS[:-1] if dtype == torch.float32 else \
+        KERNEL_HEAD_DIMS
+    for d in dims:
+        if D <= d:
+            return d
+    raise ValueError(f"flash attention kernels take head dims up to "
+                     f"{dims[-1]} for {dtype}, got {D}")
+
+
+def _checked_inputs(q, k, bh, tensors):
+    """(B, H, Hk, T, D) of a kernel call and ``tensors`` zero-padded to the
+    kernels' head dim (``_kernel_dim``), after checking that they are
+    what the kernels take."""
     B, H, Hk, T, D = _dims(q, k, bh)
     dev, dtype = q.device, q.dtype
     for t in tensors:
         if t.device != dev:
             raise ValueError("flash attention inputs must share one device")
         if t.dtype != dtype or dtype not in KERNEL_DTYPES:
-            raise TypeError(f"flash attention kernels take float32 or "
-                            f"bfloat16 inputs of one dtype, got "
+            raise TypeError(f"flash attention kernels take float32, "
+                            f"bfloat16 or float16 inputs of one dtype, got "
                             f"{[x.dtype for x in tensors]}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head dim "
-                         f"{KERNEL_HEAD_DIMS}, got {D}")
+    Dk = _kernel_dim(D, dtype)
     if dev.type != "cuda":
         raise ValueError(f"flash attention kernels take CUDA tensors, got "
                          f"{dev}")
+    if Dk != D:
+        tensors = tuple(F.pad(t, (0, Dk - D)) for t in tensors)
     if any(t.data_ptr() % 16 for t in tensors):
         raise ValueError("flash attention kernels take 16-byte aligned "
                          "tensors")
-    if B * H > 65535:
-        raise ValueError(f"batch * heads = {B * H} exceeds the grid limit")
-    return B, H, Hk, T, D
+    return (B, H, Hk, T, D), tensors
 
 
 def _launch(kernel, tensors, q, k, bh, scale, causal):
@@ -249,54 +270,66 @@ def _launch(kernel, tensors, q, k, bh, scale, causal):
            kernels.stream(q.device))
 
 
+def _unpad(D, *outs):
+    """The outputs of a call padded to a larger head dim, sliced back to
+    the true ``D`` (contiguous)."""
+    if outs[0].shape[-1] == D:
+        return outs
+    return tuple(x[..., :D].contiguous() for x in outs)
+
+
 def _flash_fwd_cuda(q, k, v, scale, causal, bh, kernel=None):
     """The forward kernel ``_sm90`` picks, or ``kernel`` where the caller
     names one (``chip_smoke.py`` times the WMMA kernel beside the Hopper
     one on the same inputs)."""
-    B, H, _, T, D = _checked_dims(q, k, bh, (q, k, v))
+    (B, H, _, T, D), (q, k, v) = _checked_inputs(q, k, bh, (q, k, v))
     out = torch.empty_like(q)
     lse = torch.empty(B * H, 1, T, dtype=torch.float32, device=q.device)
     if kernel is None:
-        kernel = FWD_SM90_KERNEL if _sm90(q.dtype, D) else FWD_KERNEL
+        kernel = FWD_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
+            FWD_KERNEL
     _launch(kernel, (q, k, v, out, lse), q, k, bh, scale, causal)
-    return out, lse
+    return _unpad(D, out)[0], lse
 
 
 def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh, kernel=None):
     """The fused backward kernel ``_sm90`` picks, or ``kernel``."""
-    D = _checked_dims(q, k, bh, (q, k, v, g))[-1]
+    (*_, D), (q, k, v, g) = _checked_inputs(q, k, bh, (q, k, v, g))
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if kernel is None:
-        kernel = BWD_SM90_KERNEL if _sm90(q.dtype, D) else BWD_KERNEL
+        kernel = BWD_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
+            BWD_KERNEL
     _launch(kernel, (q, k, v, g, lse, delta, dq, dkp, dvp), q, k, bh, scale,
             causal)
-    return dq, dkp, dvp
+    return _unpad(D, dq, dkp, dvp)
 
 
 def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal, bh,
                        kernel=None):
     """The dq kernel ``_sm90`` picks, or ``kernel``."""
-    D = _checked_dims(q, k, bh, (q, k, v, g))[-1]
+    (*_, D), (q, k, v, g) = _checked_inputs(q, k, bh, (q, k, v, g))
     dq = torch.empty_like(q)
     if kernel is None:
-        kernel = BWD_DQ_SM90_KERNEL if _sm90(q.dtype, D) else BWD_DQ_KERNEL
+        kernel = BWD_DQ_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
+            BWD_DQ_KERNEL
     _launch(kernel, (q, k, v, g, lse, delta, dq), q, k, bh, scale, causal)
-    return dq
+    return _unpad(D, dq)[0]
 
 
 def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal, bh,
                         kernel=None):
     """The dk / dv kernel ``_sm90`` picks, or ``kernel``."""
-    D = _checked_dims(q, k, bh, (q, k, v, g))[-1]
+    (*_, D), (q, k, v, g) = _checked_inputs(q, k, bh, (q, k, v, g))
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if kernel is None:
-        kernel = BWD_DKV_SM90_KERNEL if _sm90(q.dtype, D) else BWD_DKV_KERNEL
+        kernel = BWD_DKV_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
+            BWD_DKV_KERNEL
     _launch(kernel, (q, k, v, g, lse, delta, dkp, dvp), q, k, bh, scale,
             causal)
-    return dkp, dvp
+    return _unpad(D, dkp, dvp)
 
 
 @torch.library.custom_op("ptt::flash_fwd", mutates_args=())
@@ -322,6 +355,23 @@ def _reduce_kv_partials(partials, group, out_dtype, bh):
             B, T, H, D = partials.shape
             partials = partials.view(B, T, H // group, group, D).sum(3)
     return partials.to(out_dtype)
+
+
+def flash_bwd(q, k, v, g, lse, delta, scale, causal, bh):
+    """dq and the per-q-head dk / dv partials (f32, q's layout) of one
+    call given its lse and delta ((B*H, T) f32), by the route
+    ``_use_fused_bwd`` picks: the fused kernel (dq f32) or the dq then
+    dk / dv kernels (dq in q's dtype); CPU tensors take the plain
+    versions."""
+    args = (q, k, v, g, lse, delta, scale, causal, bh)
+    T, D = _dims(q, k, bh)[3:]
+    if _use_fused_bwd(T, D):
+        return kernels.dispatch(q, _flash_bwd_cuda, _flash_bwd_reference,
+                                *args)
+    dq = kernels.dispatch(q, _flash_bwd_dq_cuda, _flash_bwd_dq_reference,
+                          *args)
+    return (dq, *kernels.dispatch(q, _flash_bwd_dkv_cuda,
+                                  _flash_bwd_dkv_reference, *args))
 
 
 class _Flash(torch.autograd.Function):
@@ -350,19 +400,11 @@ class _Flash(torch.autograd.Function):
             delta = delta.transpose(1, 2).reshape(B * H, T)
         if g_lse is not None:
             delta = delta - g_lse.reshape(B * H, T).float()
-        args = (q, k, v, g, lse.reshape(B * H, T), delta.contiguous(),
-                ctx.scale, ctx.causal, bh)
-        if _use_fused_bwd(T, D):
-            dq, dkp, dvp = kernels.dispatch(q, _flash_bwd_cuda,
-                                            _flash_bwd_reference, *args)
-            dq = dq.to(q.dtype)
-        else:
-            dq = kernels.dispatch(q, _flash_bwd_dq_cuda,
-                                  _flash_bwd_dq_reference, *args)
-            dkp, dvp = kernels.dispatch(q, _flash_bwd_dkv_cuda,
-                                        _flash_bwd_dkv_reference, *args)
+        dq, dkp, dvp = flash_bwd(q, k, v, g, lse.reshape(B * H, T),
+                                 delta.contiguous(), ctx.scale, ctx.causal,
+                                 bh)
         group = H // Hk
-        return (dq, _reduce_kv_partials(dkp, group, k.dtype, bh),
+        return (dq.to(q.dtype), _reduce_kv_partials(dkp, group, k.dtype, bh),
                 _reduce_kv_partials(dvp, group, v.dtype, bh), None, None,
                 None)
 

@@ -4,12 +4,15 @@ Port of ``pytorch_operator_tpu/parallel/train.py``: next-token cross
 entropy (optionally with the tied head applied per sequence chunk), the
 AdamW update, the global gradient norm, ``sharded_init``, checkpoint
 save and restore at any mesh shape (``restore_on_mesh``) and
-``with_step_profiler``.  The JAX step is one jitted function over a
+``with_step_profiler``, and the sequence-parallel step
+``make_sp_train_step``.  The JAX step is one jitted function over a
 mesh; here it is an eager step that updates the model and the optimizer
 in place, on one device (``mesh=None``) or on each rank of a
-(dp, fsdp, tp) ``DeviceMesh``: parameters sharded by FSDP2 over
-(dp, fsdp) and by the DTensor tp plan over tp, the global batch split
-over (dp, fsdp).  The sequence-parallel and pipeline steps and the
+(dp, fsdp, tp) or (dp, fsdp, sp[, tp]) ``DeviceMesh``: parameters
+sharded by FSDP2 over (dp, fsdp) and by the DTensor tp plan over tp,
+replicated over sp, the global batch split over (dp, fsdp).  Where the
+data dims hold one rank, FSDP2 is left out (it would only copy), and a
+mesh of one rank runs the plain model.  The pipeline steps and the
 in-memory ``reshard_state`` wait for later slices.
 """
 
@@ -37,7 +40,14 @@ from torch.utils.checkpoint import checkpoint
 
 from pytorch_operator_tpu_torch.models import llama
 from pytorch_operator_tpu_torch.models.llama import Llama, LlamaConfig
-from pytorch_operator_tpu_torch.parallel.mesh import AXIS_TP, local_rows
+from pytorch_operator_tpu_torch.parallel.mesh import (
+    AXIS_DP,
+    AXIS_FSDP,
+    AXIS_SP,
+    AXIS_TP,
+    dim_size,
+    local_rows,
+)
 from pytorch_operator_tpu_torch.telemetry import StepProfiler
 
 
@@ -126,34 +136,52 @@ def global_norm(grads) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+def _data_ranks(mesh: DeviceMesh) -> int:
+    return dim_size(mesh, AXIS_DP) * dim_size(mesh, AXIS_FSDP)
+
+
+def _is_sharded(model: Llama) -> bool:
+    return any(isinstance(p, DTensor) for p in model.parameters())
+
+
 def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0) -> Llama:
-    """The Llama model built straight into its shards on ``mesh``.
+    """The Llama model built straight into its shards on ``mesh``, a
+    (dp, fsdp, tp) or (dp, fsdp, sp[, tp]) mesh.
 
     The model is built on the meta device, the tp plan
     (``llama.param_specs``) is applied over the mesh's tp dim when it
     is larger than 1, each ``Block`` and then the root are
     ``fully_shard``-ed over (dp, fsdp) (HSDP: replicated over dp,
-    sharded over fsdp), and only then is memory allocated, for each
-    rank's shards.  ``init_params`` draws every matrix whole, one at a
-    time, from ``torch.Generator(seed)`` on the mesh's device, and each
-    rank keeps its shard, so the values are bit for bit those of the
-    unsharded ``Llama(cfg, generator=seed)`` on that device."""
-    tp = mesh[AXIS_TP].size()
+    sharded over fsdp) when those dims hold more than one rank, and only
+    then is memory allocated, for each rank's shards.  The sp ranks hold
+    the same shards (``make_sp_train_step`` averages their gradients).
+    ``init_params`` draws every matrix whole, one at a time, from
+    ``torch.Generator(seed)`` on the mesh's device, and each rank keeps
+    its shard, so the values are bit for bit those of the unsharded
+    ``Llama(cfg, generator=seed)`` on that device.
+
+    On a mesh of one rank that is the model returned: no FSDP2, no
+    DTensor, so the step costs what the single-device step costs."""
+    tp = dim_size(mesh, AXIS_TP)
     llama.check_tp(cfg, tp)
     if mesh.device_type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     else:
         device = torch.device(mesh.device_type)
+    if mesh.size() == 1:
+        return Llama(cfg, device=device, generator=torch.Generator(
+            device=device).manual_seed(seed))
     model = Llama(cfg, device="meta")
     if tp > 1:
         parallelize_module(model, mesh[AXIS_TP], llama.param_specs(cfg))
-    data_mesh = mesh["dp", "fsdp"]
-    for block in model.layers:
-        fully_shard(block, mesh=data_mesh)
-    fully_shard(model, mesh=data_mesh)
-    # the chunked-CE step calls forward_hidden, not forward: it must
-    # gather the root's parameters (the embedding, the final norm) too
-    register_fsdp_forward_method(model, "forward_hidden")
+    if _data_ranks(mesh) > 1:
+        data_mesh = mesh[AXIS_DP, AXIS_FSDP]
+        for block in model.layers:
+            fully_shard(block, mesh=data_mesh)
+        fully_shard(model, mesh=data_mesh)
+        # the chunked-CE step calls forward_hidden, not forward: it must
+        # gather the root's parameters (the embedding, the final norm) too
+        register_fsdp_forward_method(model, "forward_hidden")
     model.to_empty(device=device)
     llama.init_params(model,
                       torch.Generator(device=device).manual_seed(seed))
@@ -185,16 +213,9 @@ def make_train_step(
     and the loss is all-reduced, so ``loss`` is the mean over the global
     batch and ``grad_norm`` the norm of the full gradient, as the JAX
     mesh step's.  AdamW's moments are DTensors sharded as their
-    parameters."""
-    if ce_chunk < 1:
-        raise ValueError(f"ce_chunk must be >= 1, got {ce_chunk}")
-    if model.cfg != cfg:
-        raise ValueError("the model was built from another config")
-    if isinstance(model.embed, DTensor) != (mesh is not None):
-        raise ValueError("a sharded model (sharded_init) needs its mesh, "
-                         "and a mesh needs a sharded model")
-    device = model.embed.device
-    params = list(model.parameters())
+    parameters.  On a mesh of one rank the step is the single-device
+    one."""
+    _check_step_args(cfg, model, mesh, ce_chunk)
 
     def loss_fn(batch: torch.Tensor) -> torch.Tensor:
         inputs, targets = batch[:, :-1], batch[:, 1:]
@@ -202,6 +223,28 @@ def make_train_step(
             h = model.forward_hidden(inputs)
             return chunked_tied_ce(h, model.embed, targets, ce_chunk)
         return cross_entropy_loss(model(inputs), targets)
+
+    return _make_step(model, optimizer, mesh, loss_fn)
+
+
+def _check_step_args(cfg, model, mesh, ce_chunk) -> None:
+    if ce_chunk < 1:
+        raise ValueError(f"ce_chunk must be >= 1, got {ce_chunk}")
+    if model.cfg != cfg:
+        raise ValueError("the model was built from another config")
+    want = mesh is not None and (_data_ranks(mesh) > 1
+                                 or dim_size(mesh, AXIS_TP) > 1)
+    if _is_sharded(model) != want:
+        raise ValueError("a sharded model (sharded_init) needs its mesh, "
+                         "and a mesh needs sharded_init's model")
+
+
+def _make_step(model, optimizer, mesh, loss_fn, after_backward=None):
+    """The step around ``loss_fn(local batch)``: this rank's rows of the
+    global batch, backward, ``after_backward()``, the global gradient
+    norm, AdamW and the loss averaged over the ranks."""
+    device = model.embed.device
+    params = list(model.parameters())
 
     def step(state: TrainState, batch) -> tuple[TrainState, dict]:
         if state.model is not model or state.optimizer is not optimizer:
@@ -215,13 +258,16 @@ def make_train_step(
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch)
         loss.backward()
+        if after_backward is not None:
+            after_backward()
         with torch.no_grad():
             gnorm = global_norm(p.grad for p in params if p.grad is not None)
         optimizer.step()
         loss = loss.detach()
         if mesh is not None and mesh.size() > 1:
-            # equal rows on every rank, the same loss on the tp ranks of
-            # a shard: the world mean is the global batch's mean
+            # equal rows (and sequence chunks) on every rank, the same
+            # loss on the tp ranks of a shard: the world mean is the
+            # global batch's mean
             loss = loss.clone()
             dist.all_reduce(loss)
             loss /= dist.get_world_size()
@@ -229,6 +275,70 @@ def make_train_step(
                 {"loss": loss, "grad_norm": gnorm})
 
     return step
+
+
+def make_sp_train_step(
+    cfg: LlamaConfig,
+    model: Llama,
+    optimizer: torch.optim.Optimizer,
+    *,
+    mesh: DeviceMesh,
+    axis_name: str = AXIS_SP,
+    impl: str = "ulysses",
+    chunked_ce: bool = False,
+    ce_chunk: int = 1024,
+) -> Callable[[TrainState, torch.Tensor], tuple[TrainState, dict]]:
+    """The sequence-parallel training step on a (dp, fsdp, sp[, tp]) mesh
+    (``make_sp_mesh``), for ``sharded_init``'s model on it.
+
+    Every rank calls it with the same global (B, T+1) batch.  A rank
+    takes its rows over the data dims (``local_rows``) and, of those,
+    the T/sp sequence rows of its sp coordinate (``llama.sp_positions``:
+    contiguous, or the zigzag slice for ``ring_zigzag``; the targets
+    alike), and runs ``llama.forward_sp``: attention through the ring or
+    the all-to-all over the mesh's sp dim (``impl``: ulysses, ring,
+    ring_zigzag).  Its loss is the mean over its tokens, so with equal
+    chunks the mean over the ranks is the JAX step's global mean.
+    FSDP2 averages the gradients over the data dims; the sp ranks, which
+    hold the same parameters, then average theirs (one all-reduce per
+    gradient over sp), so every gradient is the global batch's.
+    ``chunked_ce`` applies the tied head per ``ce_chunk`` of the rank's
+    tokens."""
+    _check_step_args(cfg, model, mesh, ce_chunk)
+    if impl not in llama.SP_IMPLS:
+        raise ValueError(f"unknown sp impl {impl!r}")
+    sp_mesh = mesh[axis_name]
+    group = sp_mesh.get_group()
+    sp = sp_mesh.size()
+    params = list(model.parameters())
+
+    def loss_fn(batch: torch.Tensor) -> torch.Tensor:
+        inputs, targets = batch[:, :-1], batch[:, 1:]
+        pos = llama.sp_positions(inputs.shape[1], sp,
+                                 sp_mesh.get_local_rank(), impl,
+                                 inputs.device)
+        h = llama.forward_sp(model, inputs, group, impl=impl,
+                             return_hidden=chunked_ce)
+        targets = targets[:, pos]
+        if chunked_ce:
+            return chunked_tied_ce(h, model.embed, targets, ce_chunk)
+        return cross_entropy_loss(h, targets)
+
+    def average_over_sp() -> None:
+        if sp == 1:
+            return
+        works = []
+        for p in params:
+            if p.grad is not None:
+                g = p.grad.to_local() if isinstance(p.grad, DTensor) \
+                    else p.grad
+                works.append((g, dist.all_reduce(g, group=group,
+                                                 async_op=True)))
+        for g, work in works:
+            work.wait()
+            g /= sp
+
+    return _make_step(model, optimizer, mesh, loss_fn, average_over_sp)
 
 
 # ---------------------------------------------------------------------------

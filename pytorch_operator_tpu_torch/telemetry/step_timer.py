@@ -11,7 +11,9 @@ from which tokens/s and an MFU estimate follow.
 
 MFU uses the 6·N·B·T decoder approximation (forward 2·N·B·T, backward
 4·N·B·T, attention FLOPs left out) against a per-device peak from a
-table of data-sheet figures; it is an ESTIMATE, comparable across runs.
+table of NVIDIA data-sheet figures; it is an ESTIMATE, comparable across
+runs.  A device the table does not know has no MFU (None), never another
+device's peak.
 
 Every step may append one JSON line to a step log; ``read_step_log``
 aggregates such a log.  Both are byte-compatible with the JAX module's.
@@ -22,6 +24,7 @@ from __future__ import annotations
 import json
 import threading
 import time
+import warnings
 from collections import deque
 from dataclasses import asdict, dataclass
 from typing import IO, Any, Callable, Dict, Optional
@@ -30,33 +33,36 @@ import torch
 
 from pytorch_operator_tpu_torch.models import llama
 
-#: Peak dense-matmul FLOPs per device (bf16), from the public data
-#: sheets.  Keys are lowercased device-name prefixes (the JAX table's
-#: TPU rows, and the H100's for ``torch.cuda.get_device_name``, e.g.
-#: "NVIDIA H100 80GB HBM3"); ``cpu`` is a nominal figure so that a CPU
-#: run gives finite numbers.
+#: Peak dense-matmul FLOPs per device (bf16, without sparsity), from
+#: NVIDIA's data sheets.  Keys are lowercased device-name prefixes, as
+#: ``torch.cuda.get_device_name`` gives them: the H100 SXM reports itself
+#: as "NVIDIA H100 80GB HBM3", the PCIe card as "NVIDIA H100 PCIe".
+#: ``cpu`` is a nominal figure so that a CPU run gives finite numbers.
 PEAK_FLOPS_PER_CHIP: Dict[str, float] = {
-    "tpu v4": 275e12,
-    "tpu v5 lite": 197e12,
-    "tpu v5e": 197e12,
-    "tpu v5p": 459e12,
-    "tpu v5": 459e12,
-    "tpu v6e": 918e12,
-    "tpu v6": 918e12,
-    "nvidia h100": 989e12,
+    "nvidia h100 80gb hbm3": 989e12,
+    "nvidia h100 pcie": 756e12,
     "cpu": 1e11,
 }
 
+_warned_kinds: set = set()
 
-def peak_flops_per_chip(device_kind: str) -> float:
-    """Longest-prefix lookup into the peak table (lowercased); an
-    unknown kind takes the cpu figure rather than stopping the loop."""
+
+def peak_flops_per_chip(device_kind: str) -> Optional[float]:
+    """Longest-prefix lookup into the peak table (lowercased).  A kind
+    the table does not know gives None, with a warning once per kind:
+    an MFU against another device's peak would be a wrong number."""
     kind = (device_kind or "").lower()
     best = ""
     for prefix in PEAK_FLOPS_PER_CHIP:
         if kind.startswith(prefix) and len(prefix) > len(best):
             best = prefix
-    return PEAK_FLOPS_PER_CHIP[best or "cpu"]
+    if not best:
+        if kind not in _warned_kinds:
+            _warned_kinds.add(kind)
+            warnings.warn(f"no peak FLOP/s for device {device_kind!r}: "
+                          f"MFU is not reported", stacklevel=2)
+        return None
+    return PEAK_FLOPS_PER_CHIP[best]
 
 
 def device_kind(device: str | torch.device) -> str:
@@ -160,7 +166,8 @@ class StepProfiler:
 
     # -- derived numbers ---------------------------------------------------
     @property
-    def peak_flops(self) -> float:
+    def peak_flops(self) -> Optional[float]:
+        """The device's peak, None for a device the table does not know."""
         if self._peak_flops is None:
             self._peak_flops = peak_flops_per_chip(device_kind(self.device))
         return self._peak_flops
@@ -173,7 +180,7 @@ class StepProfiler:
         tokens = self.batch * self.seq_len
         tps = tokens / step_time
         mfu = None
-        if self.n_params:
+        if self.n_params and self.peak_flops:
             achieved = train_step_flops(
                 self.n_params, self.batch, self.seq_len) / step_time
             mfu = achieved / (self.peak_flops * self.n_chips)

@@ -1,7 +1,7 @@
 """Llama pretraining on synthetic tokens, on one GPU or many.
 
-Port of ``examples/llama/train_llama.py`` (its (dp, fsdp, tp) mesh
-branch):
+Port of ``examples/llama/train_llama.py`` (its (dp, fsdp, tp) mesh and
+sequence-parallel branches):
 
     python -m pytorch_operator_tpu_torch.train_llama --model flagship \\
         --batch-size 2 --seq-len 2048 --steps 10
@@ -29,8 +29,20 @@ as the JAX entry turns the Pallas kernels on for a TPU.  Batches are
 seeded per step index, as in the JAX entry, so a resumed run continues
 the data stream.  ``--checkpoint-dir`` saves every
 ``--checkpoint-every`` steps and a new run restores the latest
-checkpoint at whatever world size it has.  The pipeline (``--pp``) and
-sequence-parallel (``--sp``) layouts are not ported yet and raise.
+checkpoint at whatever world size it has.
+
+``--sp N`` trains on a (dp, fsdp, sp[, tp]) mesh: each rank holds T/N
+rows of every activation, and attention runs ``--sp-impl`` over the sp
+ranks (``ulysses``: all-to-all to heads; ``ring``: K/V around a ring;
+``ring_zigzag``: the ring on the zigzag layout), each chunk through the
+flash kernels on a GPU; ``--fsdp`` shards the weights and ``--tp`` the
+heads beside it, as in the JAX entry:
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m pytorch_operator_tpu_torch.train_llama --model tiny \
+        --device cpu --sp 2 --sp-impl ring_zigzag --seq-len 64
+
+The pipeline layout (``--pp``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -46,11 +58,16 @@ import torch.distributed as dist
 
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.models import llama
-from pytorch_operator_tpu_torch.parallel.mesh import factor_devices, make_mesh
+from pytorch_operator_tpu_torch.parallel.mesh import (
+    factor_devices,
+    make_mesh,
+    make_sp_mesh,
+)
 from pytorch_operator_tpu_torch.parallel.train import (
     TrainState,
     adamw,
     latest_checkpoint,
+    make_sp_train_step,
     make_train_step,
     restore_on_mesh,
     save_checkpoint,
@@ -71,7 +88,7 @@ def _flag(parser, name, dest, help_on):
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Llama training over a "
-                                                 "(dp, fsdp, tp) mesh")
+                                                 "(dp, fsdp[, sp], tp) mesh")
     parser.add_argument("--model", choices=sorted(MODELS), default="tiny")
     parser.add_argument("--layers", type=int, default=None,
                         help="cut the model's depth to this many layers "
@@ -106,7 +123,15 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--pp", type=int, default=0,
                         help="pipeline stages: not ported yet")
     parser.add_argument("--sp", type=int, default=0,
-                        help="sequence-parallel degree: not ported yet")
+                        help="sequence-parallel degree for long contexts; "
+                             "composes with --dp/--fsdp/--tp "
+                             "(dp*fsdp*sp*tp must equal the process count)")
+    parser.add_argument("--sp-impl", choices=list(llama.SP_IMPLS),
+                        default="ulysses",
+                        help="attention under --sp: all-to-all head "
+                             "re-shard (ulysses), K/V ring rotation "
+                             "(ring), or the ring on the zigzag layout "
+                             "that balances causal load (ring_zigzag)")
     parser.add_argument("--checkpoint-dir", type=str, default=None)
     parser.add_argument("--checkpoint-every", type=int, default=100)
     parser.add_argument("--profile-dir", type=str, default=None,
@@ -117,13 +142,13 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--log-interval", type=int, default=5)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    for name in ("pp", "sp"):
-        if getattr(args, name):
-            parser.error(f"--{name} is not ported yet: the pipeline and "
-                         f"sequence-parallel layouts wait for a later "
-                         f"slice (use --dp/--fsdp/--tp)")
+    if args.pp:
+        parser.error("--pp is not ported yet: the pipeline layout waits "
+                     "for a later slice (use --dp/--fsdp/--tp or --sp)")
+    if args.sp < 0:
+        parser.error(f"--sp must be >= 0, got {args.sp}")
     mesh_flags = (args.dp, args.fsdp, args.tp)
-    if any(mesh_flags) and not all(mesh_flags):
+    if not args.sp and any(mesh_flags) and not all(mesh_flags):
         parser.error("--dp/--fsdp/--tp must be given together (or none)")
     if args.ce_chunk < 1:
         parser.error(f"--ce-chunk must be >= 1, got {args.ce_chunk}")
@@ -166,6 +191,33 @@ def _check_remat_policy(parser, args) -> None:
                      f"residuals and requires --flash")
 
 
+def sp_mesh_shape(args: argparse.Namespace, world: int,
+                  cfg: llama.LlamaConfig) -> tuple[int, int, int, int]:
+    """(dp, fsdp, sp, tp) under --sp: each of --dp/--fsdp/--tp 1 when not
+    given, with the JAX entry's checks and messages."""
+    dp, fsdp, tp = args.dp or 1, args.fsdp or 1, args.tp or 1
+    sp = args.sp
+
+    def error(msg):
+        raise SystemExit(f"train_llama: error: {msg}")
+
+    if dp * fsdp * sp * tp != world:
+        error(f"--dp*--fsdp*--sp*--tp = {dp * fsdp * sp * tp} != {world} "
+              f"devices")
+    if args.seq_len % sp:
+        error(f"--seq-len {args.seq_len} not divisible by --sp")
+    if args.batch_size % (dp * fsdp):
+        error(f"--batch-size {args.batch_size} not divisible by "
+              f"--dp*--fsdp = {dp * fsdp}")
+    if tp > 1 and (cfg.n_heads % tp or cfg.n_kv_heads % tp):
+        error(f"n_heads {cfg.n_heads}/n_kv_heads {cfg.n_kv_heads} not "
+              f"divisible by --tp {tp}")
+    if args.sp_impl == "ulysses" and (cfg.n_heads // tp) % sp:
+        error(f"n_heads per tp shard ({cfg.n_heads // tp}) not divisible "
+              f"by --sp (use --sp-impl ring)")
+    return dp, fsdp, sp, tp
+
+
 def mesh_shape(args: argparse.Namespace, world: int) -> tuple[int, int, int]:
     """(dp, fsdp, tp) from the flags: all three given (parse_args
     refuses some without the others) and their product the world size,
@@ -188,8 +240,8 @@ def build_config(args: argparse.Namespace, device: torch.device,
     resolves, as in the JAX entry, to the richest save_attn tier whose
     residuals fit the device's memory (the card's total memory on cuda,
     auto_remat_policy's default 16 GiB on the CPU), with the params and
-    optimizer state divided by fsdp*tp and the tokens by dp*fsdp of the
-    mesh ``shape``."""
+    optimizer state divided by fsdp*tp and the tokens by dp*fsdp (times
+    --sp) of the mesh ``shape``."""
     on_cuda = device.type == "cuda"
     kw = dict(max_seq_len=args.seq_len)
     if args.model != "flagship":
@@ -206,7 +258,7 @@ def build_config(args: argparse.Namespace, device: torch.device,
     if args.remat_policy != "auto":
         return dataclasses.replace(cfg, remat_policy=args.remat_policy)
     dp, fsdp, tp = shape
-    state_shards, token_shards = fsdp * tp, dp * fsdp
+    state_shards, token_shards = fsdp * tp, dp * fsdp * max(args.sp, 1)
     hbm = {} if not on_cuda else dict(
         hbm_gb=torch.cuda.get_device_properties(device).total_memory / 2 ** 30)
     policy = llama.auto_remat_policy(cfg, args.batch_size, args.seq_len,
@@ -224,17 +276,33 @@ def main(argv=None) -> int:
     rank, world = maybe_init_distributed(device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    dp, fsdp, tp = shape = mesh_shape(args, world)
+    if args.sp:
+        dp, fsdp, sp, tp = sp_mesh_shape(args, world, MODELS[args.model]())
+        shape = (dp, fsdp, tp)
+    else:
+        dp, fsdp, tp = shape = mesh_shape(args, world)
     cfg = build_config(args, device, shape, rank, world)
-    mesh = make_mesh(dp, fsdp, tp, device)
-    print(f"[worker {rank}/{world}] mesh dp={dp} fsdp={fsdp} tp={tp} "
-          f"over {world} device(s)", flush=True)
+    if args.sp:
+        mesh = make_sp_mesh(dp, sp, fsdp=fsdp, tp=tp, device=device)
+        print(f"[worker {rank}/{world}] sequence-parallel mesh dp={dp} "
+              f"fsdp={fsdp} sp={sp} tp={tp} ({args.sp_impl}) over {world} "
+              f"device(s)", flush=True)
+    else:
+        mesh = make_mesh(dp, fsdp, tp, device)
+        print(f"[worker {rank}/{world}] mesh dp={dp} fsdp={fsdp} tp={tp} "
+              f"over {world} device(s)", flush=True)
     model = sharded_init(cfg, mesh, seed=0)
     optimizer = adamw(model, args.lr, weight_decay=0.1)
     state = TrainState(model, optimizer)
-    step_fn = make_train_step(cfg, model, optimizer, mesh=mesh,
-                              chunked_ce=args.chunked_ce,
-                              ce_chunk=args.ce_chunk)
+    if args.sp:
+        step_fn = make_sp_train_step(cfg, model, optimizer, mesh=mesh,
+                                     impl=args.sp_impl,
+                                     chunked_ce=args.chunked_ce,
+                                     ce_chunk=args.ce_chunk)
+    else:
+        step_fn = make_train_step(cfg, model, optimizer, mesh=mesh,
+                                  chunked_ce=args.chunked_ce,
+                                  ce_chunk=args.ce_chunk)
     lead = rank == 0
     if lead:
         print(f"model {args.model}: {llama.n_params(cfg)} params, "

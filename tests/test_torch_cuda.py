@@ -185,6 +185,69 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
         assert err <= TOL[dtype] * b.abs().max().item() + 1e-3, err
 
 
+TOL[torch.float16] = 1e-2
+
+
+@pytest.mark.parametrize("route", ["fused", "two_kernel"])
+@pytest.mark.parametrize("dtype,D,hopper", [
+    (torch.float16, 64, False), (torch.float16, 128, False),
+    (torch.float16, 256, False), (torch.float16, 80, False),
+    (torch.bfloat16, 96, True), (torch.bfloat16, 48, True),
+    (torch.bfloat16, 256, False), (torch.bfloat16, 200, False),
+    (torch.float32, 96, False)])
+def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype, D,
+                                         hopper):
+    """fp16 through the WMMA kernels, and head dims between the kernels'
+    ones zero-padded to the next (D 256 for the 16-bit types through the
+    WMMA kernels), against autograd through the f32 plain forward at the
+    true D, with exact launch counts (GQA H4 / Hk2, ragged T)."""
+    if route == "two_kernel":
+        monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    got, want, launched = _flash_case(cuda, 2, 200, 4, 2, D, True, dtype,
+                                      False)
+    assert launched == _want(hopper, two=route == "two_kernel")
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL[dtype] * b.abs().max().item() + 1e-3, err
+
+
+@pytest.mark.parametrize("route", ["fused", "two_kernel"])
+@pytest.mark.parametrize("dtype,D,hopper", [(torch.bfloat16, 64, True),
+                                            (torch.float16, 64, False)])
+def test_flash_batch_heads_past_the_grid_y_limit(cuda, monkeypatch, route,
+                                                 dtype, D, hopper):
+    """B * H = 65,536 (one past a grid's y limit): every kernel runs it on
+    its one-dimensional grid, the last heads as right as the first."""
+    if route == "two_kernel":
+        monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    got, want, launched = _flash_case(cuda, 4096, 65, 16, 8, D, True, dtype,
+                                      False)
+    assert launched == _want(hopper, two=route == "two_kernel")
+    for a, b in zip(got, want):
+        for part in (slice(0, 8), slice(-8, None)):
+            x, y = a[part].float(), b[part].float()
+            err = (x - y).abs().max().item()
+            assert err <= TOL[dtype] * y.abs().max().item() + 1e-3, err
+
+
+def test_sm90_dkv_forms_ds_from_f32_p(cuda):
+    """The Hopper B4 forms dS from the f32 P, as the WMMA B4 does: against
+    the f32 plain version its dk error is no larger than the WMMA B4's
+    on the same inputs (bf16, T2048, GQA 16 / 4), beyond summation
+    order."""
+    args = _bwd_args(cuda, 1, 2048, 16, 4, 128, torch.bfloat16)
+    ref = fa._flash_bwd_dkv_reference(*(x.float() if torch.is_tensor(x)
+                                        and x.dtype == torch.bfloat16
+                                        else x for x in args))
+    errs = {}
+    for name, kernel in (("sm90", fa.BWD_DKV_SM90_KERNEL),
+                         ("wmma", fa.BWD_DKV_KERNEL)):
+        dk, _ = fa._flash_bwd_dkv_cuda(*args, kernel=kernel)
+        errs[name] = (dk - ref[0]).abs().max().item()
+    assert errs["sm90"] <= 1.5 * errs["wmma"], errs
+
+
 def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
     """Backward-kernel arguments from the forward kernel's lse and the
     delta of its out."""
@@ -273,3 +336,38 @@ def test_train_llama_tiny_on_cuda(cuda, capsys):
     after = kernels.launch_counts()
     assert all(after[n] > before[n] for n in ("flash_fwd", "flash_bwd",
                                               "rms_norm_fwd"))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "zigzag"])
+def test_ring_loopback_through_the_kernels(cuda, layout):
+    """The ring of 4 virtual ranks on the card (bf16, GQA 8 / 4, T1024):
+    every chunk pair through B1 and the fused B2 (256-row chunks, 128-row
+    halves), exactly the pairs the ring computes, against autograd
+    through the f32 dense path over the whole sequence."""
+    ra = importlib.import_module(
+        "pytorch_operator_tpu_torch.parallel.ring_attention")
+    B, T, H, Hk, D, n = 1, 1024, 8, 4, 64, 4
+
+    def r(h):
+        return torch.randn(B, T, h, D, generator=cuda,
+                           device="cuda").bfloat16()
+
+    q, k, v, g = r(H), r(Hk), r(Hk), r(H)
+    xs = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = _launches()
+    out = ra.ring_attention_loopback(*xs, n, causal=True, layout=layout)
+    out.backward(g)
+    torch.cuda.synchronize()
+    pairs = ra.ring_launches(n, True, "zigzag_pre" if layout == "zigzag"
+                             else layout)
+    want = {name: 0 for name in FLASH_KERNELS}
+    want.update(flash_fwd_sm90=pairs, flash_bwd_sm90=pairs)
+    assert {name: c - before[name] for name, c in _launches().items()} \
+        == want
+    ref = [x.float().requires_grad_(True) for x in (q, k, v)]
+    dense = fa._dense_path(*ref, D ** -0.5, True)
+    dense.backward(g.float())
+    for a, b in zip([out] + [x.grad for x in xs],
+                    [dense] + [x.grad for x in ref]):
+        err = (a.float() - b).abs().max().item()
+        assert err <= TOL[torch.bfloat16] * b.abs().max().item() + 1e-3, err

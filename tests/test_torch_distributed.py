@@ -18,6 +18,7 @@ import pytest
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import init_device_mesh
+from torch.distributed.fsdp import fully_shard
 from torch.distributed.tensor import Replicate, Shard, distribute_tensor
 
 import torch_dist_workers as workers
@@ -153,12 +154,12 @@ class TestOneRank:
         ("save_attn+qkv+gateup+normed", False)])
     def test_sharded_step_at_one_rank_is_the_single_device_step(
             self, one_rank_group, remat_policy, chunked_ce):
-        """The (1, 1, 1) mesh runs FSDP2 over one rank: the same values
-        as the unsharded model and step (the path the card runs), also
-        under the remat tiers, whose recompute runs inside FSDP2's
-        hooks (the kernels' plain versions stand in on the CPU), and
-        with the chunked tied-head CE, which calls forward_hidden and
-        the embedding outside forward."""
+        """The (1, 1, 1) mesh runs the plain model (sharded_init leaves
+        FSDP2 out at one rank): the same values as the unsharded model
+        and step (the path the card runs), also under the remat tiers
+        (the kernels' plain versions stand in on the CPU), and with the
+        chunked tied-head CE, which calls forward_hidden and the
+        embedding outside forward."""
         cfg = llama.tiny(**CFG)
         if remat_policy:
             cfg = dataclasses.replace(cfg, remat=True, use_flash=True,
@@ -169,7 +170,7 @@ class TestOneRank:
         plain = llama.Llama(cfg, device="cpu",
                             generator=torch.Generator().manual_seed(7))
         for p, r in zip(sharded.parameters(), plain.parameters()):
-            assert torch.equal(p.full_tensor(), r)
+            assert torch.equal(llama.full_value(p), r)
         out = {}
         for name, model, m in (("sharded", sharded, mesh),
                                ("plain", plain, None)):
@@ -183,8 +184,11 @@ class TestOneRank:
                             metrics["grad_norm"].item()))
             out[name] = got
         np.testing.assert_allclose(out["sharded"], out["plain"], rtol=1e-6)
+        # a sharded model (here FSDP2 over the one rank) needs its mesh
+        fsdp = llama.Llama(cfg, device="meta")
+        fully_shard(fsdp, mesh=mesh["dp", "fsdp"])
         with pytest.raises(ValueError, match="needs its mesh"):
-            make_train_step(cfg, sharded, adamw(sharded))
+            make_train_step(cfg, fsdp, adamw(fsdp))
 
     def test_dtensor_reaching_a_kernel_wrapper_raises(self, one_rank_group):
         tmesh.make_mesh(1, 1, 1, "cpu")
@@ -232,8 +236,15 @@ def test_tp_plan_mirrors_the_jax_param_specs():
 
 @pytest.mark.parametrize("flag", ["--pp", "--sp"])
 def test_unported_layouts_raise(flag, capsys):
+    """--pp is not ported and raises; --sp is, and parses (its checks:
+    tests/test_torch_sp_cli.py)."""
+    argv = ["--device", "cpu", flag, "2"]
+    if flag == "--sp":
+        args = train_llama.parse_args(argv)
+        assert (args.sp, args.sp_impl) == (2, "ulysses")
+        return
     with pytest.raises(SystemExit):
-        train_llama.parse_args(["--device", "cpu", flag, "2"])
+        train_llama.parse_args(argv)
     assert "not ported yet" in capsys.readouterr().err
 
 

@@ -203,8 +203,9 @@ class TestWrappersRefuseWhatTheKernelsDoNotTake:
             rn.rms_norm_cuda(torch.ones(4, 8).half(), torch.ones(8).half(),
                              1e-5)
 
-    @pytest.mark.parametrize("dtype,D,exc", [(torch.float16, 64, TypeError),
-                                             (torch.bfloat16, 48, ValueError)])
+    @pytest.mark.parametrize("dtype,D,exc", [
+        (torch.float64, 64, TypeError), (torch.float32, 192, ValueError),
+        (torch.bfloat16, 320, ValueError), (torch.float16, 300, ValueError)])
     def test_flash_dtype_and_head_dim(self, dtype, D, exc):
         q = torch.ones(1, 8, 2, D, dtype=dtype)
         with pytest.raises(exc):

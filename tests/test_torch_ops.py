@@ -285,8 +285,9 @@ class TestTwoKernelDispatch:
     @pytest.mark.parametrize("D", [16, 32, 64, 128])
     def test_wrappers_pick_by_the_rule(self, monkeypatch, dtype, D):
         picked = []
-        monkeypatch.setattr(fa, "_checked_dims",
-                            lambda q, k, bh, tensors: fa._dims(q, k, bh))
+        monkeypatch.setattr(fa, "_checked_inputs",
+                            lambda q, k, bh, tensors: (fa._dims(q, k, bh),
+                                                       tensors))
         monkeypatch.setattr(fa, "_launch",
                             lambda kernel, *a: picked.append(kernel))
         q = torch.zeros(1, 8, 2, D, dtype=dtype)

@@ -8,6 +8,7 @@ the peak table, and ``with_step_profiler`` on the port's tiny step.
 
 import itertools
 import json
+import warnings
 
 import numpy as np
 import pytest
@@ -146,12 +147,38 @@ def test_wrap_with_a_fake_clock_times_each_call():
 
 
 def test_peak_table_and_flops():
+    """NVIDIA rows only: the H100 SXM and PCIe data-sheet peaks, the
+    nominal cpu row; any other kind (a TPU, another card) has no peak,
+    with one warning per kind, and never another device's figure."""
     assert tst.peak_flops_per_chip("NVIDIA H100 80GB HBM3") == 989e12
-    assert tst.peak_flops_per_chip("nvidia h100 pcie") == 989e12
-    for kind in ("TPU v5p chip", "TPU v5 lite", "TPU v4", "Radeon", "cpu"):
-        assert tst.peak_flops_per_chip(kind) == jst.peak_flops_per_chip(kind)
+    assert tst.peak_flops_per_chip("NVIDIA H100 PCIe") == 756e12
+    assert tst.peak_flops_per_chip("cpu") == 1e11
+    assert not any(k.startswith("tpu") for k in tst.PEAK_FLOPS_PER_CHIP)
+    for kind in ("TPU v5p chip", "TPU v4", "NVIDIA A100-SXM4-80GB",
+                 "Radeon"):
+        with pytest.warns(UserWarning, match="MFU is not reported"):
+            assert tst.peak_flops_per_chip(kind) is None
+        with warnings.catch_warnings():
+            warnings.simplefilter("error")  # once per kind
+            assert tst.peak_flops_per_chip(kind) is None
     assert tst.train_step_flops(10, 2, 3) == jst.train_step_flops(10, 2, 3)
     assert tst.device_kind("cpu") == "cpu"
+
+
+def test_unknown_card_has_no_mfu(monkeypatch):
+    """The profiler's summary on a card the table does not know: tokens/s
+    as usual, MFU None."""
+    monkeypatch.setattr(tst, "device_kind", lambda device: "NVIDIA L4")
+    monkeypatch.setattr(tst, "_warned_kinds", set())
+    prof = tst.StepProfiler(batch=4, seq_len=256, n_params=int(1e9),
+                            device="cpu")
+    with pytest.warns(UserWarning, match="NVIDIA L4"):
+        for t in (1.0, 0.5, 0.5):
+            rec = prof.observe(t)
+    assert rec.tokens_per_sec == pytest.approx(2048.0) and rec.mfu is None
+    summary = prof.summary()
+    assert summary["tokens_per_sec"] == pytest.approx(2048.0)
+    assert summary["mfu"] is None and prof.mfu() is None
 
 
 def test_with_step_profiler_on_the_port_step():

@@ -170,3 +170,147 @@ def restore_worker(rank, world, port, ckpt_dir, step, mesh_shape, out_path):
     if rank == 0:
         np.savez(out_path, step=state.step, **out)
     dist.destroy_process_group()
+
+
+def ring_worker(rank, world, port, in_path, out_path):
+    """For each case of the input file: this rank's chunk through the P2P
+    ring (``RingComm`` over the world, gloo), forward and backward; rank 0
+    also runs the loopback ring on the whole sequence in this process
+    (the same thread count).  Each rank writes its chunk's out, dq, dk
+    and dv; rank 0 the loopback's whole ones."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.parallel.ring_attention import (
+        RingComm,
+        ring_attention,
+        ring_attention_loopback,
+    )
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    data = np.load(in_path)
+    maybe_init_distributed("cpu")
+    comm = RingComm()
+    out = {}
+    for case in sorted({k.split("/")[0] for k in data.files}):
+        layout = str(data[f"{case}/layout"])
+        causal = bool(data[f"{case}/causal"])
+        q, k, v, g = (torch.from_numpy(data[f"{case}/{x}"])
+                      for x in ("q", "k", "v", "g"))
+        rows = (torch.from_numpy(data[f"{case}/perm"]) if
+                layout == "zigzag_pre" else torch.arange(q.shape[1]))
+        mine = rows.chunk(world)[rank]
+        xs = [x[:, mine].clone().requires_grad_(True) for x in (q, k, v)]
+        o = ring_attention(*xs, comm, causal=causal, layout=layout)
+        o.backward(g[:, mine])
+        for name, t in zip(("out", "dq", "dk", "dv"),
+                           (o, *(x.grad for x in xs))):
+            out[f"{case}/p2p/{name}"] = t.detach().numpy()
+        if rank == 0:
+            xs = [x[:, rows].clone().requires_grad_(True) for x in (q, k, v)]
+            o = ring_attention_loopback(*xs, world, causal=causal,
+                                        layout=layout)
+            o.backward(g[:, rows])
+            for name, t in zip(("out", "dq", "dk", "dv"),
+                               (o, *(x.grad for x in xs))):
+                out[f"{case}/loopback/{name}"] = t.detach().numpy()
+    np.savez(f"{out_path}.{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def ulysses_worker(rank, world, port, in_path, out_path):
+    """Ulysses through the model's sequence-parallel attention
+    (``llama.sp_attention``, with its minimal kv repeat) on this rank's
+    rows, forward and backward, for each case; each rank writes its
+    rows' out, dq, dk and dv."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    data = np.load(in_path)
+    maybe_init_distributed("cpu")
+    out = {}
+    for case in sorted({k.split("/")[0] for k in data.files}):
+        q, k, v, g = (torch.from_numpy(data[f"{case}/{x}"])
+                      for x in ("q", "k", "v", "g"))
+        cfg = llama.tiny(use_flash=bool(data[f"{case}/flash"]))
+        attn = llama.sp_attention(cfg, None, "ulysses")
+        xs = [x.chunk(world, 1)[rank].clone().requires_grad_(True)
+              for x in (q, k, v)]
+        o = attn(*xs)
+        o.backward(g.chunk(world, 1)[rank])
+        for name, t in zip(("out", "dq", "dk", "dv"),
+                           (o, *(x.grad for x in xs))):
+            out[f"{case}/{name}"] = t.detach().numpy()
+    np.savez(f"{out_path}.{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def sp_step_worker(rank, world, port, spec_path, out_path):
+    """The sequence-parallel step on the spec's (dp, fsdp, sp, tp) mesh
+    for each of the spec's impls: sharded_init against the unsharded
+    init, the JAX weights loaded and ``steps`` steps on the spec's global
+    batches; rank 0 writes the losses, grad norms and the first step's
+    full gradients of each impl."""
+    _rank_env(rank, world, port)
+    import dataclasses
+    import gc
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_sp_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, make_sp_train_step, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    data = np.load(spec["arrays"])
+    maybe_init_distributed("cpu")
+    dp, fsdp, sp, tp = spec["mesh"]
+    mesh = make_sp_mesh(dp, sp, fsdp=fsdp, tp=tp, device="cpu")
+    cfg = llama.tiny(**spec["cfg"])
+    if spec.get("remat_policy"):
+        cfg = dataclasses.replace(cfg, remat=True, use_flash=True,
+                                  remat_policy=spec["remat_policy"])
+    tree = {"embed": data["embed"], "final_norm": data["final_norm"],
+            "layers": {k[len("layers/"):]: data[k] for k in data.files
+                       if k.startswith("layers/")}}
+    res, grads = {}, {}
+    for impl in spec["impls"]:
+        model = sharded_init(cfg, mesh, seed=spec["init_seed"])
+        ref = llama.Llama(cfg, device="cpu", generator=torch.Generator(
+            ).manual_seed(spec["init_seed"]))
+        init_bitwise = all(
+            torch.equal(llama.full_value(p), r)
+            for p, r in zip(model.parameters(), ref.parameters()))
+        del ref
+        llama.load_jax_params(model, tree)
+        optimizer = adamw(model, spec["lr"], weight_decay=spec["wd"])
+        step = make_sp_train_step(cfg, model, optimizer, mesh=mesh,
+                                  impl=impl, chunked_ce=spec["chunked_ce"],
+                                  ce_chunk=spec["ce_chunk"])
+        state = TrainState(model, optimizer)
+        losses, norms = [], []
+        for i in range(spec["steps"]):
+            state, m = step(state, data[f"batch{i}"])
+            losses.append(m["loss"].item())
+            norms.append(m["grad_norm"].item())
+            if i == 0:
+                grads.update({f"grad/{impl}/{n}": _full(p.grad)
+                              for n, p in model.named_parameters()})
+        res[impl] = {"losses": losses, "norms": norms,
+                     "init_bitwise": init_bitwise,
+                     "dtensor": any(isinstance(p, DTensor)
+                                    for p in model.parameters())}
+        del model, optimizer, state, step
+        gc.collect()
+    if rank == 0:
+        np.savez(out_path, **grads)
+        with open(out_path + ".json", "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
