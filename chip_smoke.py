@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py            # every phase, needs one CUDA card
-    python3 chip_smoke.py --phases 13  # phase 1, then only those named
+    python3 chip_smoke.py    # every phase; needs a CUDA card (phase 13: two)
 
 Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
@@ -55,10 +54,13 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             wrapped in with_step_profiler: exact launch counts, losses
             within 2e-2 of phase 4's step by step, step time, device
             time and peak memory beside phase 4's, the profiler's
-            tokens/s and 6·N·B·T MFU beside this script's; then the host
-            profile, by function, of one step of the same model under
-            FSDP2 over the one rank (what sharded_init built there
-            before) beside the plain step's;
+            tokens/s and 6·N·B·T MFU beside this script's; then the
+            FSDP2 step on the card (the same model fully_shard-ed over
+            the one rank, as sharded_init wraps it where dp x fsdp holds
+            more than one): four steps whose losses must be within 2e-2
+            of the plain step's and whose launches must be the same, and
+            the host profile, by function, of its last step beside the
+            plain step's;
 9. resume   train_llama --model flagship --layers 2 at B2 x T2048 in a
             process that checkpoints at steps 2 and 4, a second process
             that restores step 4 and trains to step 6, and the same six
@@ -80,15 +82,22 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             without --sp: losses within 2e-2 step by step, exact launch
             counts, step time, tokens/s, MFU and peak memory;
 13. cards   only with more than one card visible (else one line says it
-            was skipped): train_llama under torch.distributed.run, one
-            process per card, Llama-2-7B at full width and depth 16, B1
-            x T32768: --sp 4 with ring, ring_zigzag and ulysses and --sp
-            1 on one card, then at B2 --fsdp 2 --sp 2 and --dp 2 --sp 2
-            (ring_zigzag); losses within 2e-2 of the last run's on the
-            same global batch step by step, the steady step time (median
-            after step 1, the profiled one), tokens/s, MFU and the NCCL
-            share of the profiled step's kernel time; then the flagship
-            at B4 x T2048 under --fsdp 2 --tp 2 and --dp 2 --fsdp 2.
+            was skipped): first the ring over NCCL, one spawned process
+            per card (up to 4) at phase 11's shape, contiguous and
+            zigzag_pre, on the trainer's backward route and the
+            two-kernel one: each rank's out, dq, dk and dv bit for bit
+            the loopback ring's chunk on the same inputs (the fused
+            route's dq, summed with f32 atomics, within one bf16 ulp)
+            and its chunk-pair launches; then train_llama under
+            torch.distributed.run, one process per card, Llama-2-7B at
+            full width and depth 16, B1 x T32768: --sp 4 with ring,
+            ring_zigzag and ulysses and --sp 1 on one card, then at B2
+            --fsdp 2 --sp 2 and --dp 2 --sp 2 (ring_zigzag); losses
+            within 2e-2 of the last run's on the same global batch step
+            by step, the steady step time (median after step 1, the
+            profiled one), tokens/s, MFU and the NCCL share of the
+            profiled step's kernel time; then the flagship at B4 x T2048
+            under --fsdp 2 --tp 2 and --dp 2 --fsdp 2.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -96,7 +105,6 @@ JSON line, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import argparse
 import contextlib
 import dataclasses
 import gc
@@ -1087,7 +1095,7 @@ def run_sharded_path(torch, main: dict) -> dict:
         res = run_path(torch, "sharded_path", llama.flagship(), MAIN["B"],
                        MAIN["T"], STEPS, expect, mesh=mesh)
         free_memory(torch)
-        host = profile_fsdp_host(torch, mesh)
+        host = profile_fsdp_host(torch, mesh, expect)
     finally:
         dist.destroy_process_group()
     diffs = [abs(a - b) for a, b in zip(res["losses"], main["losses"])]
@@ -1134,13 +1142,16 @@ def run_sharded_path(torch, main: dict) -> dict:
     return res
 
 
-def profile_fsdp_host(torch, mesh) -> dict:
-    """Where the host time of a step goes under FSDP2 over one rank: the
-    flagship wrapped as sharded_init did before it left FSDP2 out at one
-    rank (each Block, then the root, fully_shard-ed over (dp, fsdp)), one
-    profiled step after three, host time by function (the profiler's CPU
-    self time, FSDP2's record_function ranges beside aten's ops), beside
-    the plain step's on the same seed and batch."""
+def profile_fsdp_host(torch, mesh, expect) -> dict:
+    """The FSDP2 step on the card, and where its host time goes: the
+    flagship wrapped as sharded_init wraps it where dp x fsdp holds more
+    than one rank (each Block, then the root, fully_shard-ed over (dp,
+    fsdp)), here over the one rank; three steps and one profiled step,
+    host time by function (the profiler's CPU self time, FSDP2's
+    record_function ranges beside aten's ops), beside the plain step's
+    on the same seed and batch.  The FSDP2 step's losses must be within
+    2e-2 of the plain step's, step by step, and its launches ``expect``
+    a step."""
     import numpy as np
     from torch.distributed.fsdp import (
         fully_shard,
@@ -1148,6 +1159,7 @@ def profile_fsdp_host(torch, mesh) -> dict:
     )
     from torch.profiler import ProfilerActivity, profile
 
+    from pytorch_operator_tpu_torch import kernels
     from pytorch_operator_tpu_torch.models import llama
     from pytorch_operator_tpu_torch.parallel import train
 
@@ -1177,18 +1189,27 @@ def profile_fsdp_host(torch, mesh) -> dict:
         # of one rank holds the plain model
         step = train._make_step(model, opt, mesh, loss_fn)
         state = train.TrainState(model, opt)
+        losses = []
+        torch.cuda.synchronize()
+        kernels.reset_launches()
         for _ in range(3):
-            state, _ = step(state, batch)
+            state, m = step(state, batch)
+            losses.append(m["loss"])
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             t0 = time.perf_counter()
-            state, _ = step(state, batch)
+            state, m = step(state, batch)
             host_ms = (time.perf_counter() - t0) * 1e3
             torch.cuda.synchronize()
+        losses.append(m["loss"])
+        counts = kernels.launch_counts()
         rows = sorted(prof.key_averages(),
                       key=lambda e: -e.self_cpu_time_total)
         fsdp = [e for e in rows if e.key.startswith("FSDP")]
         out[name] = {
+            "losses": [float(x) for x in losses],
+            "launches_per_step": {k: counts[k] / len(losses)
+                                  for k in expect},
             "host_ms": host_ms,
             "profiled_self_cpu_ms": sum(e.self_cpu_time_total
                                         for e in rows) / 1e3,
@@ -1200,7 +1221,18 @@ def profile_fsdp_host(torch, mesh) -> dict:
         del model, opt, state, step, prof
         free_memory(torch)
     emit({"fsdp2_host_profile": out})
-    return {k: {"host_ms": v["host_ms"],
+    diffs = [abs(a - b) for a, b in zip(out["fsdp2"]["losses"],
+                                        out["plain"]["losses"])]
+    for name in out:
+        require(out[name]["launches_per_step"] == {
+            k: float(c) for k, c in expect.items()},
+            f"the {name} step launched {out[name]['launches_per_step']} "
+            f"a step, not {expect}")
+    require(all(map(math.isfinite, out["fsdp2"]["losses"]))
+            and max(diffs) <= 2e-2,
+            f"the FSDP2 step's losses off the plain step's: "
+            f"{out['fsdp2']['losses']} {out['plain']['losses']}")
+    return {k: {"losses": v["losses"], "host_ms": v["host_ms"],
                 "profiled_self_cpu_ms": v["profiled_self_cpu_ms"]}
             for k, v in out.items()}
 
@@ -1771,6 +1803,149 @@ def _nccl_share(trace_path: str) -> dict:
             "nccl_share": nccl / total if total else None}
 
 
+def _ring_nccl_worker(rank, n, port, out_dir) -> None:
+    """One rank of ``check_ring_nccl``: rank 0's seeded inputs broadcast
+    to all, then for each layout and backward route the ring through
+    ``RingComm`` (NCCL P2P) on this rank's chunk, and the loopback ring
+    of n virtual ranks on the whole sequence on this rank's card; its
+    result (JSON) goes to ``out_dir/<rank>.json``."""
+    import importlib
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    from pytorch_operator_tpu_torch import kernels
+
+    # the modules (the packages export their functions under these names)
+    fa = importlib.import_module("pytorch_operator_tpu_torch.ops."
+                                 "flash_attention")
+    ra = importlib.import_module("pytorch_operator_tpu_torch.parallel."
+                                 "ring_attention")
+
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank)
+    try:
+        B, T, H, D = (RING[x] for x in ("B", "T", "H", "D"))
+        x = torch.empty(4, B, T, H, D, dtype=torch.bfloat16, device=device)
+        if rank == 0:
+            x.copy_(torch.randn(x.shape, device=device, generator=(
+                torch.Generator(device=device).manual_seed(0))))
+        dist.broadcast(x, 0)
+        q, k, v, g = x.unbind(0)
+        fused_bytes = fa._FUSED_DQ_BYTES
+        res = {}
+        for layout in ra.LAYOUTS:
+            pairs = sum(len(ra._pairs(rank, (rank - s) % n, True, layout))
+                        for s in range(n))
+            for route, dq_bytes in (("default", fused_bytes),
+                                    ("two_kernel", 0)):
+                fa._FUSED_DQ_BYTES = dq_bytes
+                fused = fa._use_fused_bwd(T // n // (
+                    1 if layout == "contiguous" else 2), D)
+                mine = [t.chunk(n, 1)[rank].detach().requires_grad_(True)
+                        for t in (q, k, v)]
+                kernels.reset_launches()
+                out = ra.ring_attention(*mine, ra.RingComm(), causal=True,
+                                        layout=layout)
+                out.backward(g.chunk(n, 1)[rank])
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                whole = [t.detach().requires_grad_(True) for t in (q, k, v)]
+                ref = ra.ring_attention_loopback(*whole, n, causal=True,
+                                                 layout=layout)
+                ref.backward(g)
+                got = dict(zip(("out", "dq", "dk", "dv"),
+                               (out, *(t.grad for t in mine))))
+                want = dict(zip(("out", "dq", "dk", "dv"),
+                                (ref, *(t.grad for t in whole))))
+                case = {"fused_bwd": fused}
+                for name in got:
+                    a = got[name].detach().float()
+                    b = want[name].detach().chunk(n, 1)[rank].float()
+                    d = (a - b).abs()
+                    # the fused backward's dq sums with f32 atomics in an
+                    # order that changes from run to run: one bf16 ulp
+                    ulp = 2.0 ** -7 * torch.maximum(a.abs(), b.abs()) \
+                        + 1e-5 * b.abs().max()
+                    case[name] = {
+                        "bitwise": torch.equal(a, b),
+                        "unequal": int((d > 0).sum()),
+                        "max_abs_diff": float(d.max()),
+                        "within_one_ulp": bool((d <= ulp).all())}
+                syms = (("flash_bwd_sm90",) if fused else
+                        ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"))
+                want_counts = {s: 0 for s in FLASH_SYMBOLS}
+                want_counts.update({s: pairs for s in
+                                    ("flash_fwd_sm90",) + syms})
+                case["launches"] = {s: counts[s] for s in FLASH_SYMBOLS}
+                case["want_launches"] = want_counts
+                res[f"{layout}/{route}"] = case
+                del mine, whole, out, ref, got, want
+        fa._FUSED_DQ_BYTES = fused_bytes
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_ring_nccl(torch, n: int) -> dict:
+    """The ring over NCCL on n cards (one spawned process per card) at
+    phase 11's shape, contiguous and zigzag_pre, on the trainer's
+    backward route and on the two-kernel one: each rank's out, dq, dk
+    and dv against the loopback ring's chunk on the same inputs, bit for
+    bit (the same arithmetic in the same order; only the transport and
+    its stream ordering differ), but the fused route's dq (f32 atomics)
+    within one bf16 ulp; each rank's launches its chunk pairs."""
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    timeout = 300.0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(
+            _ring_nccl_worker, args=(n, _free_port(), tmp),
+            nprocs=n, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=5):
+                if time.perf_counter() - t0 > timeout:
+                    raise SmokeFailure(f"the NCCL ring took over {timeout} s")
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
+            raise SmokeFailure(f"the NCCL ring failed: {e}") from None
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"{r}.json")) as f:
+                ranks.append(json.load(f))
+    seconds = time.perf_counter() - t0
+    bad = []
+    for r, res in enumerate(ranks):
+        for case, c in res.items():
+            for name in ("out", "dq", "dk", "dv"):
+                exact = not (name == "dq" and c["fused_bwd"])
+                if not (c[name]["bitwise"] if exact
+                        else c[name]["within_one_ulp"]):
+                    bad.append(f"rank {r} {case} {name}: {c[name]}")
+            if c["launches"] != c["want_launches"]:
+                bad.append(f"rank {r} {case} launches {c['launches']}")
+    out = {"ranks": n, "backend": "nccl",
+           "shape": [RING[x] for x in ("B", "T", "H", "D")],
+           "seconds": seconds, "by_rank": ranks,
+           "check": "each rank's out, dq, dk, dv bit for bit the loopback "
+                    "ring's chunk; the fused backward's dq within one bf16 "
+                    "ulp (f32 atomics); chunk-pair launches on each rank"}
+    emit({"ring_nccl": out})
+    require(not bad, "the NCCL ring disagrees with the loopback: "
+                     + "; ".join(bad))
+    return out
+
+
 def run_cards(torch) -> dict | None:
     """Phase 13, with more than one card: train_llama under
     torch.distributed.run, one process per card.  Runs on one global
@@ -1786,6 +1961,7 @@ def run_cards(torch) -> dict | None:
                                   f"phase needs more than one"}})
         return None
     sp = min(cards, 4)
+    check_ring_nccl(torch, sp)
     T, L = 32768, CARDS_LAYERS
     long_argv = SP_ARGV + ["--layers", str(L), "--steps", str(CARDS_STEPS)]
     flag = ["--model", "flagship", "--batch-size", "4", "--seq-len", "2048",
@@ -1888,12 +2064,8 @@ KERNEL_INFO = {
 }
 
 
-PHASES = tuple(range(2, 14))
-
-
-def run(phases=PHASES) -> tuple[str, list[dict] | None]:
-    """Phase 1, then the given phases in order; returns the card and, when
-    every phase ran, the kernels' rows."""
+def run() -> tuple[str, list[dict]]:
+    """Every phase in order; returns the card and the kernels' rows."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1927,67 +2099,56 @@ def run(phases=PHASES) -> tuple[str, list[dict] | None]:
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    seconds, paths, errs, timing = {}, {}, {}, {}
-
-    def phase(name, *numbers):
-        return any(p in phases for p in numbers)
+    seconds, paths = {}, {}
 
     t = time.perf_counter()
-    if phase("kernels", 2):
-        fused = check_flash(torch, gen, FLASH_CASES, "fused")
-        check_two_kernel_route(torch, gen)
-        wmma = check_wmma_at_main(torch, gen)
-        # B3 and B4 run on the long path only: their errors at its shape
-        long = check_long_routes(torch, gen)
-        errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
-                "flash_fwd_sm90": fused["out"],
-                "flash_bwd_sm90": max(fused["dq"], fused["dkv"]), **wmma,
-                "flash_bwd_dq_sm90": long["sm90"]["dq"],
-                "flash_bwd_dkv_sm90": long["sm90"]["dkv"],
-                "flash_bwd_dq": long["wmma"]["dq"],
-                "flash_bwd_dkv": long["wmma"]["dkv"]}
-        seconds["kernels"] = time.perf_counter() - t
+    fused = check_flash(torch, gen, FLASH_CASES, "fused")
+    check_two_kernel_route(torch, gen)
+    wmma = check_wmma_at_main(torch, gen)
+    # B3 and B4 run on the long path only: their errors at its shape
+    long = check_long_routes(torch, gen)
+    errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
+            "flash_fwd_sm90": fused["out"],
+            "flash_bwd_sm90": max(fused["dq"], fused["dkv"]), **wmma,
+            "flash_bwd_dq_sm90": long["sm90"]["dq"],
+            "flash_bwd_dkv_sm90": long["sm90"]["dkv"],
+            "flash_bwd_dq": long["wmma"]["dq"],
+            "flash_bwd_dkv": long["wmma"]["dkv"]}
+    seconds["kernels"] = time.perf_counter() - t
     t = time.perf_counter()
-    if phase("timing", 3):
-        timing = time_kernels(torch, gen)
-        timing.update(time_long_kernels(torch, gen))
-        seconds["timing"] = time.perf_counter() - t
+    timing = time_kernels(torch, gen)
+    timing.update(time_long_kernels(torch, gen))
+    seconds["timing"] = time.perf_counter() - t
     t = time.perf_counter()
-    if phase("paths", 4, 5, 6, 7):
-        paths["main_path"] = run_main_path(torch)
-        check_tiny_model(torch)
-        free_memory(torch)
-        paths["long_path"] = run_long_path(torch)
-        free_memory(torch)
-        run_long_cli(torch)
-        check_remat_tiers(torch)
-        seconds["paths"] = time.perf_counter() - t
+    paths["main_path"] = run_main_path(torch)
+    check_tiny_model(torch)
+    free_memory(torch)
+    paths["long_path"] = run_long_path(torch)
+    free_memory(torch)
+    run_long_cli(torch)
+    check_remat_tiers(torch)
+    seconds["paths"] = time.perf_counter() - t
     t = time.perf_counter()
-    if phase("distributed", 8, 9, 10):
-        free_memory(torch)
-        paths["sharded_path"] = run_sharded_path(torch, paths["main_path"])
-        free_memory(torch)
-        run_checkpoint_resume(torch)
-        run_mnist(torch)
-        seconds["distributed"] = time.perf_counter() - t
+    free_memory(torch)
+    paths["sharded_path"] = run_sharded_path(torch, paths["main_path"])
+    free_memory(torch)
+    run_checkpoint_resume(torch)
+    run_mnist(torch)
+    seconds["distributed"] = time.perf_counter() - t
     t = time.perf_counter()
-    if phase("sequence parallel", 11, 12):
-        free_memory(torch)
-        ring = check_ring(torch, gen)
-        paths["ring_loopback"] = {"launches": {
-            s: ring["contiguous"]["launches"].get(s, 0)
-            + ring["zigzag"]["launches"].get(s, 0)
-            for s in KERNEL_INFO}}
-        paths["sp_path"] = run_sp_trainer(torch)
-        seconds["sequence_parallel"] = time.perf_counter() - t
+    free_memory(torch)
+    ring = check_ring(torch, gen)
+    paths["ring_loopback"] = {"launches": {
+        s: ring["contiguous"]["launches"].get(s, 0)
+        + ring["zigzag"]["launches"].get(s, 0)
+        for s in KERNEL_INFO}}
+    paths["sp_path"] = run_sp_trainer(torch)
+    seconds["sequence_parallel"] = time.perf_counter() - t
     t = time.perf_counter()
-    if phase("cards", 13):
-        free_memory(torch)
-        run_cards(torch)
-        seconds["cards"] = time.perf_counter() - t
+    free_memory(torch)
+    run_cards(torch)
+    seconds["cards"] = time.perf_counter() - t
     emit({"phase_seconds": seconds})
-    if tuple(phases) != PHASES:
-        return card, None
 
     rows = []
     for symbol, (short, src, replaces) in KERNEL_INFO.items():
@@ -2019,32 +2180,16 @@ def run(phases=PHASES) -> tuple[str, list[dict] | None]:
     return card, rows
 
 
-def main(argv=None) -> int:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument(
-        "--phases", default=",".join(map(str, PHASES)),
-        help="the phases to run after phase 1 (card and build), as "
-             "comma-separated numbers; default every one.  The kernels "
-             "line is printed only when every phase ran")
-    args = parser.parse_args(argv)
+def main() -> int:
     try:
-        phases = tuple(sorted({int(p) for p in args.phases.split(",")}))
-    except ValueError:
-        parser.error(f"--phases takes numbers, got {args.phases!r}")
-    if not set(phases) <= set(PHASES):
-        parser.error(f"--phases takes numbers in 2..13, got {phases}")
-    if 8 in phases and 4 not in phases:
-        parser.error("phase 8 compares with phase 4's run: name both")
-    try:
-        card, rows = run(phases)
+        card, rows = run()
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr, flush=True)
         return 1
     import torch
 
     print(card, flush=True)
-    if rows is not None:
-        emit({"kernels": rows})
+    emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -19,8 +19,9 @@ as the JAX axes:
         sharded (DTensor, ``llama.param_specs``)
 
 tp is the innermost dim (its collectives run every layer), sp next, dp
-the outermost.  A batch is split over the data dims (dp, fsdp) that
-divide it and shared by the sp and tp ranks (``local_rows``).
+the outermost.  A batch is split over the data dims (dp, fsdp) and
+shared by the sp and tp ranks (``local_rows``); the sequence-parallel
+step keeps only the data dims that divide it, as the JAX ``forward_sp``.
 ``batch_spec`` has no counterpart: ``local_rows`` is its layout.
 """
 
@@ -166,10 +167,18 @@ def data_coordinate(mesh: DeviceMesh,
     return index, count
 
 
-def local_rows(batch: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+def local_rows(batch: torch.Tensor, mesh: DeviceMesh, *,
+               drop: bool = False) -> torch.Tensor:
     """This rank's rows of the global batch: ``[r·B/n, (r+1)·B/n)`` for
-    its coordinate r of n on the data dims that divide B
-    (``batch_spec``'s layout, with ``data_axes``' drop)."""
-    r, n = data_coordinate(mesh, batch.shape[0])
-    rows = batch.shape[0] // n
+    its coordinate r of n on the data dims (``batch_spec``'s layout).
+    Those are (dp, fsdp), whose product must divide B, as the JAX mesh
+    step's input sharding requires; with ``drop`` (the sequence-parallel
+    step, as the JAX ``forward_sp``) the data dims that divide B
+    (``data_axes(mesh, B)``)."""
+    B = batch.shape[0]
+    r, n = data_coordinate(mesh, B if drop else None)
+    if B % n:
+        raise ValueError(f"global batch {B} is not divisible by dp*fsdp "
+                         f"= {n}")
+    rows = B // n
     return batch[r * rows:(r + 1) * rows]

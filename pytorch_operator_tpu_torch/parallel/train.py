@@ -239,10 +239,12 @@ def _check_step_args(cfg, model, mesh, ce_chunk) -> None:
                          "and a mesh needs sharded_init's model")
 
 
-def _make_step(model, optimizer, mesh, loss_fn, after_backward=None):
+def _make_step(model, optimizer, mesh, loss_fn, after_backward=None,
+               drop=False):
     """The step around ``loss_fn(local batch)``: this rank's rows of the
-    global batch, backward, ``after_backward()``, the global gradient
-    norm, AdamW and the loss averaged over the ranks."""
+    global batch (``local_rows(..., drop=drop)``), backward,
+    ``after_backward()``, the global gradient norm, AdamW and the loss
+    averaged over the ranks."""
     device = model.embed.device
     params = list(model.parameters())
 
@@ -253,7 +255,7 @@ def _make_step(model, optimizer, mesh, loss_fn, after_backward=None):
         if isinstance(batch, np.ndarray):
             batch = torch.from_numpy(batch)
         if mesh is not None:
-            batch = local_rows(batch, mesh)
+            batch = local_rows(batch, mesh, drop=drop)
         batch = batch.to(device=device, dtype=torch.long)
         optimizer.zero_grad(set_to_none=True)
         loss = loss_fn(batch)
@@ -292,8 +294,10 @@ def make_sp_train_step(
     (``make_sp_mesh``), for ``sharded_init``'s model on it.
 
     Every rank calls it with the same global (B, T+1) batch.  A rank
-    takes its rows over the data dims (``local_rows``) and, of those,
-    the T/sp sequence rows of its sp coordinate (``llama.sp_positions``:
+    takes its rows over the data dims that divide B (``local_rows`` with
+    ``drop``, as the JAX ``forward_sp``: at B=1 over fsdp 2 both fsdp
+    ranks take the one row) and, of those, the T/sp sequence rows of
+    its sp coordinate (``llama.sp_positions``:
     contiguous, or the zigzag slice for ``ring_zigzag``; the targets
     alike), and runs ``llama.forward_sp``: attention through the ring or
     the all-to-all over the mesh's sp dim (``impl``: ulysses, ring,
@@ -338,7 +342,8 @@ def make_sp_train_step(
             work.wait()
             g /= sp
 
-    return _make_step(model, optimizer, mesh, loss_fn, average_over_sp)
+    return _make_step(model, optimizer, mesh, loss_fn, average_over_sp,
+                      drop=True)
 
 
 # ---------------------------------------------------------------------------

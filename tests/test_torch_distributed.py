@@ -337,6 +337,9 @@ def test_sharded_step_matches_jax_mesh_step(shape, chunked_ce, tmp_path):
     grads = dict(np.load(out))
 
     assert res["init_bitwise"], "sharded_init differs from the unsharded init"
+    n = shape[0] * shape[1]
+    assert res["refusal"] == (f"global batch 1 is not divisible by "
+                              f"dp*fsdp = {n}")
     # losses and grad norms: the JAX mesh step's and the single-device
     # port's within 1e-4 relative at every step -- Adam's first update is
     # about lr * sign(g), so a near-zero gradient whose sign differs

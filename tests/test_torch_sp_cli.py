@@ -7,7 +7,8 @@ batch drop and the flash wrappers' new inputs, on the CPU.
 - At world size 1 the mesh step is the plain one (no FSDP2, no DTensor)
   and bitwise equal to it.
 - ``data_axes`` drops the trailing data dims that do not divide the
-  batch, as the JAX function does.
+  batch, as the JAX function does; ``local_rows`` applies the drop for
+  the sequence-parallel step only, and otherwise refuses such a batch.
 - Head dims between the kernels' ones and fp16: the plain path against
   JAX ``flash_attention``, and the zero padding the CUDA wrappers apply
   changing nothing.
@@ -191,10 +192,20 @@ def test_data_axes_drop_matches_jax(sizes, B):
         a for a in ("dp", "fsdp") if a in sizes)
     rows = torch.arange(B * 3).view(B, 3)
     n = int(np.prod([sizes[a] for a in want]))
-    mine = tmesh.local_rows(rows, mesh)
+    mine = tmesh.local_rows(rows, mesh, drop=True)
     assert mine.shape[0] == B // n
     # the last coordinate on every kept dim takes the last rows
     assert torch.equal(mine, rows[B - B // n:])
+    # without the drop (the plain mesh step) every data dim splits B, or
+    # the batch is refused
+    full = int(np.prod([sizes[a] for a in ("dp", "fsdp")]))
+    if B % full:
+        with pytest.raises(ValueError, match=f"not divisible by dp\\*fsdp "
+                                             f"= {full}"):
+            tmesh.local_rows(rows, mesh)
+    else:
+        assert torch.equal(tmesh.local_rows(rows, mesh),
+                           rows[B - B // full:])
 
 
 @pytest.mark.parametrize("sizes,axes,H,Hk", [

@@ -123,6 +123,13 @@ def step_worker(rank, world, port, spec_path, out_path):
         norms.append(m["grad_norm"].item())
         if i == 0:
             grads = {n: _full(p.grad) for n, p in model.named_parameters()}
+    # one row does not split over dp*fsdp >= 2: the step refuses it, as
+    # the JAX mesh step's input sharding does
+    try:
+        step(state, data["batch0"][:1])
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
 
     sizes = {}
     for n, p in model.named_parameters():
@@ -138,7 +145,7 @@ def step_worker(rank, world, port, spec_path, out_path):
         np.savez(out_path, **{f"grad/{n}": g for n, g in grads.items()})
         with open(out_path + ".json", "w") as f:
             json.dump({"losses": losses, "norms": norms, "sizes": sizes,
-                       "init_bitwise": init_bitwise}, f)
+                       "init_bitwise": init_bitwise, "refusal": refusal}, f)
     dist.destroy_process_group()
 
 
