@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py    # every phase; needs a CUDA card (phase 13: two)
 
+The phases run in the order 1-12, 14, 13.
+
 Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
 1. card     nvidia-smi's name and power limit, the device name, and the
@@ -12,7 +14,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             card: the fused backward's route at the main path's shapes
             (plus GQA, T=1, a ragged T, non-causal, D=64/16, f32, the
             (BH, T, D) flash_with_lse layout, fp16, head dims 48/96/200
-            zero-padded to the kernels' 64/128/256, D 256 and B*H =
+            zero-padded to the kernels' 64/128/256, D 256 in fp16, bf16
+            and f32 (the WMMA kernels' 32-row f32 tiles) and B*H =
             65,536), the two-kernel route (dq, then dk/dv) at T4096 and
             on the same variety with the route forced; the WMMA forward
             and fused backward, which bf16 at D 64/128 no longer
@@ -31,7 +34,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             the Hopper flash kernels and their WMMA predecessors on the
             same inputs in turns (new, old, old, new), the forward also
             at T16384, B3 and B4 at T16384; the fused backward against
-            B3 + B4 at T8192 and T16384;
+            B3 + B4 at T8192 and T16384; fp16 and f32 at D 256 and bf16
+            at D 96 (padded) at T2048, forward beside SDPA;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -97,7 +101,27 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             by step, the steady step time (median after step 1, the
             profiled one), tokens/s, MFU and the NCCL share of the
             profiled step's kernel time; then the flagship at B4 x T2048
-            under --fsdp 2 --tp 2 and --dp 2 --fsdp 2.
+            under --fsdp 2 --tp 2 and --dp 2 --fsdp 2.  The pipeline:
+            one process per card runs it over NCCL P2P and the loopback
+            on the same inputs (phase 14's width, two layers a stage),
+            both schedules: each rank's layer outputs, input and
+            parameter gradients and loss bit for bit the loopback's;
+            with four cards reshard_state over NCCL (the flagship from
+            fsdp 4 to fsdp 2 x tp 2 and back, bit for bit, and the step
+            after it bit for bit the step of a state built there); then
+            train_llama --pp 4 at Llama-2-7B's full depth of 32, B8 x
+            T4096 in 8 microbatches, each schedule (losses within 2e-2,
+            step time, tokens/s, MFU, each rank's peak memory and
+            launches, rank 0's idle share beside the ideal bubble), and
+            --layers 8 --pp 4 beside phase 14's run without --pp;
+14. pipe    (runs before 13) Llama-2-7B's full width at depth 8: the
+            loopback pipeline of 4 virtual stages (make_pp_train_step,
+            mesh=None) under GPipe and 1F1B beside the same model
+            unpipelined, B4 x T4096 in 4 microbatches, 4 steps: losses
+            within 2e-2, exact launches per step, step time, peak memory
+            (1F1B's below GPipe's); then train_llama --layers 8 --pp 1
+            --microbatches 4 under each schedule beside train_llama
+            without --pp.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -145,6 +169,16 @@ SP_ARGV = ["--model", "7b", "--batch-size", "1", "--seq-len", "32768",
            "--log-interval", "1"]
 SP_LAYERS, SP_STEPS = 4, 4
 CARDS_LAYERS, CARDS_STEPS = 16, 6
+# phase 14: the pipeline at Llama-2-7B's full width, depth cut to 8 (two
+# layers a stage), B4 x T4096 in 4 microbatches of one sequence, no
+# remat; phase 13 adds the full depth of 32 over 4 cards (B8, 8
+# microbatches)
+PIPE = dict(L=8, S=4, B=4, T=4096, M=4, steps=4)
+PIPE_ARGV = ["--model", "7b", "--no-remat", "--seq-len", "4096",
+             "--log-interval", "1"]
+PIPE_CARDS = dict(L=32, B=8, M=8, steps=5)
+# the WMMA kernels' f32 products run in TF32 (H100 SXM data sheet, dense)
+PEAK_TF32_FLOPS = 495e12
 
 
 class SmokeFailure(Exception):
@@ -272,9 +306,10 @@ def timing_row(kernel: dict, plain: dict, library: dict | None) -> dict:
             "profiles": {k: v and v["profiles"] for k, v in t.items()}}
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -344,6 +379,10 @@ FLASH_CASES = {
     "d48_padded_non_causal": (2, 333, 8, 2, 48, False, False, BF16),
     "d200_padded_bh": (1, 500, 8, 4, 200, True, True, BF16),
     "bh65536": (4096, 65, 16, 8, 64, True, False, BF16),
+    # f32 at D 256 on the WMMA kernels' 32-row tiles (C3), and D 160
+    # padded to it
+    "f32_d256_gqa": (2, 1000, 8, 4, 256, True, False, F32),
+    "f32_d160_padded_bh": (1, 333, 8, 8, 160, False, True, F32),
 }
 
 # The two-kernel route: T4096 at the long path's heads, then the same
@@ -366,6 +405,8 @@ TWO_KERNEL_CASES = {
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
     "d256_bf16": (1, 1000, 8, 8, 256, True, False, BF16),
     "bh65536_fp16": (4096, 65, 16, 8, 64, True, False, F16),
+    "f32_d256": (1, 1000, 8, 8, 256, True, False, F32),
+    "f32_d256_gqa_ragged": (2, 333, 8, 2, 256, True, False, F32),
 }
 
 
@@ -422,7 +463,7 @@ def flash_launches(torch, dtype, D, two) -> dict:
     )
 
     dt = getattr(torch, dtype)
-    sm90 = _sm90(dt, _kernel_dim(D, dt))
+    sm90 = _sm90(dt, _kernel_dim(D))
     fused = not two
     return {"flash_fwd_sm90": int(sm90), "flash_fwd": int(not sm90),
             "flash_bwd_sm90": int(sm90 and fused),
@@ -937,6 +978,70 @@ def time_long_kernels(torch, gen) -> dict:
             "two_kernel_bound_ms": bound(0, 14 * D * pairs_t)[0]}
     emit({"timing": "fused_vs_two_kernel", **routes})
     res["routes"] = routes
+    return res
+
+
+# C3's cases at the main path's length: fp16 and f32 at D 256 (the WMMA
+# kernels; f32 on 32-row tiles) and bf16 at D 96, zero-padded to the
+# Hopper kernels' 128: (dtype, D, heads)
+C3_CASES = {"fp16_d256": (F16, 256, 8), "f32_d256": (F32, 256, 8),
+            "bf16_d96_padded": (BF16, 96, 16)}
+
+
+def time_c3_kernels(torch, gen) -> dict:
+    """Phase 3's C3 rows at B2 x T2048, causal: the forward and the fused
+    backward through their wrappers (the padding and slicing included),
+    each beside its plain version, its bound (at the true D; f32 against
+    the TF32 peak, in which its products run) and, for the forward,
+    SDPA's time on the same inputs."""
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _flash_bwd_cuda,
+        _flash_bwd_reference,
+        _flash_fwd_cuda,
+        _flash_fwd_reference,
+        _kernel_dim,
+        _sm90,
+    )
+
+    B, T = MAIN["B"], MAIN["T"]
+    slow = dict(warmup=1, iters=3, reps=3)
+    res = {}
+    for name, (dtype, D, H) in C3_CASES.items():
+        dt = getattr(torch, dtype)
+        q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False, dtype)
+        scale = D ** -0.5
+        pairs = B * H * causal_pairs(T, True)
+        io = B * T * H * D * dt.itemsize
+        peak = PEAK_TF32_FLOPS if dtype == F32 else PEAK_BF16_FLOPS
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        fwd = timed(lambda: _flash_fwd_cuda(q, k, v, scale, True, False),
+                    lambda: _flash_fwd_reference(q, k, v, scale, True,
+                                                 False),
+                    lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, is_causal=True), plain_kw=slow)
+        out, lse = _flash_fwd_cuda(q, k, v, scale, True, False)
+        args = (q, k, v, g, lse.reshape(B * H, T),
+                (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+                    B * H, T).contiguous(), scale, True, False)
+        bwd = timed(lambda: _flash_bwd_cuda(*args),
+                    lambda: _flash_bwd_reference(*args), None,
+                    plain_kw=slow)
+        res[name] = {
+            "shape": [B, T, H, H, D], "dtype": dtype,
+            "kernels": "hopper" if _sm90(dt, _kernel_dim(D)) else "wmma",
+            "kernel_dim": _kernel_dim(D),
+            "fwd": {**fwd, "library": "scaled_dot_product_attention",
+                    **dict(zip(("bound_ms", "bound_by"),
+                               bound(4 * io + B * H * T * 4, 4 * D * pairs,
+                                     peak)))},
+            "bwd": {**bwd, "library": None,
+                    **dict(zip(("bound_ms", "bound_by"),
+                               bound(7 * io + 2 * B * H * T * 4,
+                                     10 * D * pairs, peak)))}}
+        emit({"timing": f"c3_{name}", **res[name]})
+        del q, k, v, g, qt, kt, vt, out, lse, args
     return res
 
 
@@ -1787,6 +1892,208 @@ def run_sp_trainer(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 14: the pipeline on one card
+# --------------------------------------------------------------------------
+
+
+def pp_launches(L: int, M: int, S: int, schedule: str,
+                stage: int | None = None, two_kernel: bool = False) -> dict:
+    """Launches a step of the pipeline step, summed over every stage or
+    stage ``stage``'s, at T4096 (the fused backward, or B3 + B4 with
+    ``two_kernel``) without remat.  GPipe runs each layer once a
+    microbatch forward (two RMSNorms, one B1) and once backward, and the
+    last stage's final norm once a microbatch.  1F1B's stages 0..S-2 run
+    their L/S layers again in the backward tick (B1 and both RMSNorms
+    twice), while the last stage runs its layers once: its forward tick
+    would compute what no stage reads (the JAX stage does, as SPMD
+    must), so it only saves the input."""
+    per = L // S
+    fwd = rms = bwd = 0
+    for s in range(S) if stage is None else [stage]:
+        runs = 2 if schedule == "1f1b" and s < S - 1 else 1
+        fwd += M * per * runs
+        rms += M * 2 * per * runs + (M if s == S - 1 else 0)
+        bwd += M * per
+    counts = {k: 0 for k in FLASH_SYMBOLS}
+    counts.update({"rms_norm_fwd": rms, "flash_fwd_sm90": fwd})
+    if two_kernel:
+        counts.update({"flash_bwd_dq_sm90": bwd, "flash_bwd_dkv_sm90": bwd})
+    else:
+        counts["flash_bwd_sm90"] = bwd
+    return counts
+
+
+def _pp_batches(torch, cfg, B, steps):
+    """train_llama's batches: seeded by the step index."""
+    import numpy as np
+
+    return [torch.from_numpy(np.random.default_rng(i).integers(
+        0, cfg.vocab_size, (B, PIPE["T"] + 1))).cuda() for i in range(steps)]
+
+
+def pp_flops(cfg, B: int, T: int) -> float:
+    from pytorch_operator_tpu_torch.models import llama
+
+    return (6.0 * llama.n_params(cfg) * B * T
+            + 12.0 * cfg.n_layers * B * T * T * cfg.dim * 0.5)
+
+
+def run_pipeline_loopback(torch) -> dict:
+    """Phase 14, first half: make_pp_train_step through the loopback of
+    PIPE["S"] virtual stages (llama.pipeline_stages) under each schedule,
+    beside make_train_step on the same model unpipelined, on
+    train_llama's batches: each step's loss within 2e-2 of the
+    unpipelined one's, launches per step exactly pp_launches, step time
+    and peak memory; 1F1B's peak below GPipe's."""
+    from pytorch_operator_tpu_torch import kernels
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState,
+        adamw,
+        make_pp_train_step,
+        make_train_step,
+    )
+
+    L, S, B, T, M = (PIPE[x] for x in "LSBTM")
+    steps = PIPE["steps"]
+    cfg = llama.llama2_7b(n_layers=L, max_seq_len=T, use_flash=True,
+                          use_fused_norm=True, remat=False)
+    batches = _pp_batches(torch, cfg, B, steps)
+    flops = pp_flops(cfg, B, T)
+    res = {}
+    for name in ("plain", "gpipe", "1f1b"):
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        if name == "plain":
+            model = llama.Llama(cfg, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(0))
+            optimizer = adamw(model, 3e-4, weight_decay=0.1)
+            step = make_train_step(cfg, model, optimizer)
+            expect = {s: 0 for s in FLASH_SYMBOLS}
+            expect.update({"rms_norm_fwd": 2 * L + 1, "flash_fwd_sm90": L,
+                           "flash_bwd_sm90": L})
+        else:
+            model = llama.pipeline_stages(cfg, S, device="cuda", seed=0)
+            optimizer = adamw(model, 3e-4, weight_decay=0.1)
+            step = make_pp_train_step(cfg, model, optimizer,
+                                      n_microbatches=M, schedule=name)
+            expect = pp_launches(L, M, S, name)
+        state = TrainState(model, optimizer)
+        torch.cuda.synchronize()
+        kernels.reset_launches()
+        losses, times = [], []
+        for batch in batches:
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+        counts = kernels.launch_counts()
+        step_s = statistics.median(times[1:])
+        res[name] = {
+            "losses": losses, "step_ms_all": [t * 1e3 for t in times],
+            "step_ms": step_s * 1e3, "tokens_per_s": B * T / step_s,
+            "mfu": flops / step_s / PEAK_BF16_FLOPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts,
+            "launches_per_step": {k: counts[k] / steps for k in expect},
+            "want_launches_per_step": expect}
+        del model, optimizer, step, state
+    diffs = {name: max(abs(a - b) for a, b in zip(res[name]["losses"],
+                                                  res["plain"]["losses"]))
+             for name in ("gpipe", "1f1b")}
+    res.update({"model": f"llama2_7b width, {L} layers, {S} virtual "
+                         f"stages, B{B} x T{T}, {M} microbatches, no remat",
+                "model_tflops_per_step": flops / 1e12,
+                "max_loss_abs_diff": diffs,
+                "tolerance": "each step's loss within 2e-2 of the "
+                             "unpipelined step's (bf16; the microbatches' "
+                             "means summed in another order)"})
+    emit({"pipeline_loopback": res})
+    for name in ("plain", "gpipe", "1f1b"):
+        r = res[name]
+        require(all(map(math.isfinite, r["losses"]))
+                and r["launches_per_step"] == {
+                    k: float(v) for k, v in r["want_launches_per_step"].items()},
+                f"phase 14 {name}: losses {r['losses']} or launches per step "
+                f"{r['launches_per_step']} != {r['want_launches_per_step']}")
+    require(max(diffs.values()) <= 2e-2,
+            f"the loopback pipeline's losses are off the unpipelined "
+            f"step's: {diffs}")
+    require(res["1f1b"]["peak_mem_gib"] < res["gpipe"]["peak_mem_gib"],
+            "1F1B's peak memory is not below GPipe's")
+    return res
+
+
+def run_pipeline_cli(torch) -> dict:
+    """Phase 14, second half: train_llama --model 7b --layers 8 --pp 1
+    --microbatches 4 under each schedule beside train_llama without
+    --pp, in this process, every launch count reset just before and read
+    just after: losses within 2e-2, launches per step exact (a pipeline
+    of one stage runs the layers once a microbatch)."""
+    from pytorch_operator_tpu_torch import kernels, train_llama
+    from pytorch_operator_tpu_torch.models import llama
+
+    L, B, T, M = (PIPE[x] for x in "LBTM")
+    steps = PIPE["steps"]
+    argv = PIPE_ARGV + ["--layers", str(L), "--batch-size", str(B),
+                        "--steps", str(steps)]
+    flops = pp_flops(llama.llama2_7b(n_layers=L), B, T)
+    plain = {s: 0 for s in FLASH_SYMBOLS}
+    plain.update({"rms_norm_fwd": 2 * L + 1, "flash_fwd_sm90": L,
+                  "flash_bwd_sm90": L})
+    res = {}
+    for name, extra, expect in (
+            ("plain", [], plain),
+            ("pp1_gpipe", ["--pp", "1", "--microbatches", str(M),
+                           "--pp-schedule", "gpipe"],
+             pp_launches(L, M, 1, "gpipe")),
+            ("pp1_1f1b", ["--pp", "1", "--microbatches", str(M),
+                          "--pp-schedule", "1f1b"],
+             pp_launches(L, M, 1, "1f1b"))):
+        free_memory(torch)
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_llama.main(argv + extra)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        text = out.getvalue()
+        losses, step_times = _cli_steps(text, B * T)
+        step_s = statistics.median(step_times[1:])
+        res[name] = {
+            "argv": argv + extra, "rc": rc, "losses": losses,
+            "step_ms_all": [t * 1e3 for t in step_times],
+            "step_ms": step_s * 1e3, "tokens_per_s": B * T / step_s,
+            "mfu": flops / step_s / PEAK_BF16_FLOPS,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "launches": counts,
+            "launches_per_step": {k: counts[k] / steps for k in expect},
+            "want_launches_per_step": expect,
+            "output": text.splitlines()[:3]}
+        require(rc == 0 and "training complete" in text
+                and len(losses) == steps and all(map(math.isfinite, losses)),
+                f"train_llama {argv + extra} failed: {text}")
+    diffs = {name: max(abs(a - b) for a, b in zip(res[name]["losses"],
+                                                  res["plain"]["losses"]))
+             for name in ("pp1_gpipe", "pp1_1f1b")}
+    res.update({"max_loss_abs_diff": diffs,
+                "tolerance": "each step's loss within 2e-2 of the trainer "
+                             "without --pp (bf16)"})
+    emit({"pipeline_cli": res})
+    for name, r in res.items():
+        if isinstance(r, dict) and "launches_per_step" in r:
+            require(r["launches_per_step"] == {
+                k: float(v) for k, v in r["want_launches_per_step"].items()},
+                f"phase 14 {name}: launches per step "
+                f"{r['launches_per_step']} != {r['want_launches_per_step']}")
+    require(max(diffs.values()) <= 2e-2,
+            f"--pp 1 losses off the trainer without --pp: {diffs}")
+    return res
+
+
+# --------------------------------------------------------------------------
 # phase 13: several cards
 # --------------------------------------------------------------------------
 
@@ -1891,30 +2198,24 @@ def _ring_nccl_worker(rank, n, port, out_dir) -> None:
         dist.destroy_process_group()
 
 
-def check_ring_nccl(torch, n: int) -> dict:
-    """The ring over NCCL on n cards (one spawned process per card) at
-    phase 11's shape, contiguous and zigzag_pre, on the trainer's
-    backward route and on the two-kernel one: each rank's out, dq, dk
-    and dv against the loopback ring's chunk on the same inputs, bit for
-    bit (the same arithmetic in the same order; only the transport and
-    its stream ordering differ), but the fused route's dq (f32 atomics)
-    within one bf16 ulp; each rank's launches its chunk pairs."""
+def _on_cards(worker, n: int, what: str, timeout: float = 300.0) -> list:
+    """``worker(rank, n, port, out_dir)`` in one spawned process per card;
+    each rank's JSON result (``out_dir/<rank>.json``), or the phase
+    fails.  Processes still alive at the end are killed."""
     import tempfile
 
     import torch.multiprocessing as mp
 
-    timeout = 300.0
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        ctx = mp.start_processes(
-            _ring_nccl_worker, args=(n, _free_port(), tmp),
-            nprocs=n, join=False, start_method="spawn")
+        ctx = mp.start_processes(worker, args=(n, _free_port(), tmp),
+                                 nprocs=n, join=False, start_method="spawn")
         try:
             while not ctx.join(timeout=5):
                 if time.perf_counter() - t0 > timeout:
-                    raise SmokeFailure(f"the NCCL ring took over {timeout} s")
+                    raise SmokeFailure(f"{what} took over {timeout} s")
         except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
-            raise SmokeFailure(f"the NCCL ring failed: {e}") from None
+            raise SmokeFailure(f"{what} failed: {e}") from None
         finally:
             for p in ctx.processes:
                 if p.is_alive():
@@ -1923,6 +2224,19 @@ def check_ring_nccl(torch, n: int) -> dict:
         for r in range(n):
             with open(os.path.join(tmp, f"{r}.json")) as f:
                 ranks.append(json.load(f))
+    return ranks
+
+
+def check_ring_nccl(torch, n: int) -> dict:
+    """The ring over NCCL on n cards (one spawned process per card) at
+    phase 11's shape, contiguous and zigzag_pre, on the trainer's
+    backward route and on the two-kernel one: each rank's out, dq, dk
+    and dv against the loopback ring's chunk on the same inputs, bit for
+    bit (the same arithmetic in the same order; only the transport and
+    its stream ordering differ), but the fused route's dq (f32 atomics)
+    within one bf16 ulp; each rank's launches its chunk pairs."""
+    t0 = time.perf_counter()
+    ranks = _on_cards(_ring_nccl_worker, n, "the NCCL ring")
     seconds = time.perf_counter() - t0
     bad = []
     for r, res in enumerate(ranks):
@@ -1946,14 +2260,314 @@ def check_ring_nccl(torch, n: int) -> dict:
     return out
 
 
-def run_cards(torch) -> dict | None:
-    """Phase 13, with more than one card: train_llama under
-    torch.distributed.run, one process per card.  Runs on one global
-    batch form a group whose losses are held against its last run's."""
-    import tempfile
+def _pp_record(torch, stages, comm, batch, M, schedule) -> dict:
+    """``pipeline_value_and_grad`` of Llama stages with the pipeline
+    step's functions, recording per stage, in the order of its autograd
+    ticks, each output of its layers and the gradient of their input;
+    then its parameters' gradients (before the sum over the stages) and,
+    on the last stage, the loss."""
+    from pytorch_operator_tpu_torch.parallel.pipeline import (
+        PipeLoopback,
+        pipeline_value_and_grad,
+    )
+    from pytorch_operator_tpu_torch.parallel.train import cross_entropy_loss
+
+    index = {id(st): st.layer_ids.start // len(st.layer_ids)
+             for st in stages}
+    rec = {s: {"y": [], "dx": []} for s in index.values()}
+
+    def stage_fn(stage, x):
+        y = stage.run_layers(x)
+        if torch.is_grad_enabled():  # the run that is backpropagated
+            r = rec[index[id(stage)]]
+            r["y"].append(y.detach().clone())
+            x.register_hook(lambda g: r["dx"].append(g.detach().clone()))
+        return y
+
+    def last_fn(stage, y, targets):
+        logits = stage.head(y, return_hidden=True) @ stage.embed.t()
+        return cross_entropy_loss(logits.float(), targets) / M
+
+    loss = pipeline_value_and_grad(
+        lambda st, t: st.embed_tokens(t), stage_fn, last_fn,
+        stages if isinstance(comm, PipeLoopback) else stages[0],
+        batch[:, :-1], batch[:, 1:], comm, n_microbatches=M,
+        schedule=schedule)
+    for st in stages:
+        r = rec[index[id(st)]]
+        r["grads"] = {n: p.grad.clone() for n, p in st.named_parameters()
+                      if p.grad is not None}
+        r["loss"] = loss if index[id(st)] == comm.n - 1 else None
+    return rec
+
+
+def _same(a, b) -> dict:
+    """Bitwise comparison of two lists (or dicts) of tensors."""
+    if isinstance(a, dict):
+        keys_ok = sorted(a) == sorted(b)
+        a, b = [a[k] for k in sorted(a)], [b.get(k) for k in sorted(a)]
+    else:
+        keys_ok = len(a) == len(b)
+    unequal = sum(int((x != y).sum()) for x, y in zip(a, b)
+                  if y is not None and x.shape == y.shape)
+    return {"bitwise": keys_ok and all(
+        y is not None and x.shape == y.shape and bool((x == y).all())
+        for x, y in zip(a, b)), "tensors": len(a), "unequal": unequal}
+
+
+def _nccl_init(rank: int, n: int, port: int):
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, REPO)
+    device = torch.device("cuda", rank)
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            world_size=n, rank=rank)
+    return device
+
+
+def _pipe_nccl_worker(rank, n, port, out_dir) -> None:
+    """One rank of ``check_pipe_nccl``: rank 0's seeded batch broadcast
+    to all; for each schedule this rank's stage through ``PipeComm``
+    (NCCL P2P) and the loopback of every stage on this rank's card, with
+    the two-kernel backward (its dq has no atomics, so reruns give the
+    same bits); the comparison goes to ``out_dir/<rank>.json``."""
+    import importlib
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    device = _nccl_init(rank, n, port)
+    from pytorch_operator_tpu_torch import kernels
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_named_mesh
+    from pytorch_operator_tpu_torch.parallel.pipeline import (
+        SCHEDULES,
+        PipeComm,
+        PipeLoopback,
+    )
+    from pytorch_operator_tpu_torch.parallel.train import sharded_init
+
+    fa = importlib.import_module("pytorch_operator_tpu_torch.ops."
+                                 "flash_attention")
+    try:
+        fa._FUSED_DQ_BYTES = 0
+        L, B, T, M = 2 * n, PIPE["B"], PIPE["T"], PIPE["M"]
+        cfg = llama.llama2_7b(n_layers=L, max_seq_len=T, use_flash=True,
+                              use_fused_norm=True, remat=False)
+        mesh = make_named_mesh({"pp": n}, device)
+        comm = PipeComm(mesh["pp"].get_group())
+        batch = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, T + 1))).to(device)
+        dist.broadcast(batch, 0)
+        res = {}
+        for schedule in SCHEDULES:
+            stage = sharded_init(cfg, mesh, seed=0,
+                                 specs=llama.pp_param_specs(cfg, n))
+            torch.cuda.synchronize()
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            got = _pp_record(torch, [stage], comm, batch, M, schedule)[rank]
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            del stage
+            gc.collect()
+            stages = llama.pipeline_stages(cfg, n, device=device, seed=0)
+            want = _pp_record(torch, list(stages), PipeLoopback(n), batch, M,
+                              schedule)[rank]
+            del stages
+            case = {name: _same(got[name], want[name])
+                    for name in ("y", "dx", "grads")}
+            if got["loss"] is not None:
+                case["loss"] = {"p2p": float(got["loss"]),
+                                "loopback": float(want["loss"]),
+                                "bitwise": bool(torch.equal(got["loss"],
+                                                            want["loss"]))}
+            case["seconds"] = seconds
+            case["launches"] = {k: counts[k] for k in FLASH_SYMBOLS
+                                + ("rms_norm_fwd",)}
+            case["want_launches"] = pp_launches(L, M, n, schedule, stage=rank,
+                                                two_kernel=True)
+            res[schedule] = case
+            del got, want
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_pipe_nccl(torch, n: int) -> dict:
+    """The pipeline over NCCL on n cards (one spawned process per card)
+    at phase 14's width, two layers a stage, B4 x T4096 in 4
+    microbatches, both schedules: each rank's layer outputs, input
+    gradients, parameter gradients and (last rank) loss bit for bit the
+    loopback's on the same inputs, and each rank's launches its stage's
+    share."""
+    t0 = time.perf_counter()
+    ranks = _on_cards(_pipe_nccl_worker, n, "the NCCL pipeline")
+    seconds = time.perf_counter() - t0
+    bad = []
+    for r, res in enumerate(ranks):
+        for schedule, c in res.items():
+            for name in ("y", "dx", "grads", "loss"):
+                if name in c and not c[name]["bitwise"]:
+                    bad.append(f"rank {r} {schedule} {name}: {c[name]}")
+            if ("loss" in c) != (r == n - 1):
+                bad.append(f"rank {r} {schedule}: loss where none is due")
+            if c["launches"] != c["want_launches"]:
+                bad.append(f"rank {r} {schedule} launches {c['launches']}")
+    out = {"ranks": n, "backend": "nccl",
+           "shape": f"llama2_7b width, {2 * n} layers, B{PIPE['B']} x "
+                    f"T{PIPE['T']}, {PIPE['M']} microbatches",
+           "seconds": seconds, "by_rank": ranks,
+           "check": "each rank's layer outputs, input gradients, parameter "
+                    "gradients and loss bit for bit the loopback's "
+                    "(two-kernel backward); launches its stage's share"}
+    emit({"pipe_nccl": out})
+    require(not bad, "the NCCL pipeline disagrees with the loopback: "
+                     + "; ".join(bad))
+    return out
+
+
+def _reshard_nccl_worker(rank, n, port, out_dir) -> None:
+    """One rank of ``check_reshard_nccl`` (the two-kernel backward, so
+    that two steps on equal states give equal bits)."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    device = _nccl_init(rank, n, port)
+    import torch.distributed as dist
 
     from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState,
+        adamw,
+        make_train_step,
+        reshard_state,
+        sharded_init,
+    )
 
+    fa = importlib.import_module("pytorch_operator_tpu_torch.ops."
+                                 "flash_attention")
+
+    def gathered(state):
+        out = {}
+        for name, p in state.model.named_parameters():
+            out[f"model/{name}"] = llama.full_value(p).detach().clone()
+            for k, v in state.optimizer.state.get(p, {}).items():
+                out[f"optim/{name}/{k}"] = llama.full_value(v).detach(
+                    ).clone()
+        return out
+
+    try:
+        fa._FUSED_DQ_BYTES = 0
+        cfg = llama.flagship()
+        mesh4 = make_mesh(1, n, 1, device)
+        mesh22 = make_mesh(1, n // 2, 2, device)
+        batch = torch.from_numpy(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (4, MAIN["T"] + 1))).to(device)
+        model = sharded_init(cfg, mesh4, seed=0)
+        opt = adamw(model, 3e-4, weight_decay=0.1)
+        state, _ = make_train_step(cfg, model, opt, mesh=mesh4)(
+            TrainState(model, opt), batch)
+        del model, opt
+        first = gathered(state)
+        res = {"values": len(first)}
+        times = []
+        for name, mesh in (("fsdp4_to_fsdp2_tp2", mesh22),
+                           ("back_to_fsdp4", mesh4)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = reshard_state(state, cfg, mesh)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            res[name] = _same(first, gathered(state))
+        res["reshard_s"] = times
+        del state, first
+        gc.collect()
+        # one step from a resharded fresh state against one from a fresh
+        # state built on fsdp 2 x tp 2: the same values, the same layout
+        fresh = sharded_init(cfg, mesh4, seed=0)
+        moved = reshard_state(TrainState(fresh, adamw(fresh, 3e-4,
+                                                      weight_decay=0.1)),
+                              cfg, mesh22)
+        del fresh
+        model22 = sharded_init(cfg, mesh22, seed=0)
+        built = TrainState(model22, adamw(model22, 3e-4, weight_decay=0.1))
+        losses = []
+        for st in (moved, built):
+            st, m = make_train_step(cfg, st.model, st.optimizer,
+                                    mesh=mesh22)(st, batch)
+            losses.append(float(m["loss"]))
+        res["step_losses"] = losses
+        res["step_bitwise"] = _same(gathered(moved), gathered(built))
+        res["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_reshard_nccl(torch, n: int) -> dict:
+    """reshard_state over NCCL on n cards: the flagship after one AdamW
+    step (B4 x T2048) from fsdp n to fsdp n/2 x tp 2 and back, every
+    gathered parameter and moment bit for bit; then one step on fsdp
+    n/2 x tp 2 from a resharded fresh state, bit for bit the step of a
+    fresh state built on that mesh."""
+    t0 = time.perf_counter()
+    ranks = _on_cards(_reshard_nccl_worker, n, "reshard_state over NCCL")
+    out = {"ranks": n, "model": "flagship", "seconds":
+           time.perf_counter() - t0, "by_rank": ranks,
+           "check": "gathered params and AdamW moments bit for bit after "
+                    "each reshard; the step after a reshard bit for bit "
+                    "the step of a state built on the new mesh"}
+    emit({"reshard_nccl": out})
+    bad = [f"rank {r}: {res}" for r, res in enumerate(ranks)
+           if not (res["fsdp4_to_fsdp2_tp2"]["bitwise"]
+                   and res["back_to_fsdp4"]["bitwise"]
+                   and res["step_bitwise"]["bitwise"]
+                   and res["step_losses"][0] == res["step_losses"][1])]
+    require(not bad, "reshard_state over NCCL changed values: "
+                     + "; ".join(bad))
+    return out
+
+
+def _rank_reports(text: str) -> dict:
+    """Each rank's peak memory and launches from train_llama's output."""
+    return {int(r): {"peak_mem_gib": float(m), "launches": json.loads(c)}
+            for r, m, c in re.findall(
+                r"^\[worker (\d+)/\d+\] peak_mem_gib=(\S+) launches=(.*)$",
+                text, re.MULTILINE)}
+
+
+def pipeline_runs(n: int) -> list:
+    """Phase 13's pipeline trainers on n cards: Llama-2-7B at its full
+    depth under each schedule, then at phase 14's depth (GPipe)."""
+    PL, PB, PM, PS = (PIPE_CARDS[x] for x in ("L", "B", "M", "steps"))
+    pp_argv = PIPE_ARGV + ["--pp", str(n)]
+    runs = [(f"pp{n}_{sched}", n, pp_argv + [
+        "--microbatches", str(PM), "--batch-size", str(PB), "--steps",
+        str(PS), "--pp-schedule", sched], PB, PIPE["T"], PL, PS)
+        for sched in ("gpipe", "1f1b")]
+    runs.append((f"pp{n}_L{PIPE['L']}_gpipe", n, pp_argv + [
+        "--layers", str(PIPE["L"]), "--microbatches", str(PIPE["M"]),
+        "--batch-size", str(PIPE["B"]), "--steps", str(PIPE["steps"])],
+        PIPE["B"], PIPE["T"], PIPE["L"], PIPE["steps"]))
+    return runs
+
+
+def run_cards(torch, pipe_plain: dict | None = None) -> dict | None:
+    """Phase 13, with more than one card: the NCCL ring, pipeline and
+    reshard checks, then train_llama under torch.distributed.run, one
+    process per card (``train_runs``)."""
     cards = torch.cuda.device_count()
     if cards < 2:
         emit({"cards": {"skipped": True,
@@ -1962,58 +2576,114 @@ def run_cards(torch) -> dict | None:
         return None
     sp = min(cards, 4)
     check_ring_nccl(torch, sp)
+    check_pipe_nccl(torch, sp)
+    if cards >= 4:
+        check_reshard_nccl(torch, 4)
     T, L = 32768, CARDS_LAYERS
     long_argv = SP_ARGV + ["--layers", str(L), "--steps", str(CARDS_STEPS)]
     flag = ["--model", "flagship", "--batch-size", "4", "--seq-len", "2048",
             "--steps", str(CARDS_STEPS), "--log-interval", "1"]
-    # (label, processes, argv, global batch, sequence length)
+    # (label, processes, argv, global batch, sequence length, layers,
+    # steps)
     runs = [(f"sp{sp}_{impl}", sp, long_argv + ["--sp", str(sp),
-                                                "--sp-impl", impl], 1, T)
+                                                "--sp-impl", impl], 1, T, L,
+             CARDS_STEPS)
             for impl in ("ring", "ring_zigzag", "ulysses")]
     runs.append(("sp1_ring", 1, long_argv + ["--sp", "1", "--sp-impl",
-                                             "ring"], 1, T))
+                                             "ring"], 1, T, L, CARDS_STEPS))
     if cards >= 4:
         # the JAX entry's rule: dp * fsdp divides the batch
         runs += [(f"{mesh}_sp2_ring_zigzag", 4, long_argv + [
             f"--{mesh[:-1]}", "2", "--sp", "2", "--sp-impl", "ring_zigzag",
-            "--batch-size", "2"], 2, T) for mesh in ("fsdp2", "dp2")]
+            "--batch-size", "2"], 2, T, L, CARDS_STEPS)
+            for mesh in ("fsdp2", "dp2")]
         runs += [("flagship_fsdp2_tp2", 4, flag + ["--dp", "1", "--fsdp",
-                                                  "2", "--tp", "2"], 4, 2048),
+                                                  "2", "--tp", "2"], 4, 2048,
+                  16, CARDS_STEPS),
                  ("flagship_dp2_fsdp2", 4, flag + ["--dp", "2", "--fsdp",
                                                   "2", "--tp", "1"], 4,
-                  2048)]
+                  2048, 16, CARDS_STEPS)]
+    return train_runs(torch, runs + pipeline_runs(sp), pipe_plain)
+
+
+def train_runs(torch, runs: list, pipe_plain: dict | None = None) -> dict:
+    """train_llama under torch.distributed.run for each run (label,
+    processes, argv, global batch, sequence length, layers, steps).
+    Runs on one global batch form a group whose losses are held against
+    its last run's; the pipeline of phase 14's depth against phase 14's
+    run without --pp (``pipe_plain``), and the pipeline runs' per-rank
+    launches against ``pp_launches``."""
+    import tempfile
+
+    from pytorch_operator_tpu_torch.models import llama
+
+    cards = torch.cuda.device_count()
     res, groups = {"cards": cards}, {}
     with tempfile.TemporaryDirectory() as tmp:
-        for label, nproc, argv, B, Tr in runs:
+        for label, nproc, argv, B, Tr, layers, steps in runs:
             argv = argv + ["--profile-dir", os.path.join(tmp, label),
                            "--profile-steps", "1"]
             t0 = time.perf_counter()
             text = _trainer(argv, nproc=nproc)
             seconds = time.perf_counter() - t0
-            cfg = (llama.flagship() if label.startswith("flagship")
-                   else llama.llama2_7b(n_layers=L))
-            losses, steps = _cli_steps(text, B * Tr)
+            flagship = label.startswith("flagship")
+            cfg = (llama.flagship() if flagship
+                   else llama.llama2_7b(n_layers=layers))
+            losses, step_times = _cli_steps(text, B * Tr)
             # step 0 builds and warms up, step 1 is the profiled one
-            step_s = statistics.median(steps[2:])
+            step_s = statistics.median(step_times[2:])
             flops = (6.0 * llama.n_params(cfg) * B * Tr
                      + 12.0 * cfg.n_layers * B * Tr * Tr * cfg.dim * 0.5)
+            profiled = _nccl_share(os.path.join(tmp, label,
+                                                "trace_rank0.json"))
             res[label] = {
-                "processes": nproc, "batch": B, "seq": Tr, "argv": argv,
-                "losses": losses, "step_ms_all": [s * 1e3 for s in steps],
+                "processes": nproc, "batch": B, "seq": Tr, "layers": layers,
+                "steps": steps, "argv": argv, "losses": losses,
+                "step_ms_all": [t * 1e3 for t in step_times],
                 "steady_step_ms": step_s * 1e3,
                 "tokens_per_s": B * Tr / step_s,
                 "mfu": flops / step_s / (PEAK_BF16_FLOPS * nproc),
-                "profiled_step": _nccl_share(os.path.join(
-                    tmp, label, "trace_rank0.json")),
+                "profiled_step": profiled,
+                "by_rank": _rank_reports(text),
                 "process_s": seconds, "output": text.splitlines()[:3]}
+            if label.startswith("pp"):
+                # the share of the steady step rank 0 spends in no
+                # kernel but NCCL's (which wait on the peers)
+                compute = profiled["device_ms"] - profiled["nccl_ms"]
+                res[label]["rank0_idle_share"] = 1 - compute / (step_s * 1e3)
+                res[label]["ideal_bubble"] = (nproc - 1) / (
+                    int(argv[argv.index("--microbatches") + 1]) + nproc - 1)
             emit({"cards_run": {label: res[label]}})
-            groups.setdefault((cfg.n_layers, B, Tr), []).append(label)
+            groups.setdefault(("flagship" if flagship else "7b", layers, B,
+                               Tr), []).append(label)
     diffs = {}
     for labels in groups.values():
         ref = res[labels[-1]]["losses"]
         for r in labels:
             diffs[r] = {"vs": labels[-1], "max_loss_abs_diff": max(
                 abs(a - b) for a, b in zip(res[r]["losses"], ref))}
+    pp = [r for r in res if r.startswith("pp")]
+    pp_small = next((r for r in pp if r.endswith(f"_L{PIPE['L']}_gpipe")),
+                    None)
+    if pipe_plain is not None and pp_small is not None:
+        diffs[pp_small] = {"vs": "phase 14, train_llama without --pp",
+                           "max_loss_abs_diff": max(
+                               abs(a - b) for a, b in zip(
+                                   res[pp_small]["losses"],
+                                   pipe_plain["losses"]))}
+    bad_launches = []
+    for label in pp:
+        r = res[label]
+        argv = r["argv"]
+        sched = argv[argv.index("--pp-schedule") + 1] \
+            if "--pp-schedule" in argv else "gpipe"
+        M = int(argv[argv.index("--microbatches") + 1])
+        for rank, rep in r["by_rank"].items():
+            want = pp_launches(r["layers"], M, r["processes"], sched,
+                               stage=rank)
+            got = {k: rep["launches"].get(k, 0) / r["steps"] for k in want}
+            if got != {k: float(v) for k, v in want.items()}:
+                bad_launches.append(f"{label} rank {rank}: {got} != {want}")
     res["loss_diffs"] = diffs
     res["tolerance"] = ("each step's loss within 2e-2 of the last run's on "
                         "the same global batch (bf16; the same seeded init "
@@ -2025,9 +2695,15 @@ def run_cards(torch) -> dict | None:
                      "counts in both)")
     emit({"cards": {k: v for k, v in res.items()
                     if not isinstance(v, dict) or k == "loss_diffs"}})
-    require(all(len(res[r]["losses"]) == CARDS_STEPS for r in diffs)
+    require(all(len(res[r]["losses"]) == res[r]["steps"] for r in diffs)
             and max(d["max_loss_abs_diff"] for d in diffs.values())
             <= 2e-2, f"the multi-card runs' losses disagree: {diffs}")
+    require(not bad_launches, "pipeline launches per rank: "
+                              + "; ".join(bad_launches))
+    full = {r.rsplit("_", 1)[1]: res[r]["by_rank"][0]["peak_mem_gib"]
+            for r in pp if res[r]["layers"] == PIPE_CARDS["L"]}
+    require(full.get("1f1b", 0) < full.get("gpipe", 0),
+            f"1F1B's rank-0 peak memory is not below GPipe's: {full}")
     return res
 
 
@@ -2118,6 +2794,7 @@ def run() -> tuple[str, list[dict]]:
     t = time.perf_counter()
     timing = time_kernels(torch, gen)
     timing.update(time_long_kernels(torch, gen))
+    c3 = time_c3_kernels(torch, gen)
     seconds["timing"] = time.perf_counter() - t
     t = time.perf_counter()
     paths["main_path"] = run_main_path(torch)
@@ -2146,7 +2823,18 @@ def run() -> tuple[str, list[dict]]:
     seconds["sequence_parallel"] = time.perf_counter() - t
     t = time.perf_counter()
     free_memory(torch)
-    run_cards(torch)
+    loop = run_pipeline_loopback(torch)
+    free_memory(torch)
+    cli = run_pipeline_cli(torch)
+    for path, res, runs in (("pp_loopback", loop, ("gpipe", "1f1b")),
+                            ("pp_cli", cli, ("pp1_gpipe", "pp1_1f1b"))):
+        paths[path] = {"launches": {s: sum(res[r]["launches"].get(s, 0)
+                                           for r in runs)
+                                    for s in KERNEL_INFO}}
+    seconds["pipeline"] = time.perf_counter() - t
+    t = time.perf_counter()
+    free_memory(torch)
+    run_cards(torch, cli["plain"])
     seconds["cards"] = time.perf_counter() - t
     emit({"phase_seconds": seconds})
 
@@ -2171,6 +2859,13 @@ def run() -> tuple[str, list[dict]]:
             row["path"] = ("f32, fp16 and D 16/32/256 only; timed beside "
                            "its Hopper successor at its shape as the "
                            "yardstick")
+        # C3's cases (phase 3) on the kernels they run through
+        row_c3 = {case: c[part] for case, c in c3.items()
+                  for part in ("fwd", "bwd")
+                  if short == {"fwd": "flash_fwd", "bwd": "flash_bwd"}[part]
+                  + ("_sm90" if c["kernels"] == "hopper" else "")}
+        if row_c3:
+            row["c3"] = row_c3
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (

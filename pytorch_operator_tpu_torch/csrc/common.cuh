@@ -142,10 +142,18 @@ __device__ __forceinline__ int64_t head_base(int b, int h, int Hx, int T,
   return ((int64_t)b * T * Hx + h) * D;
 }
 
+// Rows of a q or key tile in the WMMA flash kernels (flash_fwd.cu,
+// flash_bwd_kv.cuh, flash_bwd_dq.cu): 64, but 32 for f32 at D 256, whose
+// 64-row tile set (q, k, v, dO and the f32 scratch, about 277 KB) passes
+// the 227 KB of shared memory a block may have.  A warp owns 16 rows, so
+// a block has ROWS / 16 warps.
+template <typename E, int D> constexpr int tile_rows() {
+  return std::is_same<E, float>::value && D == 256 ? 32 : 64;
+}
+
 // Host side: run Launch<E, D>::run(args...) for the element type `dtype` and a
-// head dim D in {16, 32, 64, 128}, or 256 for the 16-bit types (a 64-row
-// f32 tile set at D 256 passes the 227 KB of shared memory a block may
-// have); anything else is cudaErrorInvalidValue.
+// head dim D in {16, 32, 64, 128, 256}; anything else is
+// cudaErrorInvalidValue.
 template <template <typename, int> class Launch, typename... Args>
 int dispatch_dtype_dim(int dtype, int D, Args... args) {
 #define PTT_DIMS(TYPE)                                                   \
@@ -154,17 +162,12 @@ int dispatch_dtype_dim(int dtype, int D, Args... args) {
     case 32: return Launch<TYPE, 32>::run(args...);                      \
     case 64: return Launch<TYPE, 64>::run(args...);                      \
     case 128: return Launch<TYPE, 128>::run(args...);                    \
+    case 256: return Launch<TYPE, 256>::run(args...);                    \
   }
   switch (dtype) {
     case F32: PTT_DIMS(float) break;
-    case BF16:
-      PTT_DIMS(__nv_bfloat16)
-      if (D == 256) return Launch<__nv_bfloat16, 256>::run(args...);
-      break;
-    case F16:
-      PTT_DIMS(__half)
-      if (D == 256) return Launch<__half, 256>::run(args...);
-      break;
+    case BF16: PTT_DIMS(__nv_bfloat16) break;
+    case F16: PTT_DIMS(__half) break;
   }
 #undef PTT_DIMS
   return static_cast<int>(cudaErrorInvalidValue);

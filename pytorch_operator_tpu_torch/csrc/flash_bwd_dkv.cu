@@ -22,7 +22,8 @@
 // the tensor cores (bf16 m16n16k16; f32 inputs as TF32 m16n16k8).  Each
 // output element is written by one thread, once: no atomics.  Rows past
 // T read as zero and their p is forced to 0, so the host pads nothing.
-// Head dims 16, 32, 64 and 128.
+// Head dims 16, 32, 64, 128 and 256 (f32 at D 256 on 32-row tiles, see
+// ptt::tile_rows).
 #include "flash_bwd_kv.cuh"
 
 namespace {
@@ -30,7 +31,7 @@ namespace {
 using namespace ptt::bwd_kv;
 
 template <typename E, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Smem<E, D>::THREADS)
 flash_bwd_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k,
                      const E* __restrict__ v, const E* __restrict__ dout,
                      const float* __restrict__ lse,
@@ -47,12 +48,13 @@ template <typename E, int D> struct Launch {
                  const void* dout, const float* lse, const float* delta,
                  float* dkp, float* dvp, int B, int H, int Hk, int T,
                  int bh_layout, float scale, int causal, cudaStream_t s) {
-    const int bytes = Smem<E, D>::BYTES, tiles = (T + BK - 1) / BK;
+    using S = Smem<E, D>;
+    const int bytes = S::BYTES, tiles = (T + S::BK - 1) / S::BK;
     if (!ptt::grid_fits(tiles, B * H))
       return static_cast<int>(cudaErrorInvalidValue);
     int e = ptt::allow_smem(flash_bwd_dkv_kernel<E, D>, bytes);
     if (e) return e;
-    flash_bwd_dkv_kernel<E, D><<<tiles * B * H, THREADS, bytes, s>>>(
+    flash_bwd_dkv_kernel<E, D><<<tiles * B * H, S::THREADS, bytes, s>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
         dkp, dvp, H, Hk, T, bh_layout, scale, causal);
@@ -64,7 +66,7 @@ template <typename E, int D> struct Launch {
 
 // q, dout: (B, T, H, D) or (B*H, T, D) contiguous (bh_layout 0 / 1); k,
 // v: the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16, 2
-// float16), D in {16, 32, 64, 128}, or 256 for the 16-bit types.  lse, delta: (B*H, T) f32.  dkp, dvp: f32 in q's
+// float16), D in {16, 32, 64, 128, 256}.  lse, delta: (B*H, T) f32.  dkp, dvp: f32 in q's
 // shape, one partial per q head.
 extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,

@@ -28,18 +28,20 @@
 // each lane computes p and ds for half of one row in f32 and stores ds
 // in the inputs' type for the ds K product (bf16 m16n16k16; f32 inputs
 // as TF32 m16n16k8).  Rows at or past T read as zero and their p is
-// forced to 0; dq rows past T are never written.  Head dims 16, 32, 64
-// and 128.
+// forced to 0; dq rows past T are never written.  Head dims 16, 32, 64,
+// 128 and 256 (f32 at D 256 on 32-row tiles, see ptt::tile_rows).
 #include "common.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDF = BK + 4;  // f32 (16, BK) scratch, leading dimension
-
-template <typename E, int D> struct DqSmem {
+// BQ q rows (16 a warp) and BK key rows a tile
+template <typename E, int D, int BQ_ = ptt::tile_rows<E, D>(), int BK_ = BQ_>
+struct DqSmem {
+  static constexpr int BQ = BQ_, BK = BK_, WARPS = BQ / 16;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int LDF = BK + 4;  // f32 (16, BK) scratch
   static constexpr int LDD = D + ptt::pad<E>();   // q / dO / k / v tiles
   static constexpr int LDS = BK + ptt::pad<E>();  // ds rows
   static constexpr int LDQ = D + 4;               // f32 (16, D) dq rows
@@ -56,10 +58,11 @@ template <typename E, int D> struct DqSmem {
   static constexpr int LSE = F + WARPS * F_WARP * 4;
   static constexpr int DELTA = LSE + BQ * 4;
   static constexpr int BYTES = DELTA + BQ * 4;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <typename E, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(DqSmem<E, D>::THREADS)
 flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
                     const E* __restrict__ v, const E* __restrict__ dout,
                     const float* __restrict__ lse,
@@ -69,7 +72,8 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
   using S = DqSmem<E, D>;
   using row = wmma::row_major;
   using col = wmma::col_major;
-  constexpr int LDD = S::LDD, LDS = S::LDS, LDQ = S::LDQ;
+  constexpr int BQ = S::BQ, BK = S::BK, THREADS = S::THREADS;
+  constexpr int LDD = S::LDD, LDS = S::LDS, LDQ = S::LDQ, LDF = S::LDF;
   extern __shared__ __align__(128) unsigned char smem[];
   E* Qs = reinterpret_cast<E*>(smem + S::Q);
   E* dOs = reinterpret_cast<E*>(smem + S::DO);
@@ -130,7 +134,7 @@ flash_bwd_dq_kernel(const E* __restrict__ q, const E* __restrict__ k,
     }
     __syncwarp();
 
-    // p and ds for this lane's 32 key columns of q row r
+    // p and ds for this lane's BK / 2 key columns of q row r
     const float lse_r = lse_s[qrow], delta_r = delta_s[qrow];
     constexpr int COLS = BK / 2;
 #pragma unroll
@@ -170,12 +174,13 @@ template <typename E, int D> struct Launch {
                  const void* dout, const float* lse, const float* delta,
                  void* dq, int B, int H, int Hk, int T, int bh_layout,
                  float scale, int causal, cudaStream_t s) {
-    const int bytes = DqSmem<E, D>::BYTES, tiles = (T + BQ - 1) / BQ;
+    using S = DqSmem<E, D>;
+    const int bytes = S::BYTES, tiles = (T + S::BQ - 1) / S::BQ;
     if (!ptt::grid_fits(tiles, B * H))
       return static_cast<int>(cudaErrorInvalidValue);
     int e = ptt::allow_smem(flash_bwd_dq_kernel<E, D>, bytes);
     if (e) return e;
-    flash_bwd_dq_kernel<E, D><<<tiles * B * H, THREADS, bytes, s>>>(
+    flash_bwd_dq_kernel<E, D><<<tiles * B * H, S::THREADS, bytes, s>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<const E*>(dout), lse, delta,
         static_cast<E*>(dq), H, Hk, T, bh_layout, scale, causal);
@@ -187,7 +192,7 @@ template <typename E, int D> struct Launch {
 
 // q, dout, dq: (B, T, H, D) or (B*H, T, D) contiguous (bh_layout 0 / 1);
 // k, v: the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16, 2
-// float16), D in {16, 32, 64, 128}, or 256 for the 16-bit types.  lse,
+// float16), D in {16, 32, 64, 128, 256}.  lse,
 // delta: (B*H, T) f32.
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,

@@ -2,7 +2,8 @@
 // dk/dv kernel of the two-kernel backward (flash_bwd_dkv.cu).
 //
 // One 128-thread CTA per (64-key tile, q head) walks the q tiles from the
-// diagonal on.  Each of its four warps owns 16 keys and keeps its dk and
+// diagonal on (f32 at D 256: 32-row key and q tiles and two warps, see
+// ptt::tile_rows).  Each of its warps owns 16 keys and keeps its dk and
 // dv rows in WMMA f32 accumulator fragments for the whole walk.  Per q
 // tile it recomputes
 //   s^T = K_w Q^T,  dp^T = V_w dO^T,
@@ -21,10 +22,12 @@ namespace ptt {
 
 namespace bwd_kv {
 
-constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = WARPS * 32;
-constexpr int LDF = BQ + 4;  // f32 (16, BQ) scratch, leading dimension
-
-template <typename E, int D> struct Smem {
+// ROWS keys and ROWS q rows a tile: a warp owns 16 keys of the key tile
+// and, for dq, 16 rows of the q tile
+template <typename E, int D, int ROWS = tile_rows<E, D>()> struct Smem {
+  static constexpr int BQ = ROWS, BK = ROWS, WARPS = ROWS / 16;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int LDF = BQ + 4;  // f32 (16, BQ) scratch
   static constexpr int LDD = D + pad<E>();   // k / v / q / dO tiles
   static constexpr int LDS = BQ + pad<E>();  // (key, q) tiles: p^T, ds^T
   static constexpr int LDQ = D + 4;          // f32 (16, D) scratch
@@ -42,6 +45,7 @@ template <typename E, int D> struct Smem {
   static constexpr int LSE = F + WARPS * F_WARP * 4;
   static constexpr int DELTA = LSE + BQ * 4;
   static constexpr int BYTES = DELTA + BQ * 4;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
 // Write a warp's (16, D) f32 accumulator rows [row0, row0 + 16) to dst,
@@ -80,7 +84,8 @@ __device__ __forceinline__ void walk(const E* __restrict__ q,
   using S = Smem<E, D>;
   using row = wmma::row_major;
   using col = wmma::col_major;
-  constexpr int LDD = S::LDD, LDS = S::LDS, LDQ = S::LDQ;
+  constexpr int BQ = S::BQ, BK = S::BK, THREADS = S::THREADS;
+  constexpr int LDD = S::LDD, LDS = S::LDS, LDQ = S::LDQ, LDF = S::LDF;
   extern __shared__ __align__(128) unsigned char smem[];
   E* Ks = reinterpret_cast<E*>(smem + S::K);
   E* Vs = reinterpret_cast<E*>(smem + S::V);
@@ -144,7 +149,7 @@ __device__ __forceinline__ void walk(const E* __restrict__ q,
     }
     __syncwarp();
 
-    // p^T and ds^T for this lane's 32 q columns of key row rr
+    // p^T and ds^T for this lane's BQ / 2 q columns of key row rr
     constexpr int COLS = BQ / 2;
 #pragma unroll
     for (int c = 0; c < COLS; ++c) {
@@ -167,9 +172,9 @@ __device__ __forceinline__ void walk(const E* __restrict__ q,
     }
 
     if constexpr (DQ) {
-      __syncthreads();  // all four warps' ds^T rows are in dSt
+      __syncthreads();  // every warp's ds^T rows are in dSt
 
-      // dq rows [16 w, 16 w + 16) of this q tile += ds K over all 64 keys
+      // dq rows [16 w, 16 w + 16) of this q tile += ds K over all BK keys
       float* Fq = Fs;
 #pragma unroll
       for (int n = 0; n < D / 16; ++n) {

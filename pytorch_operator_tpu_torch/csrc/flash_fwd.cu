@@ -11,24 +11,27 @@
 // at 989 TFLOP/s bf16) against 34 MB of q/k/v/o (about 10 us at
 // 3.35 TB/s).  Design, kept simple on purpose: one 128-thread CTA per
 // (64-row q tile, q head); each of its four warps owns 16 q rows.  K and
-// V tiles of 64 rows are staged in shared memory, s = q k^T and p v run
+// V tiles of 64 rows are staged in shared memory (f32 at D 256: 32-row q
+// and key tiles, two warps, see ptt::tile_rows), s = q k^T and p v run
 // on the tensor cores through WMMA fragments with f32 accumulators (bf16
 // m16n16k16; f32 inputs as TF32 m16n16k8), and the online softmax
 // (running max m, running sum l, NEG_INF masking, the l == 0 guard) runs
 // in f32 registers: each lane owns half of one q row.  The k loop stops
 // at the diagonal tile, and the tail past T is masked in the kernel (rows
 // past T load as zeros and are never stored), so the host pads nothing.
-// Head dims 16, 32, 64 and 128.  No TMA, wgmma or pipelining yet: the
-// loads and the products do not overlap.
+// Head dims 16, 32, 64, 128 and 256.  No TMA, wgmma or pipelining yet:
+// the loads and the products do not overlap.
 #include "common.cuh"
 
 using namespace nvcuda;
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, WARPS = 4, THREADS = WARPS * 32;
-
-template <typename E, int D> struct FwdSmem {
+// BQ q rows (16 a warp) and BK key rows a tile
+template <typename E, int D, int BQ_ = ptt::tile_rows<E, D>(), int BK_ = BQ_>
+struct FwdSmem {
+  static constexpr int BQ = BQ_, BK = BK_, WARPS = BQ / 16;
+  static constexpr int THREADS = WARPS * 32;
   static constexpr int LDD = D + ptt::pad<E>();   // q / k / v tiles
   static constexpr int LDP = BK + ptt::pad<E>();  // probabilities
   static constexpr int LDF = (BK > D ? BK : D) + 4;  // f32 scratch
@@ -38,10 +41,11 @@ template <typename E, int D> struct FwdSmem {
   static constexpr int P = V + ptt::align128(BK * LDD * sizeof(E));
   static constexpr int F = P + ptt::align128(WARPS * 16 * LDP * sizeof(E));
   static constexpr int BYTES = F + WARPS * 16 * LDF * 4;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
 template <typename E, int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(FwdSmem<E, D>::THREADS)
 flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
                  const E* __restrict__ v, E* __restrict__ o,
                  float* __restrict__ lse, int H, int Hk, int T,
@@ -49,6 +53,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
   using S = FwdSmem<E, D>;
   using row = wmma::row_major;
   using col = wmma::col_major;
+  constexpr int BQ = S::BQ, BK = S::BK, THREADS = S::THREADS;
   constexpr int LDD = S::LDD, LDP = S::LDP, LDF = S::LDF, HALF = D / 2;
   constexpr int VEC = 16 / (int)sizeof(E);
   extern __shared__ __align__(128) unsigned char smem[];
@@ -101,7 +106,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k,
     }
     __syncwarp();
 
-    // online softmax over this lane's 32 columns of row r
+    // online softmax over this lane's BK / 2 columns of row r
     constexpr int COLS = BK / 2;
     float s[COLS];
     float mx = ptt::NEG_INF;
@@ -163,12 +168,13 @@ template <typename E, int D> struct Launch {
   static int run(const void* q, const void* k, const void* v, void* o,
                  float* lse, int B, int H, int Hk, int T, int bh_layout,
                  float scale, int causal, cudaStream_t s) {
-    const int bytes = FwdSmem<E, D>::BYTES, tiles = (T + BQ - 1) / BQ;
+    using S = FwdSmem<E, D>;
+    const int bytes = S::BYTES, tiles = (T + S::BQ - 1) / S::BQ;
     if (!ptt::grid_fits(tiles, B * H))
       return static_cast<int>(cudaErrorInvalidValue);
     int e = ptt::allow_smem(flash_fwd_kernel<E, D>, bytes);
     if (e) return e;
-    flash_fwd_kernel<E, D><<<tiles * B * H, THREADS, bytes, s>>>(
+    flash_fwd_kernel<E, D><<<tiles * B * H, S::THREADS, bytes, s>>>(
         static_cast<const E*>(q), static_cast<const E*>(k),
         static_cast<const E*>(v), static_cast<E*>(o), lse, H, Hk, T,
         bh_layout, scale, causal);
@@ -180,7 +186,7 @@ template <typename E, int D> struct Launch {
 
 // q, o: (B, T, H, D) or (B*H, T, D) contiguous (bh_layout 0 / 1); k, v:
 // the same with Hk heads; all of `dtype` (0 float32, 1 bfloat16, 2
-// float16), D in {16, 32, 64, 128}, or 256 for the 16-bit types.  lse:
+// float16), D in {16, 32, 64, 128, 256}.  lse:
 // (B*H, T) f32.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int Hk, int T,

@@ -22,6 +22,13 @@ attention through a ring or an all-to-all over the sp group.  The JAX
 ``sp_param_specs`` / ``sp_fsdp_param_specs`` have no counterpart: the
 parameters' layout on an sp mesh is ``parallel.train.sharded_init``'s
 (replicated over sp, FSDP2 over the data dims, ``param_specs`` over tp).
+
+``LlamaStage`` is one pipeline stage: the embedding and the final norm
+(every stage holds them, as JAX ``pp_param_specs`` replicates them) and
+the blocks of its contiguous layer range (``pp_param_specs``) under
+their global names, so that ``load_jax_params``, ``params_to_numpy`` and
+checkpoints see the plain model's keys.  ``forward_pipelined`` runs the
+stack through ``parallel.pipeline.pipeline_apply``.
 """
 
 from __future__ import annotations
@@ -436,20 +443,10 @@ class Llama(nn.Module):
                       return_hidden: bool = False,
                       positions: torch.Tensor | None = None,
                       attn: Callable | None = None) -> torch.Tensor:
-        cfg = self.cfg
         h = F.embedding(tokens, self.embed)
-        cos, sin = rope_table(cfg, tokens.shape[1], h.device, positions)
-        for block in self.layers:
-            if cfg.remat and torch.is_grad_enabled():
-                h = checkpoint(block, h, cos, sin, attn, use_reentrant=False,
-                               context_fn=self.remat_context)
-            else:
-                h = block(h, cos, sin, attn)
-        h = rms_norm(h, self.final_norm, cfg.norm_eps, cfg.use_fused_norm)
-        if return_hidden:
-            return h
-        # weight-tied output head; logits in the param dtype, then f32
-        return (h @ self.embed.t()).float()
+        h = _run_blocks(self.cfg, self.layers, self.remat_context, h,
+                        positions, attn)
+        return _head(self, h, return_hidden)
 
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None,
@@ -464,6 +461,136 @@ class Llama(nn.Module):
                        attn: Callable | None = None) -> torch.Tensor:
         """tokens (B, T) -> final-normed hidden states (B, T, dim)."""
         return self._forward_with(tokens, True, positions, attn)
+
+
+def _run_blocks(cfg: LlamaConfig, blocks, remat_context, h: torch.Tensor,
+                positions: torch.Tensor | None = None,
+                attn: Callable | None = None) -> torch.Tensor:
+    """h (B, T, D) through ``blocks``, each checkpointed under
+    ``cfg.remat`` (with ``remat_context``) while autograd records."""
+    cos, sin = rope_table(cfg, h.shape[1], h.device, positions)
+    for block in blocks:
+        if cfg.remat and torch.is_grad_enabled():
+            h = checkpoint(block, h, cos, sin, attn, use_reentrant=False,
+                           context_fn=remat_context)
+        else:
+            h = block(h, cos, sin, attn)
+    return h
+
+
+def _head(model, h: torch.Tensor, return_hidden: bool) -> torch.Tensor:
+    """The final norm, then (unless ``return_hidden``) the weight-tied
+    head: logits in the param dtype, then f32."""
+    cfg = model.cfg
+    h = rms_norm(h, model.final_norm, cfg.norm_eps, cfg.use_fused_norm)
+    if return_hidden:
+        return h
+    return (h @ model.embed.t()).float()
+
+
+def pp_param_specs(cfg: LlamaConfig, n_stages: int) -> list[range]:
+    """The pipeline layout: the contiguous layer range of each of
+    ``n_stages`` stages; the embedding and final norm are on every stage
+    (JAX ``pp_param_specs`` shards the stack's L axis over pp and
+    replicates the rest).  Raises where the stages cannot hold equal
+    ranges."""
+    if n_stages < 1 or cfg.n_layers % n_stages:
+        raise ValueError(f"n_layers {cfg.n_layers} not divisible by "
+                         f"{n_stages} pipeline stages")
+    per = cfg.n_layers // n_stages
+    return [range(s * per, (s + 1) * per) for s in range(n_stages)]
+
+
+class LlamaStage(nn.Module):
+    """One pipeline stage: the embedding, the blocks of ``layers`` (a
+    range of global layer indices, from ``pp_param_specs``) under their
+    global names (``layers.8.wq.weight``) and the final norm.  Stage 0
+    uses the embedding for the lookup and the last stage for the tied
+    head; the pipeline step sums their gradients over the stages."""
+
+    def __init__(self, cfg: LlamaConfig, layers: range, *, device=None,
+                 generator: torch.Generator | None = None):
+        """As ``Llama``'s: ``device="meta"`` draws nothing; else the stage
+        draws the whole model's stream from ``generator`` and keeps its
+        own values (``init_params``), those of ``Llama`` on the same
+        generator."""
+        super().__init__()
+        if not 0 <= layers.start <= layers.stop <= cfg.n_layers:
+            raise ValueError(f"layers {layers} outside the model's "
+                             f"{cfg.n_layers}")
+        self.remat_context = remat_context_fn(cfg) if cfg.remat else None
+        meta = device is not None and torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else default_device(device)
+        self.cfg = cfg
+        self.layer_ids = layers
+        self.embed = nn.Parameter(torch.empty(cfg.vocab_size, cfg.dim,
+                                              device=dev, dtype=cfg.dtype))
+        self.layers = nn.ModuleDict({str(i): Block(cfg, dev)
+                                     for i in layers})
+        self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=dev,
+                                                  dtype=cfg.dtype))
+        if not meta:
+            init_params(self, generator)
+
+    def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
+        return F.embedding(tokens, self.embed)
+
+    def run_layers(self, h: torch.Tensor) -> torch.Tensor:
+        """The stage's blocks on h (B, T, D), RoPE at positions 0..T-1."""
+        return _run_blocks(self.cfg, self.layers.values(),
+                           self.remat_context, h)
+
+    def head(self, h: torch.Tensor, return_hidden: bool = False
+             ) -> torch.Tensor:
+        return _head(self, h, return_hidden)
+
+
+def _blocks_by_layer(model) -> dict[int, Block]:
+    if isinstance(model, LlamaStage):
+        return {i: model.layers[str(i)] for i in model.layer_ids}
+    return dict(enumerate(model.layers))
+
+
+def pipeline_stages(cfg: LlamaConfig, n_stages: int, *, device=None,
+                    seed: int = 0) -> nn.ModuleList:
+    """The ``n_stages`` stages of the pipeline layout in this process
+    (the loopback's), each drawn from ``torch.Generator(seed)`` on
+    ``device``: together the values of ``Llama(cfg)`` on that
+    generator, the embedding and final norm on every stage."""
+    dev = default_device(device)
+    return nn.ModuleList(
+        LlamaStage(cfg, layers, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+        for layers in pp_param_specs(cfg, n_stages))
+
+
+def forward_pipelined(model, tokens: torch.Tensor, comm, n_microbatches: int,
+                      return_hidden: bool = False) -> torch.Tensor:
+    """The forward through the GPipe pipeline (the JAX
+    ``forward_pipelined``): stage 0 embeds the tokens, the blocks run as
+    the stages of ``parallel.pipeline.pipeline_apply`` over ``comm``, and
+    the final norm and the tied head run on the pipeline's output on
+    every stage, as JAX runs them replicated.  ``model`` is this rank's
+    ``LlamaStage`` (``PipeComm``) or the list of every stage
+    (``PipeLoopback``, whose head is the last stage's).  Differentiable
+    as ``pipeline_apply``: the lookup's gradient lands on stage 0's
+    embedding, the head's on each stage that computes it."""
+    from pytorch_operator_tpu_torch.parallel.pipeline import (
+        PipeLoopback,
+        pipeline_apply,
+    )
+
+    loop = isinstance(comm, PipeLoopback)
+    first = model[0] if loop else model
+    if loop or comm.rank == 0:
+        h = first.embed_tokens(tokens)
+    else:  # only stage 0 reads the pipeline's input
+        h = torch.zeros(*tokens.shape, first.cfg.dim, dtype=first.cfg.dtype,
+                        device=tokens.device)
+    h = pipeline_apply(lambda stage, x: stage.run_layers(x),
+                       list(model) if loop else model, h, comm,
+                       n_microbatches)
+    return (model[-1] if loop else model).head(h, return_hidden)
 
 
 def forward(model: Llama, tokens: torch.Tensor) -> torch.Tensor:
@@ -584,17 +711,30 @@ def init_params(model: Llama, generator: torch.Generator | None = None
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
 
-    def dense(p: torch.Tensor, fan_in: int):
-        assign(p, torch.randn(p.shape, generator=generator, device=dev,
-                              dtype=torch.float32) * fan_in ** -0.5)
+    def draw(shape, fan_in: int) -> torch.Tensor:
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32) * fan_in ** -0.5
 
-    dense(model.embed, cfg.dim)
-    for blk in model.layers:
-        for lin in (blk.wq, blk.wk, blk.wv, blk.wo, blk.w_gate, blk.w_up,
-                    blk.w_down):
-            dense(lin.weight, lin.in_features)
-        blk.attn_norm.fill_(1.0)
-        blk.mlp_norm.fill_(1.0)
+    assign(model.embed, draw(model.embed.shape, cfg.dim))
+    blocks = _blocks_by_layer(model)
+    D, F_ = cfg.dim, cfg.ffn_dim
+    q_out, kv_out = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    shapes = {"wq": (q_out, D), "wk": (kv_out, D), "wv": (kv_out, D),
+              "wo": (D, q_out), "w_gate": (F_, D), "w_up": (F_, D),
+              "w_down": (D, F_)}
+    for i in range(cfg.n_layers):
+        # a stage draws the other stages' matrices too, one at a time,
+        # so that the stream reaches its own where the whole model's does
+        blk = blocks.get(i)
+        for name in _LINEARS:
+            shape = shapes[name]
+            full = draw(shape, shape[1])
+            if blk is not None:
+                assign(getattr(blk, name).weight, full)
+            del full
+        if blk is not None:
+            blk.attn_norm.fill_(1.0)
+            blk.mlp_norm.fill_(1.0)
     model.final_norm.fill_(1.0)
     return model
 
@@ -651,7 +791,7 @@ def load_jax_params(model: Llama, tree: Dict[str, Any]) -> Llama:
     put(model.embed, tree["embed"])
     put(model.final_norm, tree["final_norm"])
     layers = tree["layers"]
-    for i, blk in enumerate(model.layers):
+    for i, blk in _blocks_by_layer(model).items():
         for name in _LINEARS:
             put(getattr(blk, name).weight, np.asarray(layers[name][i]).T)
         for name in _NORMS:
@@ -660,8 +800,9 @@ def load_jax_params(model: Llama, tree: Dict[str, Any]) -> Llama:
 
 
 def params_to_numpy(model: Llama) -> Dict[str, Any]:
-    """The inverse of ``load_jax_params`` (bf16 comes back as f32)."""
-    blocks = model.layers
+    """The inverse of ``load_jax_params`` (bf16 comes back as f32); a
+    ``LlamaStage`` gives its own layers only, in order."""
+    blocks = list(_blocks_by_layer(model).values())
     layers = {name: np.stack([_to_numpy(getattr(b, name).weight).T
                               for b in blocks]) for name in _LINEARS}
     layers.update({name: np.stack([_to_numpy(getattr(b, name))

@@ -55,12 +55,14 @@ and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
 On CUDA every call, forward-only or not, goes through the kernels, which
 tile T by 64 or 128 and mask the tail themselves, and any B * H (the
 grid is one dimension of tiles times B * H).  The kernels take float32,
-bfloat16 or float16 at D in {16, 32, 64, 128}, and the 16-bit types at
-D 256 too (a float32 tile set at D 256 passes a block's shared memory).
-A head dim between two of these runs at the next one: the wrappers pad
+bfloat16 or float16 at D in {16, 32, 64, 128, 256} (float32 at D 256 on
+32-row tiles: its 64-row tile set passes a block's shared memory).  A
+head dim between two of these runs at the next one: the wrappers pad
 q, k, v (and dO) with zero columns, which change neither the scores nor
 the true columns of out, dq, dk and dv, pass the scale of the true D and
-slice the outputs back.  Anything else on a CUDA tensor raises.
+slice the outputs back.  Anything else on a CUDA tensor raises: D above
+256 too, which no model of either package has and at which the JAX
+kernel's block picker stops (``_auto_block``).
 """
 
 from __future__ import annotations
@@ -73,8 +75,7 @@ import torch.nn.functional as F
 from pytorch_operator_tpu_torch import kernels
 
 NEG_INF = -1e30
-# the C entries' dtype codes, and the head dims they are built for (256
-# for the 16-bit types only)
+# the C entries' dtype codes, and the head dims they are built for
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 
@@ -225,17 +226,14 @@ def _dims(q, k, bh):
     return B, H, k.shape[2], T, D
 
 
-def _kernel_dim(D: int, dtype: torch.dtype) -> int:
+def _kernel_dim(D: int) -> int:
     """The head dim the kernels run a call of head dim ``D`` at: the
-    least of KERNEL_HEAD_DIMS that holds it (256 for the 16-bit types
-    only); a larger D raises."""
-    dims = KERNEL_HEAD_DIMS[:-1] if dtype == torch.float32 else \
-        KERNEL_HEAD_DIMS
-    for d in dims:
+    least of KERNEL_HEAD_DIMS that holds it; a larger D raises."""
+    for d in KERNEL_HEAD_DIMS:
         if D <= d:
             return d
     raise ValueError(f"flash attention kernels take head dims up to "
-                     f"{dims[-1]} for {dtype}, got {D}")
+                     f"{KERNEL_HEAD_DIMS[-1]}, got {D}")
 
 
 def _checked_inputs(q, k, bh, tensors):
@@ -251,7 +249,7 @@ def _checked_inputs(q, k, bh, tensors):
             raise TypeError(f"flash attention kernels take float32, "
                             f"bfloat16 or float16 inputs of one dtype, got "
                             f"{[x.dtype for x in tensors]}")
-    Dk = _kernel_dim(D, dtype)
+    Dk = _kernel_dim(D)
     if dev.type != "cuda":
         raise ValueError(f"flash attention kernels take CUDA tensors, got "
                          f"{dev}")

@@ -1,5 +1,6 @@
-"""The (dp, fsdp, tp) and (dp, fsdp, sp[, tp]) meshes, the training steps
-over them, and the sequence-parallel attention (ring and Ulysses)."""
+"""The (dp, fsdp, tp), (dp, fsdp, sp[, tp]) and (pp,) meshes, the
+training steps over them, the sequence-parallel attention (ring and
+Ulysses) and the pipeline (GPipe and 1F1B)."""
 
 from pytorch_operator_tpu_torch.parallel.mesh import (
     AXIS_DP,
@@ -16,6 +17,12 @@ from pytorch_operator_tpu_torch.parallel.mesh import (
     make_named_mesh,
     make_sp_mesh,
 )
+from pytorch_operator_tpu_torch.parallel.pipeline import (
+    PipeComm,
+    PipeLoopback,
+    pipeline_apply,
+    pipeline_value_and_grad,
+)
 from pytorch_operator_tpu_torch.parallel.ring_attention import (
     RingComm,
     ring_attention,
@@ -28,8 +35,10 @@ from pytorch_operator_tpu_torch.parallel.train import (
     chunked_tied_ce,
     cross_entropy_loss,
     latest_checkpoint,
+    make_pp_train_step,
     make_sp_train_step,
     make_train_step,
+    reshard_state,
     restore_on_mesh,
     save_checkpoint,
     sharded_init,
@@ -38,11 +47,12 @@ from pytorch_operator_tpu_torch.parallel.train import (
 from pytorch_operator_tpu_torch.parallel.ulysses import ulysses_attention
 
 __all__ = ["AXIS_DP", "AXIS_EP", "AXIS_FSDP", "AXIS_PP", "AXIS_SP", "AXIS_TP",
-           "RingComm", "TrainState", "adamw", "chunked_tied_ce",
-           "cross_entropy_loss", "data_axes", "factor_devices",
-           "head_shard_degree", "latest_checkpoint", "local_rows",
-           "make_mesh", "make_named_mesh", "make_sp_mesh",
-           "make_sp_train_step", "make_train_step", "restore_on_mesh",
-           "ring_attention", "ring_attention_loopback", "save_checkpoint",
-           "sharded_init", "ulysses_attention", "with_step_profiler",
-           "zigzag_layout"]
+           "PipeComm", "PipeLoopback", "RingComm", "TrainState", "adamw",
+           "chunked_tied_ce", "cross_entropy_loss", "data_axes",
+           "factor_devices", "head_shard_degree", "latest_checkpoint",
+           "local_rows", "make_mesh", "make_named_mesh",
+           "make_pp_train_step", "make_sp_mesh", "make_sp_train_step",
+           "make_train_step", "pipeline_apply", "pipeline_value_and_grad",
+           "reshard_state", "restore_on_mesh", "ring_attention",
+           "ring_attention_loopback", "save_checkpoint", "sharded_init",
+           "ulysses_attention", "with_step_profiler", "zigzag_layout"]

@@ -17,6 +17,9 @@ as the JAX axes:
         parameters replicated over it
   tp    tensor parallelism: attention heads and the MLP hidden width
         sharded (DTensor, ``llama.param_specs``)
+  pp    pipeline parallelism: a mesh of its own
+        (``make_named_mesh({"pp": S})``), each rank one stage's layers
+        (``llama.pp_param_specs``, ``parallel/pipeline.py``)
 
 tp is the innermost dim (its collectives run every layer), sp next, dp
 the outermost.  A batch is split over the data dims (dp, fsdp) and
@@ -71,14 +74,17 @@ def _start_one_rank_group(backend: str) -> None:
 
 
 def make_named_mesh(axes: dict[str, int],
-                    device: str | torch.device | None = None) -> DeviceMesh:
+                    device: str | torch.device | None = None,
+                    ranks: list[int] | None = None) -> DeviceMesh:
     """A ``DeviceMesh`` with the named dims of ``axes`` (outermost first)
     over every rank of the process group, on ``device``'s type (``cuda``
     unless the caller names ``cpu``).
 
     With no process group, one is started at world size 1 (NCCL on
     cuda, gloo on cpu); with one, its world size must equal the product
-    of the sizes."""
+    of the sizes.  ``ranks``: a mesh over these ranks of the group only
+    (every rank of the group calls it; the others are outside the mesh,
+    ``mesh.get_coordinate()`` is None there)."""
     dev = default_device(device)
     for name, size in axes.items():
         if size < 1:
@@ -92,6 +98,12 @@ def make_named_mesh(axes: dict[str, int],
                 f"WORLD_SIZE={n} (maybe_init_distributed)")
         _start_one_rank_group("nccl" if dev.type == "cuda" else "gloo")
     world = dist.get_world_size()
+    if ranks is not None:
+        if len(ranks) != n or not set(ranks) <= set(range(world)):
+            raise ValueError(f"mesh {shape} needs {n} of the group's "
+                             f"{world} ranks, got {ranks}")
+        return DeviceMesh(dev.type, torch.tensor(ranks).reshape(
+            tuple(axes.values())), mesh_dim_names=tuple(axes))
     if world != n:
         raise ValueError(f"mesh {shape} needs {n} processes, the process "
                          f"group has {world}")
@@ -100,9 +112,11 @@ def make_named_mesh(axes: dict[str, int],
 
 
 def make_mesh(dp: int = 1, fsdp: int = 1, tp: int = 1,
-              device: str | torch.device | None = None) -> DeviceMesh:
+              device: str | torch.device | None = None,
+              ranks: list[int] | None = None) -> DeviceMesh:
     """A (dp, fsdp, tp) mesh (``make_named_mesh``)."""
-    return make_named_mesh(dict(zip(MESH_DIMS, (dp, fsdp, tp))), device)
+    return make_named_mesh(dict(zip(MESH_DIMS, (dp, fsdp, tp))), device,
+                           ranks)
 
 
 def make_sp_mesh(dp: int = 1, sp: int = 1, *, fsdp: int = 1, tp: int = 1,

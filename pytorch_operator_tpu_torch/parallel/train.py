@@ -3,22 +3,24 @@
 Port of ``pytorch_operator_tpu/parallel/train.py``: next-token cross
 entropy (optionally with the tied head applied per sequence chunk), the
 AdamW update, the global gradient norm, ``sharded_init``, checkpoint
-save and restore at any mesh shape (``restore_on_mesh``) and
-``with_step_profiler``, and the sequence-parallel step
-``make_sp_train_step``.  The JAX step is one jitted function over a
-mesh; here it is an eager step that updates the model and the optimizer
-in place, on one device (``mesh=None``) or on each rank of a
-(dp, fsdp, tp) or (dp, fsdp, sp[, tp]) ``DeviceMesh``: parameters
-sharded by FSDP2 over (dp, fsdp) and by the DTensor tp plan over tp,
-replicated over sp, the global batch split over (dp, fsdp).  Where the
-data dims hold one rank, FSDP2 is left out (it would only copy), and a
-mesh of one rank runs the plain model.  The pipeline steps and the
-in-memory ``reshard_state`` wait for later slices.
+save and restore at any mesh shape (``restore_on_mesh``), the in-memory
+``reshard_state`` and ``with_step_profiler``, the sequence-parallel step
+``make_sp_train_step`` and the pipeline steps ``make_pp_train_step``
+(GPipe and 1F1B).  The JAX step is one jitted function over a mesh; here
+it is an eager step that updates the model and the optimizer in place,
+on one device (``mesh=None``) or on each rank of a (dp, fsdp, tp) or
+(dp, fsdp, sp[, tp]) ``DeviceMesh``: parameters sharded by FSDP2 over
+(dp, fsdp) and by the DTensor tp plan over tp, replicated over sp, the
+global batch split over (dp, fsdp).  Where the data dims hold one rank,
+FSDP2 is left out (it would only copy), and a mesh of one rank runs the
+plain model.  On a (pp,) mesh each rank holds one stage
+(``llama.LlamaStage``) and the step runs ``parallel/pipeline.py``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import os
 from pathlib import Path
 from typing import Callable
@@ -28,7 +30,9 @@ import torch
 import torch.distributed as dist
 import torch.distributed.checkpoint as dcp
 import torch.nn.functional as F
+from torch import nn
 from torch.distributed.checkpoint.state_dict import (
+    StateDictOptions,
     get_state_dict,
     set_state_dict,
 )
@@ -39,21 +43,32 @@ from torch.distributed.tensor.parallel import parallelize_module
 from torch.utils.checkpoint import checkpoint
 
 from pytorch_operator_tpu_torch.models import llama
-from pytorch_operator_tpu_torch.models.llama import Llama, LlamaConfig
+from pytorch_operator_tpu_torch.models.llama import (
+    Llama,
+    LlamaConfig,
+    LlamaStage,
+)
 from pytorch_operator_tpu_torch.parallel.mesh import (
     AXIS_DP,
     AXIS_FSDP,
+    AXIS_PP,
     AXIS_SP,
     AXIS_TP,
     dim_size,
     local_rows,
+)
+from pytorch_operator_tpu_torch.parallel.pipeline import (
+    SCHEDULES,
+    PipeComm,
+    PipeLoopback,
+    pipeline_value_and_grad,
 )
 from pytorch_operator_tpu_torch.telemetry import StepProfiler
 
 
 @dataclasses.dataclass
 class TrainState:
-    model: Llama
+    model: Llama | LlamaStage | nn.ModuleList
     optimizer: torch.optim.Optimizer
     step: int = 0
 
@@ -144,47 +159,72 @@ def _is_sharded(model: Llama) -> bool:
     return any(isinstance(p, DTensor) for p in model.parameters())
 
 
-def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0) -> Llama:
-    """The Llama model built straight into its shards on ``mesh``, a
-    (dp, fsdp, tp) or (dp, fsdp, sp[, tp]) mesh.
+def _mesh_device(mesh: DeviceMesh) -> torch.device:
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
 
-    The model is built on the meta device, the tp plan
-    (``llama.param_specs``) is applied over the mesh's tp dim when it
-    is larger than 1, each ``Block`` and then the root are
-    ``fully_shard``-ed over (dp, fsdp) (HSDP: replicated over dp,
-    sharded over fsdp) when those dims hold more than one rank, and only
-    then is memory allocated, for each rank's shards.  The sp ranks hold
-    the same shards (``make_sp_train_step`` averages their gradients).
-    ``init_params`` draws every matrix whole, one at a time, from
+
+def _place(cfg: LlamaConfig, mesh: DeviceMesh) -> Llama:
+    """The Llama model laid out on ``mesh``, its memory allocated for
+    this rank's shards and its values not set: the tp plan
+    (``llama.param_specs``) over the mesh's tp dim when it is larger
+    than 1, each ``Block`` and then the root ``fully_shard``-ed over
+    (dp, fsdp) (HSDP: replicated over dp, sharded over fsdp) when those
+    dims hold more than one rank; on a mesh of one rank the plain model
+    (no FSDP2, no DTensor)."""
+    tp = dim_size(mesh, AXIS_TP)
+    llama.check_tp(cfg, tp)
+    device = _mesh_device(mesh)
+    model = Llama(cfg, device="meta")
+    if mesh.size() > 1:
+        if tp > 1:
+            parallelize_module(model, mesh[AXIS_TP], llama.param_specs(cfg))
+        if _data_ranks(mesh) > 1:
+            data_mesh = mesh[AXIS_DP, AXIS_FSDP]
+            for block in model.layers:
+                fully_shard(block, mesh=data_mesh)
+            fully_shard(model, mesh=data_mesh)
+            # the chunked-CE step calls forward_hidden, not forward: it
+            # must gather the root's parameters (the embedding, the final
+            # norm) too
+            register_fsdp_forward_method(model, "forward_hidden")
+    return model.to_empty(device=device)
+
+
+def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0,
+                 specs: list[range] | None = None) -> Llama | LlamaStage:
+    """The Llama model built straight into its shards on ``mesh``, a
+    (dp, fsdp, tp) or (dp, fsdp, sp[, tp]) mesh (``_place``: FSDP2 over
+    the data dims, the tp plan over tp, replicated over sp, where those
+    hold more than one rank).  The sp ranks hold the same shards
+    (``make_sp_train_step`` averages their gradients).  ``init_params``
+    draws every matrix whole, one at a time, from
     ``torch.Generator(seed)`` on the mesh's device, and each rank keeps
     its shard, so the values are bit for bit those of the unsharded
     ``Llama(cfg, generator=seed)`` on that device.
 
     On a mesh of one rank that is the model returned: no FSDP2, no
-    DTensor, so the step costs what the single-device step costs."""
-    tp = dim_size(mesh, AXIS_TP)
-    llama.check_tp(cfg, tp)
-    if mesh.device_type == "cuda":
-        device = torch.device("cuda", torch.cuda.current_device())
-    else:
-        device = torch.device(mesh.device_type)
+    DTensor, so the step costs what the single-device step costs.
+
+    ``specs=llama.pp_param_specs(cfg, S)`` is the pipeline layout on a
+    (pp,) mesh of S ranks: this rank's ``LlamaStage`` (its layer range,
+    the embedding and the final norm), drawn from the same stream."""
+    device = _mesh_device(mesh)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    if specs is not None:
+        n = dim_size(mesh, AXIS_PP)
+        if len(specs) != n or mesh.size() != n:
+            raise ValueError(f"the pipeline layout of {len(specs)} stages "
+                             f"needs a (pp,) mesh of as many ranks, got "
+                             f"{mesh}")
+        stage = mesh[AXIS_PP].get_local_rank() \
+            if AXIS_PP in (mesh.mesh_dim_names or ()) else 0
+        return LlamaStage(cfg, specs[stage], device=device, generator=gen)
     if mesh.size() == 1:
-        return Llama(cfg, device=device, generator=torch.Generator(
-            device=device).manual_seed(seed))
-    model = Llama(cfg, device="meta")
-    if tp > 1:
-        parallelize_module(model, mesh[AXIS_TP], llama.param_specs(cfg))
-    if _data_ranks(mesh) > 1:
-        data_mesh = mesh[AXIS_DP, AXIS_FSDP]
-        for block in model.layers:
-            fully_shard(block, mesh=data_mesh)
-        fully_shard(model, mesh=data_mesh)
-        # the chunked-CE step calls forward_hidden, not forward: it must
-        # gather the root's parameters (the embedding, the final norm) too
-        register_fsdp_forward_method(model, "forward_hidden")
-    model.to_empty(device=device)
-    llama.init_params(model,
-                      torch.Generator(device=device).manual_seed(seed))
+        return Llama(cfg, device=device, generator=gen)
+    model = _place(cfg, mesh)
+    llama.init_params(model, gen)
     return model
 
 
@@ -268,15 +308,23 @@ def _make_step(model, optimizer, mesh, loss_fn, after_backward=None,
         loss = loss.detach()
         if mesh is not None and mesh.size() > 1:
             # equal rows (and sequence chunks) on every rank, the same
-            # loss on the tp ranks of a shard: the world mean is the
+            # loss on the tp ranks of a shard: the mesh's mean is the
             # global batch's mean
-            loss = loss.clone()
-            dist.all_reduce(loss)
-            loss /= dist.get_world_size()
+            loss = _mesh_mean(loss.clone(), mesh)
         return (TrainState(model, optimizer, state.step + 1),
                 {"loss": loss, "grad_norm": gnorm})
 
     return step
+
+
+def _mesh_mean(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
+    """The mean of ``x`` over the ranks of ``mesh``."""
+    if mesh.size() == dist.get_world_size():
+        dist.all_reduce(x)
+    else:  # a mesh over some of the group's ranks (reshard_state's)
+        x = DTensor.from_local(x, mesh, [Partial()] * mesh.ndim,
+                               run_check=False).full_tensor()
+    return x / mesh.size()
 
 
 def make_sp_train_step(
@@ -346,19 +394,164 @@ def make_sp_train_step(
                       drop=True)
 
 
+def make_pp_train_step(
+    cfg: LlamaConfig,
+    model: LlamaStage | nn.ModuleList,
+    optimizer: torch.optim.Optimizer,
+    *,
+    mesh: DeviceMesh | None = None,
+    n_microbatches: int,
+    axis_name: str = AXIS_PP,
+    chunked_ce: bool = False,
+    ce_chunk: int = 1024,
+    schedule: str = "gpipe",
+) -> Callable[[TrainState, torch.Tensor], tuple[TrainState, dict]]:
+    """The training step through the microbatch pipeline (the JAX
+    ``make_pp_train_step`` and ``_make_1f1b_step``).
+
+    With ``mesh``, a (pp,) mesh: ``model`` is this rank's stage
+    (``sharded_init(cfg, mesh, specs=llama.pp_param_specs(cfg, S))``)
+    and the stages talk P2P over the mesh's ``axis_name`` group.  With
+    ``mesh=None``: ``model`` is every stage in this process
+    (``llama.pipeline_stages``), run as ``PipeLoopback``, and
+    ``optimizer`` holds all of their parameters.  Every rank calls the
+    step with the same global (B, T+1) batch; stage 0 embeds the inputs,
+    the last stage applies the final norm, the tied head (per
+    ``ce_chunk`` tokens with ``chunked_ce``) and the cross entropy of
+    each microbatch pre-scaled by 1/M, whose sum is the global batch's
+    mean.
+
+    ``schedule``: ``"gpipe"`` or ``"1f1b"``
+    (``parallel.pipeline.pipeline_value_and_grad``).  Both run the loss
+    inside the last stage: the JAX GPipe step applies the head to the
+    pipeline's replicated output on every stage instead; the values are
+    the same.  The embedding's and the final norm's gradients are summed
+    over the stages (JAX: ``lax.psum``), so AdamW keeps every stage's
+    copy equal; ``grad_norm`` is the norm of the whole model's gradient
+    and ``loss`` the global batch's, on every stage."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown pipeline schedule {schedule!r}")
+    if ce_chunk < 1:
+        raise ValueError(f"ce_chunk must be >= 1, got {ce_chunk}")
+    if mesh is None:
+        stages = list(model)
+        comm = PipeLoopback(len(stages))
+        params = stages
+    else:
+        stages = [model]
+        comm = PipeComm(mesh[axis_name].get_group())
+        params = model
+    if any(st.cfg != cfg for st in stages):
+        raise ValueError("the stages were built from another config")
+    M = n_microbatches
+    device = stages[0].embed.device
+
+    def first_fn(stage, tokens):
+        return stage.embed_tokens(tokens)
+
+    def stage_fn(stage, x):
+        return stage.run_layers(x)
+
+    def last_fn(stage, y, targets):
+        h = stage.head(y, return_hidden=True)
+        if chunked_ce:
+            loss = chunked_tied_ce(h, stage.embed, targets, ce_chunk)
+        else:
+            loss = cross_entropy_loss((h @ stage.embed.t()).float(),
+                                      targets)
+        # the microbatches' losses add up to the global batch's mean
+        return loss / M
+
+    def step(state: TrainState, batch) -> tuple[TrainState, dict]:
+        if state.model is not model or state.optimizer is not optimizer:
+            raise ValueError("state does not hold this step's model and "
+                             "optimizer")
+        if isinstance(batch, np.ndarray):
+            batch = torch.from_numpy(batch)
+        batch = batch.to(device=device, dtype=torch.long)
+        optimizer.zero_grad(set_to_none=True)
+        loss = pipeline_value_and_grad(
+            first_fn, stage_fn, last_fn, params, batch[:, :-1],
+            batch[:, 1:], comm, n_microbatches=M, schedule=schedule)
+        with torch.no_grad():
+            _sum_shared_grads(stages, comm)
+            gnorm = _pp_global_norm(stages, comm)
+        optimizer.step()
+        if isinstance(comm, PipeComm) and comm.n > 1:
+            # the loss lives on the last stage
+            if loss is None:
+                loss = torch.zeros((), dtype=torch.float32, device=device)
+            dist.all_reduce(loss, group=comm.group)
+        return (TrainState(model, optimizer, state.step + 1),
+                {"loss": loss, "grad_norm": gnorm})
+
+    return step
+
+
+# the parameters every stage holds
+_SHARED = ("embed", "final_norm")
+
+
+def _sum_shared_grads(stages: list[LlamaStage], comm) -> None:
+    """Sum the embedding's and the final norm's gradients over the
+    stages (stage 0 has the lookup's, the last the head's, the others
+    none), so that every stage holds the whole model's."""
+    for name in _SHARED:
+        ps = [getattr(st, name) for st in stages]
+        gs = [p.grad if p.grad is not None else torch.zeros_like(p)
+              for p in ps]
+        if isinstance(comm, PipeComm):
+            if comm.n > 1:
+                dist.all_reduce(gs[0], group=comm.group)
+            ps[0].grad = gs[0]
+            continue
+        total = gs[0]
+        for g in gs[1:]:
+            total = total + g
+        for p in ps:
+            p.grad = total.clone()
+
+
+def _pp_global_norm(stages: list[LlamaStage], comm) -> torch.Tensor:
+    """The norm of the whole model's gradient: each stage's layers once,
+    the shared parameters once (stage 0's, summed already)."""
+    sq = sum(p.grad.float().square().sum()
+             for st in stages for name, p in st.named_parameters()
+             if p.grad is not None and name not in _SHARED)
+    if not isinstance(comm, PipeComm) or comm.rank == 0:
+        sq = sq + sum(getattr(stages[0], name).grad.float().square().sum()
+                      for name in _SHARED)
+    sq = torch.as_tensor(sq, dtype=torch.float32,
+                         device=stages[0].embed.device)
+    if isinstance(comm, PipeComm) and comm.n > 1:
+        dist.all_reduce(sq, group=comm.group)
+    return torch.sqrt(sq)
+
+
 # ---------------------------------------------------------------------------
 # Checkpoints: torch.distributed.checkpoint, one directory per step
+
+
+# The optimizer's state keyed by each parameter's name
+# ("state.layers.8.wq.weight.exp_avg"), not by its place in the
+# optimizer: a pipeline stage holds some of the model's parameters, and
+# a checkpoint written under one layout restores under another.
+_SD_OPTIONS = StateDictOptions(flatten_optimizer_state_dict=True)
 
 
 def save_checkpoint(state: TrainState, directory: str | os.PathLike) -> Path:
     """Write the model and optimizer state at ``state.step`` to
     ``directory/<step>`` (every rank calls it; each writes its shards).
 
-    The files hold global shapes and each shard's offsets, so
-    ``restore_on_mesh`` reads them back at any world size and mesh
-    shape.  The AdamW step count is part of the optimizer state."""
+    The files hold global shapes and each shard's offsets, and every
+    parameter under its name in the whole model (a pipeline stage's
+    layers under their global names; the parameters every stage holds
+    are written once), so ``restore_on_mesh`` reads them back at any
+    world size and mesh shape, pipeline or not.  The AdamW step count is
+    part of the optimizer state."""
     path = Path(directory) / str(state.step)
-    model_sd, optim_sd = get_state_dict(state.model, state.optimizer)
+    model_sd, optim_sd = get_state_dict(state.model, state.optimizer,
+                                        options=_SD_OPTIONS)
     dcp.save({"model": model_sd, "optim": optim_sd}, checkpoint_id=path)
     return path
 
@@ -379,17 +572,115 @@ def restore_on_mesh(directory: str | os.PathLike, step: int,
     """Read checkpoint ``step`` into ``target``'s model and optimizer, in
     their own layout (the port of the JAX ``restore_on_mesh``).
 
-    ``target`` is a freshly built state on the current mesh; the
-    checkpoint may come from another world size or mesh shape:
+    ``target`` is a freshly built state on the current mesh, or a
+    pipeline stage; the checkpoint may come from another world size or
+    mesh shape, or another pipeline layout:
     ``torch.distributed.checkpoint`` reads each rank's shards out of
     the saved ones, so the restored values are the saved ones, bit for
     bit."""
-    model_sd, optim_sd = get_state_dict(target.model, target.optimizer)
+    model_sd, optim_sd = get_state_dict(target.model, target.optimizer,
+                                        options=_SD_OPTIONS)
     sd = {"model": model_sd, "optim": optim_sd}
     dcp.load(sd, checkpoint_id=Path(directory) / str(step))
     set_state_dict(target.model, target.optimizer,
-                   model_state_dict=sd["model"], optim_state_dict=sd["optim"])
+                   model_state_dict=sd["model"], optim_state_dict=sd["optim"],
+                   options=_SD_OPTIONS)
     return TrainState(target.model, target.optimizer, step)
+
+
+def reshard_state(state: TrainState | None, cfg: LlamaConfig,
+                  mesh: DeviceMesh) -> TrainState | None:
+    """Move a live state onto another (dp, fsdp, tp) mesh of the same
+    process group (the JAX ``reshard_state``): the model laid out on
+    ``mesh`` (``_place``) with every parameter's and every AdamW
+    moment's gathered value bit for bit the old one, the optimizer of
+    the same kind and settings, and the step count.
+
+    Every rank of the group calls it.  ``mesh`` may span fewer ranks
+    (``make_mesh(..., ranks=[0, 1])``): the ranks outside it get None
+    and hold nothing.  A rank outside the old mesh passes None; where
+    the new mesh reaches such ranks, the values go to them from the old
+    mesh's first rank.  Each value is gathered whole on the old mesh,
+    one at a time, and each rank of the new one keeps its shard.
+
+    The old state is consumed: its model and optimizer are dropped from
+    it and garbage-collected (FSDP2's hooks form reference cycles), so
+    their memory is free once the caller holds no other reference."""
+    old_model = state.model if state is not None else None
+    old_opt = state.optimizer if state is not None else None
+    in_new = mesh.get_coordinate() is not None
+    device = _mesh_device(mesh)
+    src = None
+    if old_opt is not None:
+        st = next(iter(old_opt.state.values()), {})
+        src = {"group": {k: v for k, v in old_opt.param_groups[0].items()
+                         if k != "params"},
+               "kind": type(old_opt).__name__,
+               "state_keys": sorted(k for k, v in st.items()
+                                    if k != "step"),
+               "step": float(st["step"]) if "step" in st else None,
+               "train_step": state.step}
+    # who holds the old state, who gets the new, and the old settings
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, (src is not None, in_new, src))
+    olds = [r for r, (has, _, _) in enumerate(seen) if has]
+    if not olds:
+        raise ValueError("no rank holds a state to reshard")
+    info = seen[olds[0]][2]
+    if info["kind"] != "AdamW":  # on every rank, so that none waits
+        raise ValueError(f"reshard_state moves AdamW's state, got "
+                         f"{info['kind']}")
+    # the new mesh reaches ranks that hold no old value: send them
+    spread = any(new and not has for has, new, _ in seen)
+
+    new_model = _place(cfg, mesh) if in_new else None
+    new_opt = None
+    if in_new:
+        new_opt = torch.optim.AdamW(new_model.parameters())
+        new_opt.param_groups[0].update(info["group"])
+    old_params = dict(old_model.named_parameters()) if old_model else {}
+    new_params = dict(new_model.named_parameters()) if new_model else {}
+    ref = Llama(cfg, device="meta")
+
+    def move(shape, old_value, target):
+        """The full value of one tensor of the old state into ``target``
+        (a parameter or moment of the new one, or None)."""
+        full = None
+        if old_value is not None:
+            full = llama.full_value(old_value).detach()
+        if spread:
+            if full is None:
+                full = torch.empty(shape, dtype=cfg.dtype, device=device)
+            dist.broadcast(full, olds[0])
+        if target is not None:
+            llama.assign(target, full)
+
+    with torch.no_grad():
+        for name, p in ref.named_parameters():
+            old_p = old_params.get(name)
+            new_p = new_params.get(name)
+            move(p.shape, old_p, new_p)
+            if info["step"] is None:
+                continue
+            old_st = old_opt.state[old_p] if old_p is not None else {}
+            new_st = {}
+            for key in info["state_keys"]:
+                if new_p is not None:
+                    new_st[key] = torch.zeros_like(new_p)
+                move(p.shape, old_st.get(key), new_st.get(key))
+            if new_p is not None:
+                new_st["step"] = torch.tensor(info["step"],
+                                              dtype=torch.float32)
+                new_opt.state[new_p] = new_st
+    del old_params, old_model, old_opt
+    if state is not None:
+        state.model = state.optimizer = None
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    if not in_new:
+        return None
+    return TrainState(new_model, new_opt, info["train_step"])
 
 
 def with_step_profiler(

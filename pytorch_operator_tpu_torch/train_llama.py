@@ -1,7 +1,7 @@
 """Llama pretraining on synthetic tokens, on one GPU or many.
 
-Port of ``examples/llama/train_llama.py`` (its (dp, fsdp, tp) mesh and
-sequence-parallel branches):
+Port of ``examples/llama/train_llama.py`` (its (dp, fsdp, tp) mesh,
+sequence-parallel and pipeline branches):
 
     python -m pytorch_operator_tpu_torch.train_llama --model flagship \\
         --batch-size 2 --seq-len 2048 --steps 10
@@ -42,13 +42,21 @@ heads beside it, as in the JAX entry:
         -m pytorch_operator_tpu_torch.train_llama --model tiny \
         --device cpu --sp 2 --sp-impl ring_zigzag --seq-len 64
 
-The pipeline layout (``--pp``) is not ported yet and raises.
+``--pp S`` (S the process count) splits the layers into S pipeline
+stages, one a process, and the global batch into ``--microbatches``;
+``--pp-schedule`` is ``gpipe`` (every forward, then every backward) or
+``1f1b`` (interleaved; at most S stage inputs held a stage):
+
+    python -m torch.distributed.run --nproc-per-node 2 \
+        -m pytorch_operator_tpu_torch.train_llama --model tiny \
+        --device cpu --pp 2 --microbatches 2 --pp-schedule 1f1b
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import sys
 import time
 
@@ -56,17 +64,21 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from pytorch_operator_tpu_torch import kernels
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.models import llama
 from pytorch_operator_tpu_torch.parallel.mesh import (
+    AXIS_PP,
     factor_devices,
     make_mesh,
+    make_named_mesh,
     make_sp_mesh,
 )
 from pytorch_operator_tpu_torch.parallel.train import (
     TrainState,
     adamw,
     latest_checkpoint,
+    make_pp_train_step,
     make_sp_train_step,
     make_train_step,
     restore_on_mesh,
@@ -88,7 +100,8 @@ def _flag(parser, name, dest, help_on):
 
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser(description="Llama training over a "
-                                                 "(dp, fsdp[, sp], tp) mesh")
+                                                 "(dp, fsdp[, sp], tp) or "
+                                                 "(pp,) mesh")
     parser.add_argument("--model", choices=sorted(MODELS), default="tiny")
     parser.add_argument("--layers", type=int, default=None,
                         help="cut the model's depth to this many layers "
@@ -121,7 +134,17 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--fsdp", type=int, default=0)
     parser.add_argument("--tp", type=int, default=0)
     parser.add_argument("--pp", type=int, default=0,
-                        help="pipeline stages: not ported yet")
+                        help="pipeline stages, one a process (must equal "
+                             "the process count)")
+    parser.add_argument("--microbatches", type=int, default=4,
+                        help="pipeline microbatches when --pp is set")
+    parser.add_argument("--pp-schedule", choices=["gpipe", "1f1b"],
+                        default="gpipe",
+                        help="pipeline schedule under --pp: GPipe (every "
+                             "forward, then every backward; M graphs a "
+                             "stage) or 1F1B (interleaved, the stage run "
+                             "again in its backward; at most S stage "
+                             "inputs a stage)")
     parser.add_argument("--sp", type=int, default=0,
                         help="sequence-parallel degree for long contexts; "
                              "composes with --dp/--fsdp/--tp "
@@ -142,13 +165,10 @@ def parse_args(argv=None) -> argparse.Namespace:
     parser.add_argument("--log-interval", type=int, default=5)
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
-    if args.pp:
-        parser.error("--pp is not ported yet: the pipeline layout waits "
-                     "for a later slice (use --dp/--fsdp/--tp or --sp)")
     if args.sp < 0:
         parser.error(f"--sp must be >= 0, got {args.sp}")
     mesh_flags = (args.dp, args.fsdp, args.tp)
-    if not args.sp and any(mesh_flags) and not all(mesh_flags):
+    if not (args.sp or args.pp) and any(mesh_flags) and not all(mesh_flags):
         parser.error("--dp/--fsdp/--tp must be given together (or none)")
     if args.ce_chunk < 1:
         parser.error(f"--ce-chunk must be >= 1, got {args.ce_chunk}")
@@ -218,6 +238,29 @@ def sp_mesh_shape(args: argparse.Namespace, world: int,
     return dp, fsdp, sp, tp
 
 
+def pp_stages(args: argparse.Namespace, world: int,
+              cfg: llama.LlamaConfig) -> int:
+    """The stage count under --pp, with the JAX entry's checks and
+    messages."""
+
+    def error(msg):
+        raise SystemExit(f"train_llama: error: {msg}")
+
+    if args.sp:
+        error("--pp and --sp are mutually exclusive layouts")
+    if args.dp or args.fsdp or args.tp:
+        error("--pp is a pure GPipe layout; it cannot be combined with "
+              "--dp/--fsdp/--tp")
+    if args.pp != world:
+        error(f"--pp {args.pp} != {world} devices")
+    if cfg.n_layers % args.pp:
+        error(f"n_layers {cfg.n_layers} not divisible by --pp")
+    if args.batch_size % args.microbatches:
+        error(f"--batch-size {args.batch_size} not divisible by "
+              f"--microbatches {args.microbatches}")
+    return args.pp
+
+
 def mesh_shape(args: argparse.Namespace, world: int) -> tuple[int, int, int]:
     """(dp, fsdp, tp) from the flags: all three given (parse_args
     refuses some without the others) and their product the world size,
@@ -241,7 +284,9 @@ def build_config(args: argparse.Namespace, device: torch.device,
     residuals fit the device's memory (the card's total memory on cuda,
     auto_remat_policy's default 16 GiB on the CPU), with the params and
     optimizer state divided by fsdp*tp and the tokens by dp*fsdp (times
-    --sp) of the mesh ``shape``."""
+    --sp) of the mesh ``shape``; under --pp the state by the stages and
+    the tokens by nothing (the microbatches bound them), as in the JAX
+    entry."""
     on_cuda = device.type == "cuda"
     kw = dict(max_seq_len=args.seq_len)
     if args.model != "flagship":
@@ -259,6 +304,8 @@ def build_config(args: argparse.Namespace, device: torch.device,
         return dataclasses.replace(cfg, remat_policy=args.remat_policy)
     dp, fsdp, tp = shape
     state_shards, token_shards = fsdp * tp, dp * fsdp * max(args.sp, 1)
+    if args.pp:
+        state_shards, token_shards = args.pp, 1
     hbm = {} if not on_cuda else dict(
         hbm_gb=torch.cuda.get_device_properties(device).total_memory / 2 ** 30)
     policy = llama.auto_remat_policy(cfg, args.batch_size, args.seq_len,
@@ -276,13 +323,22 @@ def main(argv=None) -> int:
     rank, world = maybe_init_distributed(device)
     if device.type == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
-    if args.sp:
+    if args.pp:
+        shape = (1, 1, 1)
+        layers = {} if args.layers is None else {"n_layers": args.layers}
+        pp = pp_stages(args, world, MODELS[args.model](**layers))
+    elif args.sp:
         dp, fsdp, sp, tp = sp_mesh_shape(args, world, MODELS[args.model]())
         shape = (dp, fsdp, tp)
     else:
         dp, fsdp, tp = shape = mesh_shape(args, world)
     cfg = build_config(args, device, shape, rank, world)
-    if args.sp:
+    if args.pp:
+        mesh = make_named_mesh({AXIS_PP: pp}, device)
+        print(f"[worker {rank}/{world}] {args.pp_schedule} pipeline mesh "
+              f"pp={pp} microbatches={args.microbatches} over {world} "
+              f"device(s)", flush=True)
+    elif args.sp:
         mesh = make_sp_mesh(dp, sp, fsdp=fsdp, tp=tp, device=device)
         print(f"[worker {rank}/{world}] sequence-parallel mesh dp={dp} "
               f"fsdp={fsdp} sp={sp} tp={tp} ({args.sp_impl}) over {world} "
@@ -291,10 +347,17 @@ def main(argv=None) -> int:
         mesh = make_mesh(dp, fsdp, tp, device)
         print(f"[worker {rank}/{world}] mesh dp={dp} fsdp={fsdp} tp={tp} "
               f"over {world} device(s)", flush=True)
-    model = sharded_init(cfg, mesh, seed=0)
+    model = sharded_init(cfg, mesh, seed=0, specs=(
+        llama.pp_param_specs(cfg, pp) if args.pp else None))
     optimizer = adamw(model, args.lr, weight_decay=0.1)
     state = TrainState(model, optimizer)
-    if args.sp:
+    if args.pp:
+        step_fn = make_pp_train_step(cfg, model, optimizer, mesh=mesh,
+                                     n_microbatches=args.microbatches,
+                                     chunked_ce=args.chunked_ce,
+                                     ce_chunk=args.ce_chunk,
+                                     schedule=args.pp_schedule)
+    elif args.sp:
         step_fn = make_sp_train_step(cfg, model, optimizer, mesh=mesh,
                                      impl=args.sp_impl,
                                      chunked_ce=args.chunked_ce,
@@ -350,6 +413,11 @@ def main(argv=None) -> int:
                 print(f"checkpointed step {i + 1} in "
                       f"{time.perf_counter() - t:.3f} s", flush=True)
     trace.stop()
+    if device.type == "cuda":
+        # each rank's own: a pipeline stage's memory and launches differ
+        print(f"[worker {rank}/{world}] peak_mem_gib="
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} "
+              f"launches={json.dumps(kernels.launch_counts())}", flush=True)
     if lead:
         print("training complete", flush=True)
     if created_group:

@@ -128,15 +128,18 @@ def _saved_state(ckpt, step, tmp_path):
 
 
 def _assert_restored(saved_sd, get):
-    model, optim = saved_sd["model"], saved_sd["optim"]["state"]
-    assert model and len(optim) == len(model)
+    # the optimizer's state is saved keyed by parameter name
+    # ("state.<name>.exp_avg": save_checkpoint flattens it)
+    model, optim = saved_sd["model"], saved_sd["optim"]
+    assert model and len([k for k in optim if k.startswith("state.")]) \
+        == 3 * len(model)
     for name, value in model.items():
         assert torch.equal(get(f"model/{name}"), value), name
         for k in ("exp_avg", "exp_avg_sq"):
             assert torch.equal(get(f"optim/{name}/{k}"),
-                               optim[name][k]), (name, k)
+                               optim[f"state.{name}.{k}"]), (name, k)
         assert float(get(f"optim/{name}/step")) == float(
-            optim[name]["step"]) == 4.0
+            optim[f"state.{name}.step"]) == 4.0
 
 
 def test_restore_at_world_four_is_bitwise(saved, tmp_path):

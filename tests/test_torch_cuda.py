@@ -194,12 +194,12 @@ TOL[torch.float16] = 1e-2
     (torch.float16, 256, False), (torch.float16, 80, False),
     (torch.bfloat16, 96, True), (torch.bfloat16, 48, True),
     (torch.bfloat16, 256, False), (torch.bfloat16, 200, False),
-    (torch.float32, 96, False)])
+    (torch.float32, 96, False), (torch.float32, 256, False)])
 def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype, D,
                                          hopper):
     """fp16 through the WMMA kernels, and head dims between the kernels'
-    ones zero-padded to the next (D 256 for the 16-bit types through the
-    WMMA kernels), against autograd through the f32 plain forward at the
+    ones zero-padded to the next (D 256 through the WMMA kernels, f32 on
+    32-row tiles), against autograd through the f32 plain forward at the
     true D, with exact launch counts (GQA H4 / Hk2, ragged T)."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)

@@ -236,16 +236,17 @@ def test_tp_plan_mirrors_the_jax_param_specs():
 
 @pytest.mark.parametrize("flag", ["--pp", "--sp"])
 def test_unported_layouts_raise(flag, capsys):
-    """--pp is not ported and raises; --sp is, and parses (its checks:
-    tests/test_torch_sp_cli.py)."""
+    """--pp and --sp are ported and parse, with their defaults (their
+    checks: tests/test_torch_pp_cli.py, _sp_cli.py); no layout is left
+    that the trainer refuses as unported."""
     argv = ["--device", "cpu", flag, "2"]
+    args = train_llama.parse_args(argv)
     if flag == "--sp":
-        args = train_llama.parse_args(argv)
         assert (args.sp, args.sp_impl) == (2, "ulysses")
-        return
-    with pytest.raises(SystemExit):
-        train_llama.parse_args(argv)
-    assert "not ported yet" in capsys.readouterr().err
+    else:
+        assert (args.pp, args.microbatches, args.pp_schedule) == (
+            2, 4, "gpipe")
+    assert "not ported" not in capsys.readouterr().err
 
 
 def test_mesh_flags_go_together_and_fill_the_world(capsys):

@@ -204,7 +204,7 @@ class TestWrappersRefuseWhatTheKernelsDoNotTake:
                              1e-5)
 
     @pytest.mark.parametrize("dtype,D,exc", [
-        (torch.float64, 64, TypeError), (torch.float32, 192, ValueError),
+        (torch.float64, 64, TypeError), (torch.float32, 320, ValueError),
         (torch.bfloat16, 320, ValueError), (torch.float16, 300, ValueError)])
     def test_flash_dtype_and_head_dim(self, dtype, D, exc):
         q = torch.ones(1, 8, 2, D, dtype=dtype)

@@ -169,12 +169,14 @@ class TestTrainLlamaEntry:
     @pytest.mark.parametrize("flag", ["--dp", "--fsdp", "--tp", "--pp",
                                       "--sp"])
     def test_parallel_flags_not_accepted(self, flag):
-        """--dp/--fsdp/--tp alone and --pp are refused; --sp is ported
-        (its checks: tests/test_torch_sp_cli.py) but refused beside
-        --pp, which is not."""
+        """--dp/--fsdp/--tp alone are refused; --pp and --sp are ported
+        (their checks: tests/test_torch_pp_cli.py, _sp_cli.py), and --pp
+        2 is refused on one process and --sp beside --pp, as the JAX
+        entry refuses them."""
         argv = [flag, "2"] + (["--pp", "2"] if flag == "--sp" else [])
         with pytest.raises(SystemExit):
-            train_llama.parse_args(argv)
+            args = train_llama.parse_args(argv)
+            train_llama.pp_stages(args, 1, train_llama.MODELS[args.model]())
 
     def test_flagship_config(self):
         cfg = train_llama.build_config(

@@ -321,3 +321,200 @@ def sp_step_worker(rank, world, port, spec_path, out_path):
         with open(out_path + ".json", "w") as f:
             json.dump(res, f)
     dist.destroy_process_group()
+
+
+def pp_record(stages, comm, batch, n_microbatches, schedule):
+    """``pipeline_value_and_grad`` of Llama stages with the pipeline
+    step's functions (embedding, the stage's blocks, the final norm, the
+    tied head and CE / M), recording per stage, in the order of its
+    autograd ticks, each output of its layers and the gradient of their
+    input; then its parameters' gradients (before any sum over the
+    stages) and, on the last stage, the loss."""
+    from pytorch_operator_tpu_torch.parallel.pipeline import (
+        PipeLoopback,
+        pipeline_value_and_grad,
+    )
+    from pytorch_operator_tpu_torch.parallel.train import (
+        cross_entropy_loss,
+    )
+
+    index = {id(st): st.layer_ids.start // len(st.layer_ids)
+             for st in stages}
+    rec = {s: {"y": [], "dx": []} for s in index.values()}
+    M = n_microbatches
+
+    def stage_fn(stage, x):
+        y = stage.run_layers(x)
+        if torch.is_grad_enabled():  # the run that is backpropagated
+            r = rec[index[id(stage)]]
+            r["y"].append(y.detach().clone())
+            x.register_hook(lambda g: r["dx"].append(g.detach().clone()))
+        return y
+
+    def last_fn(stage, y, targets):
+        logits = (stage.head(y, return_hidden=True) @ stage.embed.t())
+        return cross_entropy_loss(logits.float(), targets) / M
+
+    loss = pipeline_value_and_grad(
+        lambda st, t: st.embed_tokens(t), stage_fn, last_fn,
+        stages if isinstance(comm, PipeLoopback) else stages[0],
+        batch[:, :-1], batch[:, 1:], comm, n_microbatches=M,
+        schedule=schedule)
+    for st in stages:
+        r = rec[index[id(st)]]
+        r["grads"] = {n: p.grad.clone() for n, p in st.named_parameters()
+                      if p.grad is not None}
+        if index[id(st)] == comm.n - 1:
+            r["loss"] = loss
+    return rec
+
+
+def pp_worker(rank, world, port, in_path, out_path):
+    """For each schedule: this rank's stage (``sharded_init`` with
+    ``pp_param_specs``) through the P2P pipeline (``PipeComm`` over the
+    world, gloo), and the loopback of every stage in this process on
+    the same batch; each rank writes both records of its stage."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_named_mesh
+    from pytorch_operator_tpu_torch.parallel.pipeline import (
+        SCHEDULES,
+        PipeComm,
+        PipeLoopback,
+    )
+    from pytorch_operator_tpu_torch.parallel.train import (
+        sharded_init,
+        with_step_profiler,
+    )
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    data = np.load(in_path)
+    maybe_init_distributed("cpu")
+    mesh = make_named_mesh({"pp": world}, "cpu")
+    comm = PipeComm(mesh["pp"].get_group())
+    cfg = llama.tiny(**json.loads(str(data["cfg"])))
+    M = int(data["microbatches"])
+    batch = torch.from_numpy(data["batch"])
+    # the step profiler sizes MFU from the pp mesh's ranks
+    out = {"profiler_chips": with_step_profiler(
+        lambda *a: a, cfg, mesh, batch=batch.shape[0],
+        seq_len=batch.shape[1] - 1)[1].n_chips}
+    for schedule in SCHEDULES:
+        stage = sharded_init(cfg, mesh, seed=0,
+                             specs=llama.pp_param_specs(cfg, world))
+        got = pp_record([stage], comm, batch, M, schedule)[rank]
+        want = pp_record(list(llama.pipeline_stages(cfg, world,
+                                                    device="cpu")),
+                         PipeLoopback(world), batch, M, schedule)[rank]
+        for name, r in (("p2p", got), ("loopback", want)):
+            key = f"{schedule}/{name}"
+            out[f"{key}/y"] = torch.stack(r["y"]).numpy()
+            if r["dx"]:
+                out[f"{key}/dx"] = torch.stack(r["dx"]).numpy()
+            for n, g in r["grads"].items():
+                out[f"{key}/grad/{n}"] = g.numpy()
+            if "loss" in r:
+                out[f"{key}/loss"] = r["loss"].numpy()
+    np.savez(f"{out_path}.{rank}.npz", **out)
+    dist.destroy_process_group()
+
+
+def gathered_state(state) -> dict:
+    """Every parameter and AdamW tensor of a state, gathered whole, by
+    name (collective over the state's mesh)."""
+    out = {}
+    for n, p in state.model.named_parameters():
+        out[f"model/{n}"] = _full(p)
+        for k, v in state.optimizer.state.get(p, {}).items():
+            out[f"optim/{n}/{k}"] = _full(v)
+    return out
+
+
+def reshard_worker(rank, world, port, out_dir):
+    """``reshard_state`` on four gloo ranks, after one AdamW step on
+    fsdp 4: to fsdp 2 x tp 2 and back, then onto a mesh of ranks 0 and 1
+    (ranks 2 and 3 get None) and back to all four; gathered values at
+    each stop, and one step on fsdp 2 x tp 2 from the resharded state
+    beside one from the same values restored from a checkpoint onto a
+    fresh state on that mesh.  Each rank writes what it found."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import make_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, make_train_step, reshard_state, restore_on_mesh,
+        save_checkpoint, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    maybe_init_distributed("cpu")
+    cfg = llama.tiny(max_seq_len=64)
+    batches = [np.random.default_rng(i).integers(0, cfg.vocab_size, (4, 65))
+               for i in range(2)]
+    mesh4 = make_mesh(1, 4, 1, "cpu")
+    mesh22 = make_mesh(1, 2, 2, "cpu")
+    mesh2 = make_mesh(1, 2, 1, "cpu", ranks=[0, 1])
+    model = sharded_init(cfg, mesh4, seed=0)
+    opt = adamw(model)
+    state, _ = make_train_step(cfg, model, opt, mesh=mesh4)(
+        TrainState(model, opt), batches[0])
+    del model, opt
+    ckpt = os.path.join(out_dir, "ckpt")
+    save_checkpoint(state, ckpt)
+    res = {}
+
+    def same(a, b):
+        return sorted(a) == sorted(b) and all(
+            np.array_equal(a[k], b[k]) for k in a)
+
+    first = gathered_state(state)
+    res["n_values"] = len(first)
+    state = reshard_state(state, cfg, mesh22)
+    res["placements22"] = sorted({str(p.placements) for p in
+                                  state.model.parameters()})
+    res["fsdp4_to_22"] = same(first, gathered_state(state))
+    state = reshard_state(state, cfg, mesh4)
+    res["back_to_fsdp4"] = same(first, gathered_state(state))
+    res["step"] = state.step
+
+    state2 = reshard_state(state, cfg, mesh2)
+    res["state_is_none"] = state2 is None
+    res["old_state_dropped"] = state.model is None
+    if state2 is not None:
+        res["to_two_ranks"] = same(first, gathered_state(state2))
+        res["two_rank_sizes"] = sorted(
+            p.to_local().numel() for p in state2.model.parameters())[-1]
+        state2, m = make_train_step(cfg, state2.model, state2.optimizer,
+                                    mesh=mesh2)(state2, batches[1])
+        res["two_rank_loss"] = m["loss"].item()
+        res["two_rank_step"] = state2.step
+        after = gathered_state(state2)
+    state = reshard_state(state2, cfg, mesh4)  # back onto all four ranks
+    grown = gathered_state(state)
+    if rank < 2:
+        res["grown_is_trained"] = same(after, grown)
+    obj = [None] * world
+    dist.all_gather_object(obj, grown["model/embed"].sum().item())
+    res["grown_equal_on_all"] = len(set(obj)) == 1
+
+    # a step from the resharded state against a step from a fresh state
+    # on fsdp 2 x tp 2 restored from the checkpoint of the same values
+    state = reshard_state(state, cfg, mesh4)
+    fresh = sharded_init(cfg, mesh4, seed=1)
+    fresh = restore_on_mesh(ckpt, 1, TrainState(fresh, adamw(fresh)))
+    moved = reshard_state(fresh, cfg, mesh22)
+    model22 = sharded_init(cfg, mesh22, seed=1)
+    built = restore_on_mesh(ckpt, 1, TrainState(model22, adamw(model22)))
+    res["moved_equals_restored"] = same(gathered_state(moved),
+                                        gathered_state(built))
+    moved, m1 = make_train_step(cfg, moved.model, moved.optimizer,
+                                mesh=mesh22)(moved, batches[1])
+    built, m2 = make_train_step(cfg, built.model, built.optimizer,
+                                mesh=mesh22)(built, batches[1])
+    res["step_losses"] = [m1["loss"].item(), m2["loss"].item()]
+    res["step_bitwise"] = same(gathered_state(moved), gathered_state(built))
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
