@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # every phase; needs a CUDA card (phase 13: two)
 
-The phases run in the order 1-12, 14, 13.
+The phases run in the order 1-12, 14, 15, 13.
 
 Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
@@ -113,7 +113,14 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             T4096 in 8 microbatches, each schedule (losses within 2e-2,
             step time, tokens/s, MFU, each rank's peak memory and
             launches, rank 0's idle share beside the ideal bubble), and
-            --layers 8 --pp 4 beside phase 14's run without --pp;
+            --layers 8 --pp 4 beside phase 14's run without --pp; with
+            four cards the MoE of phase 15 over NCCL on (dp, fsdp, tp,
+            ep) meshes through sharded_init and make_train_step: ep 4 at
+            phase 15's depth (losses within 2e-2 of phase 15's), then
+            ep 4 and tp 2 x ep 2 at depth 8 (launches per step exactly
+            17/8/8 on every rank, step time, MFU, each rank's peak
+            memory, the NCCL share); in each, the replicated weights bit
+            for bit equal over ep;
 14. pipe    (runs before 13) Llama-2-7B's full width at depth 8: the
             loopback pipeline of 4 virtual stages (make_pp_train_step,
             mesh=None) under GPipe and 1F1B beside the same model
@@ -121,7 +128,21 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             within 2e-2, exact launches per step, step time, peak memory
             (1F1B's below GPipe's); then train_llama --layers 8 --pp 1
             --microbatches 4 under each schedule beside train_llama
-            without --pp.
+            without --pp;
+15. moe     (runs before 13) the MoE Llama at Mixtral-8x7B's width
+            (d4096, 32 heads, 8 kv heads, 8 experts of width 14336,
+            top-2, tied head, dense dispatch) at depth 2, B1 x T4096,
+            through sharded_init and make_train_step on a (dp, fsdp, tp,
+            ep) mesh of one rank, 4 steps: loss finite and falling,
+            launches per step exactly 5/2/2 (RMSNorm, B1, B2), step
+            time, tokens/s, MFU, peak memory, one profiled step's device
+            time by kernel class (the experts' products a class of their
+            own); the first step's gradients against the kernels-off
+            ones of the same weights (worst leaf within MOE_GRAD_LIMIT
+            with every expert chosen; at top-2 reported with the tokens
+            the two routes send to other experts); at each step the
+            loss of the same weights with the kernels off within 2e-2 of
+            the kernels'.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -142,6 +163,7 @@ import statistics
 import subprocess
 import sys
 import time
+import traceback
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -179,6 +201,15 @@ PIPE_ARGV = ["--model", "7b", "--no-remat", "--seq-len", "4096",
 PIPE_CARDS = dict(L=32, B=8, M=8, steps=5)
 # the WMMA kernels' f32 products run in TF32 (H100 SXM data sheet, dense)
 PEAK_TF32_FLOPS = 495e12
+# phase 15: the MoE at Mixtral-8x7B's width, depth cut to 2 (its state
+# with AdamW is 24 GB), B1 x T4096, no remat
+MOE = dict(L=2, B=1, T=4096, steps=4)
+# phase 13's MoE runs on four cards: (label, (dp, fsdp, tp, ep), layers,
+# steps, whether each step's loss is held against a kernels-off model of
+# the same weights); depth 8 holds 26 GB of state a card
+MOE_CARDS = (("ep4_L2", (1, 1, 1, 4), MOE["L"], MOE["steps"], True),
+             ("ep4_L8", (1, 1, 1, 4), 8, 5, False),
+             ("tp2_ep2_L8", (1, 1, 2, 2), 8, 5, False))
 
 
 class SmokeFailure(Exception):
@@ -370,6 +401,9 @@ FLASH_CASES = {
     "f32": (2, 1000, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
+    # the MoE path's attention (phase 15, phase 13's MoE runs): Mixtral's
+    # 32 heads over 8 kv heads at T4096, still the fused backward
+    "moe_t4096_gqa": (1, 4096, 32, 8, 128, True, False, BF16),
     # fp16 (WMMA), head dims zero-padded to the kernels' (96 -> 128 and
     # 48 -> 64 on the Hopper kernels, 200 -> 256 on the WMMA ones), D 256
     # and B*H = 65,536 (the grid's y limit is 65,535)
@@ -1102,7 +1136,7 @@ def run_path(torch, label, cfg, B, T, steps, expect, mesh=None,
 
     L = cfg.n_layers
     per_step = {k: counts[k] / steps for k in expect}
-    n = llama.n_params(cfg)
+    n = cfg.n_params()
     step_s = statistics.median(times[1:])
     tokens = B * T
     flops = 6.0 * n * tokens + 12.0 * L * B * T * T * cfg.dim * 0.5
@@ -1362,10 +1396,12 @@ KERNEL_CLASSES = (("rms_norm", ("rms_norm_kernel",)),
 
 
 def profile_step(torch, label, step, expect) -> dict:
-    """Device time of one more step, by kernel class and by kernel.  The
-    port's kernels' profiled counts are held against the launches per
-    step (``expect``): a shortfall means the profiler lost records, and
-    ``complete`` says so."""
+    """Device time of one more step, by kernel class and by kernel, and
+    the matmul class's time and launches by the operator that launched
+    them (aten::mm, aten::bmm, ...).  The port's kernels' profiled counts
+    are held against the launches per step (``expect``): a shortfall
+    means the profiler lost records, and ``complete`` says so."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
@@ -1385,11 +1421,22 @@ def profile_step(torch, label, step, expect) -> dict:
         counts[cls] = counts.get(cls, 0) + e.count
         top.append((ms, e.count, e.key[:80]))
     top.sort(reverse=True)
+    matmul_keys = dict(KERNEL_CLASSES)["matmul"]
+    by_op: dict[str, dict] = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU:
+            continue
+        for k in e.kernels:
+            if any(key in k.name for key in matmul_keys):
+                op = by_op.setdefault(e.name, {"ms": 0.0, "count": 0})
+                op["ms"] += k.duration / 1e3
+                op["count"] += 1
     launched = {symbol: counts.get(PROFILE_CLASS[symbol], 0)
                 for symbol in expect}
     out = {"path": label, "wall_ms_profiled": wall_ms,
            "device_ms": sum(by_class.values()),
            "device_ms_by_class": by_class, "kernel_counts": launched,
+           "class_counts": counts, "matmul_by_op": by_op,
            "complete": launched == expect,
            "top": [{"ms": ms, "count": n, "kernel": k}
                    for ms, n, k in top[:20]]}
@@ -2094,6 +2141,233 @@ def run_pipeline_cli(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 15: the MoE Llama at Mixtral-8x7B's width on one card
+# --------------------------------------------------------------------------
+
+
+def moe_launches(L: int) -> dict:
+    """Launches a step of the MoE step without remat at T4096: both
+    RMSNorms of each layer and the final one, one flash forward a layer
+    and its fused backward."""
+    counts = {k: 0 for k in FLASH_SYMBOLS}
+    counts.update({"rms_norm_fwd": 2 * L + 1, "flash_fwd_sm90": L,
+                   "flash_bwd_sm90": L})
+    return counts
+
+
+def moe_flops(cfg, B: int, T: int) -> float:
+    """A step's model FLOPs: 6·N·B·T with N every parameter (the dense
+    dispatch runs every expert on every token), plus the attention as
+    bench_detail.py counts it; counted once however many ranks repeat
+    it."""
+    return (6.0 * cfg.n_params() * B * T
+            + 12.0 * cfg.n_layers * B * T * T * cfg.dim * 0.5)
+
+
+def moe_loss(torch, model, batch):
+    """The MoE step's loss, ce + AUX_LOSS_WEIGHT · aux, of ``model`` on
+    ``batch``."""
+    from pytorch_operator_tpu_torch.models import moe
+    from pytorch_operator_tpu_torch.parallel.train import cross_entropy_loss
+
+    logits, aux = model(batch[:, :-1])
+    return (cross_entropy_loss(logits, batch[:, 1:])
+            + moe.AUX_LOSS_WEIGHT * aux)
+
+
+def _kernels_off(cfg):
+    return dataclasses.replace(cfg, use_flash=False, use_fused_norm=False)
+
+
+def _twin(torch, model, cfg):
+    """A model of ``cfg`` whose parameters share ``model``'s storage: it
+    sees every update of ``model``, and its gradients are its own."""
+    from pytorch_operator_tpu_torch.models import moe
+
+    twin = moe.MoELlama(cfg, device="meta")
+    twin.load_state_dict(model.state_dict(), assign=True)
+    return twin
+
+
+# The limit on the worst leaf's relative gradient difference, kernels
+# against kernels off, where every expert is chosen (moe_grad_check).
+# On the H100 the clean value is 2.5e-2 (the kernels-off attention
+# rounds its scores to bf16); the flash backward's dq scaled by 1.05
+# gives 5.6e-2, one 64-key tile of dk and dv zeroed 0.14 (PERF.md §6).
+MOE_GRAD_LIMIT = 4e-2
+
+
+def moe_grad_check(torch, model, batch) -> dict:
+    """One step's gradients of ``model`` (the kernels on) against those of
+    the same weights with the kernels off, on ``batch``: each leaf's
+    ||g - g_off|| / ||g_off||, the worst leaf and the worst of each kind,
+    the share of elements whose sign differs (AdamW's first update is
+    lr · sign(g), so that share is how far apart two first updates
+    start), the tokens of each layer whose top-k experts differ, and
+    each forward and backward's time.  Twice: at the config's top_k,
+    and with every expert chosen (top_k = n_experts), where no token can
+    change experts, the loss is smooth in the weights and what differs
+    is the rounding of the two attention and norm routes."""
+    from pytorch_operator_tpu_torch.models import moe
+
+    real_ffn = moe.moe_ffn
+    res = {}
+    for top_k in (model.cfg.top_k, model.cfg.n_experts):
+        runs = {}
+        for route in ("kernels", "kernels_off"):
+            cfg = dataclasses.replace(model.cfg, top_k=top_k)
+            twin = _twin(torch, model, cfg if route == "kernels"
+                         else _kernels_off(cfg))
+            routes = []
+
+            def recording(x, blk, routes=routes):
+                with torch.no_grad():
+                    routes.append((x @ blk.router).float().topk(
+                        blk.cfg.top_k, dim=-1).indices.sort(-1).values)
+                return real_ffn(x, blk)
+
+            moe.moe_ffn = recording
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                moe_loss(torch, twin, batch).backward()
+                torch.cuda.synchronize()
+            finally:
+                moe.moe_ffn = real_ffn
+            runs[route] = ({n: p.grad for n, p in twin.named_parameters()},
+                           routes, (time.perf_counter() - t0) * 1e3)
+            del twin
+        (g_on, r_on, ms_on), (g_off, r_off, ms_off) = runs.values()
+        leaves, signs, total = {}, 0, 0
+        for name, a in g_on.items():
+            a, b = a.float(), g_off[name].float()
+            leaves[name] = float((a - b).norm() / b.norm().clamp_min(1e-30))
+            signs += int((a.sign() != b.sign()).sum())
+            total += a.numel()
+            del a, b
+        by_kind: dict[str, float] = {}
+        for name, err in leaves.items():
+            parts = name.split(".")  # layers.<i>.<kind>[.weight] or <kind>
+            kind = parts[2] if parts[0] == "layers" else parts[0]
+            by_kind[kind] = max(by_kind.get(kind, 0.0), err)
+        worst = max(leaves, key=leaves.get)
+        res[f"top{top_k}"] = {
+            "worst_leaf": worst, "worst_rel_err": leaves[worst],
+            "rel_err_by_kind": by_kind,
+            "sign_differs_share": signs / total,
+            "tokens_rerouted_by_layer": [int((a != b).any(-1).sum())
+                                         for a, b in zip(r_on, r_off)],
+            "tokens": batch.shape[0] * (batch.shape[1] - 1),
+            "fwd_bwd_ms": {"kernels": ms_on, "kernels_off": ms_off}}
+        del runs, g_on, g_off
+        free_memory(torch)
+    return res
+
+
+def moe_same_weights(torch, cfg, B: int, T: int, steps: int) -> dict:
+    """The MoE of seed 0 on phase 15's batch: first ``moe_grad_check``;
+    then trained through the kernels (make_train_step), with, before
+    each step, the loss of the same weights with the kernels off (a twin
+    that shares every parameter): each step's pair of losses."""
+    import numpy as np
+
+    from pytorch_operator_tpu_torch.models import moe
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState,
+        adamw,
+        make_train_step,
+    )
+
+    model = moe.MoELlama(cfg, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(0))
+    batch = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (B, T + 1))).cuda()
+    grads = moe_grad_check(torch, model, batch)
+    shadow = _twin(torch, model, _kernels_off(cfg))
+    optimizer = adamw(model, 3e-4, weight_decay=0.1)
+    step = make_train_step(cfg, model, optimizer)
+    state = TrainState(model, optimizer)
+    on, off = [], []
+    for _ in range(steps):
+        with torch.no_grad():
+            off.append(float(moe_loss(torch, shadow, batch)))
+        state, metrics = step(state, batch)
+        on.append(float(metrics["loss"]))
+    return {"kernels": on, "kernels_off": off, "grads": grads}
+
+
+def run_moe_path(torch) -> dict:
+    """Phase 15: the MoE Llama at Mixtral-8x7B's width, depth cut to
+    MOE["L"], B1 x T4096, through sharded_init and make_train_step on a
+    (dp, fsdp, tp, ep) = (1, 1, 1, 1) mesh (NCCL, world size 1: the
+    plain model), as run_path measures it, the expert products (their
+    aten::bmm, forward and backward) a class of their own in the
+    profile.  Then the kernels against their plain versions on the
+    model (``moe_same_weights``): the first step's gradients, the worst
+    leaf within MOE_GRAD_LIMIT where every expert is chosen, and at each
+    of the steps the loss of the same weights with the kernels off
+    within 2e-2 of the kernels'."""
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import moe
+    from pytorch_operator_tpu_torch.parallel.mesh import make_named_mesh
+
+    L, B, T, steps = (MOE[x] for x in ("L", "B", "T", "steps"))
+    cfg = moe.mixtral_8x7b(n_layers=L, max_seq_len=T)
+    mesh = make_named_mesh({"dp": 1, "fsdp": 1, "tp": 1, "ep": 1}, "cuda")
+    try:
+        on = run_path(torch, "moe_path", cfg, B, T, steps, moe_launches(L),
+                      mesh=mesh)
+        free_memory(torch)
+        same = moe_same_weights(torch, cfg, B, T, steps)
+        free_memory(torch)
+    finally:
+        dist.destroy_process_group()
+    diffs = [abs(a - b) for a, b in zip(same["kernels"], same["kernels_off"])]
+    prof = on["profile"]
+    experts = prof["matmul_by_op"].get("aten::bmm", {"ms": 0.0, "count": 0})
+    by_class = {**prof["device_ms_by_class"], "expert_matmul": experts["ms"]}
+    by_class["matmul"] = by_class.get("matmul", 0.0) - experts["ms"]
+    smooth = same["grads"][f"top{cfg.n_experts}"]
+    out = {"model": f"mixtral_8x7b width, {L} layers (tied head, dense "
+                    f"dispatch), B{B} x T{T}, no remat, ep 1",
+           "n_params": on["n_params"], "losses": on["losses"],
+           "same_weights": {"kernels": same["kernels"],
+                            "kernels_off": same["kernels_off"],
+                            "max_loss_abs_diff": max(diffs),
+                            "tolerance": "each step's loss within 2e-2 of "
+                                         "the kernels-off loss of the same "
+                                         "weights (bf16)"},
+           "grads": {**same["grads"],
+                     "tolerance": f"with every expert chosen, the worst "
+                                  f"leaf's ||g - g_off|| / ||g_off|| <= "
+                                  f"{MOE_GRAD_LIMIT} (bf16 on both routes; "
+                                  f"the kernels-off attention rounds its "
+                                  f"scores to bf16)"},
+           "step_ms": on["step_ms"], "host_ms": on["host_ms"],
+           "tokens_per_s": on["tokens_per_s"], "mfu": on["mfu"],
+           "model_tflops_per_step": on["model_tflops_per_step"],
+           "peak_mem_gib": on["peak_mem_gib"],
+           "step_profiler": on["step_profiler"],
+           "launches_per_step": on["launches_per_step"],
+           "device_ms": prof["device_ms"], "device_ms_by_class": by_class,
+           # gate, up and down a layer, two products each backward: 9·L
+           # bmm, more where the library splits one
+           "expert_matmul_launches": experts["count"],
+           "mfu_convention": "(6·N·B·T, N every parameter, + 12·L·B·T²·D/2) "
+                             "/ median step after the first / 989 TFLOP/s"}
+    emit({"moe_path": out})
+    require(max(diffs) <= 2e-2,
+            f"the MoE's losses with the kernels are off the kernels-off "
+            f"losses of the same weights: {out['same_weights']}")
+    require(smooth["worst_rel_err"] <= MOE_GRAD_LIMIT,
+            f"the MoE's gradients with the kernels are off the kernels-off "
+            f"gradients of the same weights: {smooth}")
+    require(prof["complete"], "the MoE step's profile lost kernel records")
+    return on
+
+
+# --------------------------------------------------------------------------
 # phase 13: several cards
 # --------------------------------------------------------------------------
 
@@ -2540,12 +2814,202 @@ def check_reshard_nccl(torch, n: int) -> dict:
     return out
 
 
+def _moe_nccl_worker(rank, n, port, out_dir) -> None:
+    """One rank of ``check_moe_nccl``: for each of MOE_CARDS' runs the
+    MoE at Mixtral-8x7B's width on its (dp, fsdp, tp, ep) mesh over NCCL
+    through sharded_init and make_train_step, on phase 15's seed and
+    batch: losses, step times, launches, peak memory, one profiled
+    step's NCCL share, and each parameter the ep ranks replicate against
+    the other ep ranks' copies after the steps.  In the runs that say so,
+    before each step, the whole weights are gathered into an unsharded
+    model with the kernels off (one card's layout) and its loss taken."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    device = _nccl_init(rank, n, port)
+    from pytorch_operator_tpu_torch import kernels
+    from pytorch_operator_tpu_torch.models import llama, moe
+    from pytorch_operator_tpu_torch.parallel.mesh import make_named_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState,
+        adamw,
+        make_train_step,
+        sharded_init,
+    )
+
+    B, T = MOE["B"], MOE["T"]
+    res = {}
+    try:
+        for label, shape, L, steps, same_weights in MOE_CARDS:
+            mesh = make_named_mesh(dict(zip(("dp", "fsdp", "tp", "ep"),
+                                            shape)), device)
+            cfg = moe.mixtral_8x7b(n_layers=L, max_seq_len=T)
+            t0 = time.perf_counter()
+            model = sharded_init(cfg, mesh, seed=0)
+            optimizer = adamw(model, 3e-4, weight_decay=0.1)
+            step = make_train_step(cfg, model, optimizer, mesh=mesh)
+            state = TrainState(model, optimizer)
+            batch = torch.from_numpy(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (B, T + 1))).to(device)
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            shadow = None
+            if same_weights:
+                shadow = moe.MoELlama(_kernels_off(cfg), device="meta"
+                                      ).to_empty(device=device)
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launches()
+            losses, times, off = [], [], []
+            for _ in range(steps):
+                if shadow is not None:
+                    with torch.no_grad():
+                        for p, q in zip(model.parameters(),
+                                        shadow.parameters()):
+                            q.copy_(llama.full_value(p))
+                        off.append(float(moe_loss(torch, shadow, batch)))
+                t0 = time.perf_counter()
+                state, metrics = step(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(metrics["loss"]))
+            counts = kernels.launch_counts()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, _ = step(state, batch)
+                torch.cuda.synchronize()
+            events = device_events(prof)
+            kernel_ms = sum(e.device_time_total for e in events) / 1e3
+            nccl_ms = sum(e.device_time_total for e in events
+                          if "nccl" in e.key.lower()) / 1e3
+            ep = mesh["ep"].size()
+            group = mesh["ep"].get_group()
+            unequal, worst, checked = [], 0.0, 0
+            with torch.no_grad():
+                for name, p in model.named_parameters():
+                    if name.rsplit(".", 1)[-1] in moe.EXPERT_BANKS:
+                        continue
+                    t = (p.to_local() if isinstance(p, DTensor)
+                         else p).contiguous()
+                    copies = [torch.empty_like(t) for _ in range(ep)]
+                    dist.all_gather(copies, t, group=group)
+                    checked += 1
+                    for c in copies[1:]:
+                        if not torch.equal(c, copies[0]):
+                            unequal.append(name)
+                            worst = max(worst, float(
+                                (c.float() - copies[0].float()).abs().max()))
+            step_s = statistics.median(times[1:])
+            flops = moe_flops(cfg, B, T)
+            res[label] = {
+                "mesh": dict(zip(("dp", "fsdp", "tp", "ep"), shape)),
+                "layers": L, "steps": steps,
+                "losses": losses, "step_ms_all": [t * 1e3 for t in times],
+                "step_ms": step_s * 1e3, "tokens_per_s": B * T / step_s,
+                "model_tflops_per_step": flops / 1e12,
+                "mfu": flops / step_s / (PEAK_BF16_FLOPS * n),
+                "peak_mem_gib": peak, "init_s": init_s,
+                "launches_per_step": {k: counts[k] / steps
+                                      for k in moe_launches(L)},
+                "want_launches_per_step": moe_launches(L),
+                "profiled_step": {"device_ms": kernel_ms,
+                                  "nccl_ms": nccl_ms, "nccl_share": (
+                                      nccl_ms / kernel_ms if kernel_ms
+                                      else None)},
+                "replicated": {"checked": checked,
+                               "unequal": sorted(set(unequal)),
+                               "max_abs_diff": worst},
+                "same_weights_one_card_off": off}
+            del model, optimizer, step, state, prof, events, shadow
+            gc.collect()
+            torch.cuda.empty_cache()
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def check_moe_nccl(torch, n: int, one_card: dict | None) -> dict:
+    """The MoE over NCCL on four cards (one spawned process per card),
+    MOE_CARDS' runs: ep 4 at phase 15's depth, same seed and batch, each
+    step's loss within 2e-2 of the loss an unsharded kernels-off model
+    takes on the same (gathered) weights and of phase 15's
+    (``one_card``); ep 4 and tp 2 x ep 2 at depth 8: launches per step
+    exactly moe_launches on every rank, step time, MFU (the model's
+    FLOPs counted once, over the four cards' peak), each rank's peak
+    memory and the NCCL share of rank 0's profiled step.  In every run
+    the weights the ep ranks replicate come out bit for bit equal after
+    the steps (the step averages their gradients over ep)."""
+    t0 = time.perf_counter()
+    ranks = _on_cards(_moe_nccl_worker, n, "the MoE over NCCL",
+                      timeout=900.0)
+    seconds = time.perf_counter() - t0
+    bad, out = [], {"ranks": n, "backend": "nccl", "seconds": seconds}
+    for label, shape, L, steps, same_weights in MOE_CARDS:
+        runs = [r[label] for r in ranks]
+        r0 = runs[0]
+        out[label] = {**{k: r0[k] for k in (
+            "mesh", "layers", "steps", "losses",
+            "step_ms_all", "step_ms", "tokens_per_s",
+            "model_tflops_per_step", "mfu", "profiled_step",
+            "same_weights_one_card_off")},
+            "peak_mem_gib_by_rank": [r["peak_mem_gib"] for r in runs],
+            "init_s_by_rank": [r["init_s"] for r in runs],
+            "launches_per_step": r0["launches_per_step"],
+            "replicated_by_rank": [r["replicated"] for r in runs]}
+        for i, r in enumerate(runs):
+            if r["launches_per_step"] != {
+                    k: float(v) for k, v in r["want_launches_per_step"].items()}:
+                bad.append(f"{label} rank {i} launches "
+                           f"{r['launches_per_step']}")
+            if not all(map(math.isfinite, r["losses"])):
+                bad.append(f"{label} rank {i} losses {r['losses']}")
+            if r["replicated"]["unequal"]:
+                bad.append(f"{label} rank {i}: the replicated weights differ "
+                           f"over ep: {r['replicated']}")
+        if r0["losses"][-1] >= r0["losses"][0]:
+            bad.append(f"{label}: the loss did not fall: {r0['losses']}")
+        if same_weights:
+            d = max(abs(a - b) for a, b in zip(
+                r0["losses"], r0["same_weights_one_card_off"]))
+            out[label]["same_weights_max_abs_diff"] = d
+            if d > 2e-2:
+                bad.append(f"{label}: its losses are off the one-card "
+                           f"kernels-off losses of the same weights: "
+                           f"{r0['losses']} {r0['same_weights_one_card_off']}")
+    if one_card is not None:
+        ref = one_card["losses"]
+        got = out[MOE_CARDS[0][0]]["losses"]
+        out["vs_one_card"] = {
+            "one_card": ref,
+            "abs_diff_by_step": [abs(a - b) for a, b in zip(got, ref)],
+            "tolerance": "each step's loss within 2e-2 of phase 15's (bf16; "
+                         "same seed and batch) and of the one-card "
+                         "kernels-off loss of the same weights"}
+        if max(out["vs_one_card"]["abs_diff_by_step"]) > 2e-2:
+            bad.append(f"ep 4 off the one-card run: {out['vs_one_card']}")
+    out["mfu_convention"] = ("(6·N·B·T + 12·L·B·T²·D/2) / median step after "
+                             "the first / (989 TFLOP/s x cards): the "
+                             "attention and head every ep rank repeats "
+                             "counted once")
+    emit({"moe_nccl": out})
+    require(not bad, "the MoE over NCCL: " + "; ".join(bad))
+    return out
+
+
 def _rank_reports(text: str) -> dict:
-    """Each rank's peak memory and launches from train_llama's output."""
-    return {int(r): {"peak_mem_gib": float(m), "launches": json.loads(c)}
-            for r, m, c in re.findall(
-                r"^\[worker (\d+)/\d+\] peak_mem_gib=(\S+) launches=(.*)$",
-                text, re.MULTILINE)}
+    """Each rank's peak memory and launches from train_llama's output.
+    The ranks write to one pipe and one rank's line can run into
+    another's, so each report is found where it starts and its JSON read
+    to its own end."""
+    decoder = json.JSONDecoder()
+    return {int(m[1]): {"peak_mem_gib": float(m[2]),
+                        "launches": decoder.raw_decode(text, m.end())[0]}
+            for m in re.finditer(
+                r"\[worker (\d+)/\d+\] peak_mem_gib=(\S+) launches=", text)}
 
 
 def pipeline_runs(n: int) -> list:
@@ -2564,10 +3028,14 @@ def pipeline_runs(n: int) -> list:
     return runs
 
 
-def run_cards(torch, pipe_plain: dict | None = None) -> dict | None:
-    """Phase 13, with more than one card: the NCCL ring, pipeline and
-    reshard checks, then train_llama under torch.distributed.run, one
-    process per card (``train_runs``)."""
+def run_cards(torch, pipe_plain: dict | None = None,
+              moe_one_card: dict | None = None) -> dict | None:
+    """Phase 13, with more than one card: the NCCL ring, pipeline,
+    reshard and (four cards) MoE checks, then train_llama under
+    torch.distributed.run, one process per card (``train_runs``).  A
+    check that fails is reported and the phase goes on with the next,
+    so that one call on several cards measures every path it can; the
+    phase fails at its end if any check did."""
     cards = torch.cuda.device_count()
     if cards < 2:
         emit({"cards": {"skipped": True,
@@ -2575,10 +3043,23 @@ def run_cards(torch, pipe_plain: dict | None = None) -> dict | None:
                                   f"phase needs more than one"}})
         return None
     sp = min(cards, 4)
-    check_ring_nccl(torch, sp)
-    check_pipe_nccl(torch, sp)
+    failed = []
+
+    def attempt(check, *args):
+        try:
+            return check(torch, *args)
+        except Exception as e:  # noqa: BLE001 - reported, the phase fails
+            detail = str(e) if isinstance(e, SmokeFailure) else \
+                traceback.format_exc()[-3000:]
+            failed.append(f"{check.__name__}: {detail}")
+            emit({"cards_check_failed": failed[-1]})
+            return None
+
+    attempt(check_ring_nccl, sp)
+    attempt(check_pipe_nccl, sp)
     if cards >= 4:
-        check_reshard_nccl(torch, 4)
+        attempt(check_reshard_nccl, 4)
+        attempt(check_moe_nccl, 4, moe_one_card)
     T, L = 32768, CARDS_LAYERS
     long_argv = SP_ARGV + ["--layers", str(L), "--steps", str(CARDS_STEPS)]
     flag = ["--model", "flagship", "--batch-size", "4", "--seq-len", "2048",
@@ -2603,7 +3084,9 @@ def run_cards(torch, pipe_plain: dict | None = None) -> dict | None:
                  ("flagship_dp2_fsdp2", 4, flag + ["--dp", "2", "--fsdp",
                                                   "2", "--tp", "1"], 4,
                   2048, 16, CARDS_STEPS)]
-    return train_runs(torch, runs + pipeline_runs(sp), pipe_plain)
+    res = attempt(train_runs, runs + pipeline_runs(sp), pipe_plain)
+    require(not failed, "phase 13: " + "; ".join(failed))
+    return res
 
 
 def train_runs(torch, runs: list, pipe_plain: dict | None = None) -> dict:
@@ -2834,7 +3317,11 @@ def run() -> tuple[str, list[dict]]:
     seconds["pipeline"] = time.perf_counter() - t
     t = time.perf_counter()
     free_memory(torch)
-    run_cards(torch, cli["plain"])
+    paths["moe_path"] = run_moe_path(torch)
+    seconds["moe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    free_memory(torch)
+    run_cards(torch, cli["plain"], paths["moe_path"])
     seconds["cards"] = time.perf_counter() - t
     emit({"phase_seconds": seconds})
 

@@ -4,20 +4,26 @@ The JAX package (``pytorch_operator_tpu``) stays the reference; this
 package is its counterpart for NVIDIA Hopper GPUs.  It imports ``torch``
 and ``numpy`` only, never ``jax`` and nothing of the JAX package.
 
-What is ported so far is Llama training on one GPU or many, and
-dist-MNIST:
+What is ported so far is Llama and MoE training on one GPU or many,
+and dist-MNIST:
 
   models.llama      Llama decoder (nn.Module) with the JAX weight layout
                     carried across by ``load_jax_params``, the JAX remat
                     tiers (save_attn[+groups], dots policies, auto) and
                     the tensor-parallel plan (``param_specs``)
+  models.moe        the Mixture-of-Experts Llama (top-k router, dense
+                    dispatch) and its expert layout over (tp, ep)
   models.mnist_cnn  the MNIST CNN
-  parallel.mesh     the (dp, fsdp, tp) DeviceMesh, the batch split
-  parallel.train    cross-entropy, chunked tied-head CE, AdamW step on
-                    one device or over the mesh (FSDP2 + DTensor tp),
-                    sharded init, checkpoints at any world size
+  parallel.mesh     the (dp, fsdp, tp[, ep]) DeviceMesh, the batch split
+  parallel.train    cross-entropy (vocab-parallel where the tied head is
+                    split over tp), chunked tied-head CE, AdamW step on
+                    one device or over the mesh (FSDP2 + DTensor tp,
+                    experts over ep), sharded init, checkpoints at any
+                    world size
   telemetry         the step profiler (tokens/s, MFU, JSONL step log)
   utils.distributed torch.distributed from the operator's rendezvous env
+  utils.collectives the collectives of a split region with their
+                    gradients, the vocab-parallel lookup and CE
   data.mnist        the synthetic digits and the IDX loader (numpy)
   ops.rms_norm      RMSNorm, forward through a CUDA kernel
   ops.flash_attention

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.distributed.tensor import DTensor, distribute_tensor
+from torch.distributed.tensor import DTensor, Shard, distribute_tensor
 from torch.distributed.tensor.parallel import (
     ColwiseParallel,
     ParallelStyle,
@@ -59,6 +59,7 @@ from torch.utils.checkpoint import (
 from pytorch_operator_tpu_torch import ops
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.ops.rms_norm import rms_norm_reference
+from pytorch_operator_tpu_torch.utils import collectives
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +89,10 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.dim // self.n_heads
+
+    def n_params(self) -> int:
+        """The parameter count of the model this config builds."""
+        return n_params(self)
 
     def __post_init__(self):
         if self.dim % self.n_heads:
@@ -137,9 +142,11 @@ def param_specs(cfg: LlamaConfig) -> Dict[str, ParallelStyle]:
     (column-wise: each rank computes n_heads/tp q heads, n_kv_heads/tp
     kv heads and ffn_dim/tp hidden units), the o and down projections
     their input features (row-wise, summed over tp); norms are absent,
-    so replicated.  The embedding (the tied head) stays replicated over
-    tp where JAX shards it over (tp, fsdp): a layout difference, not one
-    of values.  The fsdp half is ``fully_shard`` (``sharded_init``).
+    so replicated.  The embedding, a parameter of the root and not a
+    module, is split by ``shard_vocab``: rows over tp, as JAX's
+    ``P(tp, fsdp)``.  The fsdp half is ``fully_shard``
+    (``sharded_init``), which splits the embedding's rows again where
+    JAX splits its D: a layout difference, not one of values.
 
     Both styles keep ``use_local_output``: the attention and the norms
     get each rank's local tensors, never DTensors."""
@@ -151,12 +158,66 @@ def param_specs(cfg: LlamaConfig) -> Dict[str, ParallelStyle]:
 
 
 def check_tp(cfg: LlamaConfig, tp: int) -> None:
-    """Each tp rank owns whole q and kv heads: tp must divide both head
-    counts (the JAX ``head_shard_degree`` rule)."""
+    """Each tp rank owns whole q and kv heads (the JAX
+    ``head_shard_degree`` rule) and an equal share of the vocab: tp must
+    divide both head counts and ``vocab_size``."""
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(
             f"the mesh's tp degree {tp} must divide both head counts; "
             f"got n_heads={cfg.n_heads}, n_kv_heads={cfg.n_kv_heads}")
+    if cfg.vocab_size % tp:
+        raise ValueError(f"the mesh's tp degree {tp} must divide "
+                         f"vocab_size={cfg.vocab_size}")
+
+
+def shard_vocab(model, tp_mesh) -> None:
+    """Split the tied embedding of ``model`` (built on the meta device) by
+    rows over the 1-D ``tp_mesh``: rank r keeps rows [r·V/tp,
+    (r+1)·V/tp), a ``Shard(0)`` DTensor.  The lookup and the head then
+    run on those rows (``embed_tokens``, ``tied_logits``) and the loss
+    is the vocab-parallel CE over ``model.vocab_group``."""
+    model.embed = nn.Parameter(distribute_tensor(
+        model.embed.data, tp_mesh, [Shard(0)], src_data_rank=None))
+    model.vocab_group = tp_mesh.get_group()
+
+
+def vocab_rows(model) -> tuple[torch.Tensor, Any]:
+    """(rows, group): the tied embedding's rows this rank computes with,
+    and the tp group they are split over (None: the whole table).  Under
+    FSDP2 the root's parameters are gathered over the data dims while
+    its forward (and, for the root, the backward after it) runs, and the
+    rows are then the tp shard."""
+    E = model.embed
+    if model.vocab_group is None:
+        return E, None
+    rows = E.to_local()
+    n = torch.distributed.get_world_size(model.vocab_group)
+    if rows.shape[0] * n != model.cfg.vocab_size:
+        raise RuntimeError(
+            f"the embedding holds {rows.shape[0]} rows on this rank, not "
+            f"vocab_size/tp = {model.cfg.vocab_size // n}: it is read "
+            f"outside the model's forward, while FSDP2 keeps it sharded")
+    return rows, model.vocab_group
+
+
+def embed_tokens(model, tokens: torch.Tensor) -> torch.Tensor:
+    """The lookup in the tied embedding, vocab-parallel where it is split
+    over tp (``collectives.vocab_parallel_embedding``)."""
+    rows, group = vocab_rows(model)
+    if group is None:
+        return F.embedding(tokens, rows)
+    first = torch.distributed.get_rank(group) * rows.shape[0]
+    return collectives.vocab_parallel_embedding(tokens, rows, first, group)
+
+
+def tied_logits(model, h: torch.Tensor) -> torch.Tensor:
+    """The weight-tied head: logits in the param dtype, then f32; where
+    the embedding is split over tp, this rank's (…, V/tp) of them (h
+    enters the split region: its gradient is summed over tp)."""
+    rows, group = vocab_rows(model)
+    if group is not None:
+        h = collectives.copy_to_group(h, group)
+    return (h @ rows.t()).float()
 
 
 # ---------------------------------------------------------------------------
@@ -368,22 +429,53 @@ def auto_remat_policy(
     return "save_attn"
 
 
+def attention_params(module: nn.Module, cfg: LlamaConfig,
+                     device: torch.device) -> None:
+    """The attention half of a decoder layer's parameters on ``module``:
+    the two norms and the q/k/v/o projections (``Block`` and the MoE
+    block share them)."""
+    D, hd = cfg.dim, cfg.head_dim
+    kw = dict(bias=False, device=device, dtype=cfg.dtype)
+    module.attn_norm = nn.Parameter(torch.ones(D, device=device,
+                                               dtype=cfg.dtype))
+    module.wq = nn.Linear(D, cfg.n_heads * hd, **kw)
+    module.wk = nn.Linear(D, cfg.n_kv_heads * hd, **kw)
+    module.wv = nn.Linear(D, cfg.n_kv_heads * hd, **kw)
+    module.wo = nn.Linear(cfg.n_heads * hd, D, **kw)
+    module.mlp_norm = nn.Parameter(torch.ones(D, device=device,
+                                              dtype=cfg.dtype))
+
+
+def attend(blk: nn.Module, h, cos, sin, attn=None) -> torch.Tensor:
+    """h + the attention of layer ``blk`` (``attention_params``' names);
+    ``attn(q, k, v)`` in place of the model's attention."""
+    cfg = blk.cfg
+    B, T, _ = h.shape
+    hd = cfg.head_dim
+    # the save-group regions matter only under a selective remat policy
+    # (remat_context_fn); elsewhere they change nothing
+    with _save_region("normed"):
+        x = rms_norm(h, blk.attn_norm, cfg.norm_eps, cfg.use_fused_norm)
+    with _save_region("qkv"):
+        q, k, v = blk.wq(x), blk.wk(x), blk.wv(x)
+    # -1 heads: a tensor-parallel rank's projections give it n_heads/tp q
+    # and n_kv_heads/tp kv heads
+    q = apply_rope(q.view(B, T, -1, hd), cos, sin)
+    k = apply_rope(k.view(B, T, -1, hd), cos, sin)
+    v = v.view(B, T, -1, hd)
+    o = _attention(q, k, v, cfg) if attn is None else attn(q, k, v)
+    return h + blk.wo(o.reshape(B, T, -1))
+
+
 class Block(nn.Module):
     """One decoder layer: the JAX ``_layer``."""
 
     def __init__(self, cfg: LlamaConfig, device: torch.device):
         super().__init__()
         self.cfg = cfg
-        D, F_, hd = cfg.dim, cfg.ffn_dim, cfg.head_dim
+        D, F_ = cfg.dim, cfg.ffn_dim
         kw = dict(bias=False, device=device, dtype=cfg.dtype)
-        self.attn_norm = nn.Parameter(torch.ones(D, device=device,
-                                                 dtype=cfg.dtype))
-        self.wq = nn.Linear(D, cfg.n_heads * hd, **kw)
-        self.wk = nn.Linear(D, cfg.n_kv_heads * hd, **kw)
-        self.wv = nn.Linear(D, cfg.n_kv_heads * hd, **kw)
-        self.wo = nn.Linear(cfg.n_heads * hd, D, **kw)
-        self.mlp_norm = nn.Parameter(torch.ones(D, device=device,
-                                                dtype=cfg.dtype))
+        attention_params(self, cfg, device)
         self.w_gate = nn.Linear(D, F_, **kw)
         self.w_up = nn.Linear(D, F_, **kw)
         self.w_down = nn.Linear(F_, D, **kw)
@@ -392,22 +484,7 @@ class Block(nn.Module):
         """``attn(q, k, v)`` in place of the model's attention: the
         sequence-parallel forward's ring or all-to-all."""
         cfg = self.cfg
-        B, T, _ = h.shape
-        hd = cfg.head_dim
-        # the save-group regions matter only under a selective remat
-        # policy (remat_context_fn); elsewhere they change nothing
-        with _save_region("normed"):
-            x = rms_norm(h, self.attn_norm, cfg.norm_eps,
-                         cfg.use_fused_norm)
-        with _save_region("qkv"):
-            q, k, v = self.wq(x), self.wk(x), self.wv(x)
-        # -1 heads: a tensor-parallel rank's projections give it
-        # n_heads/tp q and n_kv_heads/tp kv heads
-        q = apply_rope(q.view(B, T, -1, hd), cos, sin)
-        k = apply_rope(k.view(B, T, -1, hd), cos, sin)
-        v = v.view(B, T, -1, hd)
-        o = _attention(q, k, v, cfg) if attn is None else attn(q, k, v)
-        h = h + self.wo(o.reshape(B, T, -1))
+        h = attend(self, h, cos, sin, attn)
         with _save_region("normed"):
             x = rms_norm(h, self.mlp_norm, cfg.norm_eps, cfg.use_fused_norm)
         with _save_region("gateup"):
@@ -436,6 +513,8 @@ class Llama(nn.Module):
                                     for _ in range(cfg.n_layers))
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=dev,
                                                   dtype=cfg.dtype))
+        # the tp group the embedding's rows are split over (shard_vocab)
+        self.vocab_group = None
         if not meta:
             init_params(self, generator)
 
@@ -443,7 +522,7 @@ class Llama(nn.Module):
                       return_hidden: bool = False,
                       positions: torch.Tensor | None = None,
                       attn: Callable | None = None) -> torch.Tensor:
-        h = F.embedding(tokens, self.embed)
+        h = embed_tokens(self, tokens)
         h = _run_blocks(self.cfg, self.layers, self.remat_context, h,
                         positions, attn)
         return _head(self, h, return_hidden)
@@ -451,9 +530,11 @@ class Llama(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 positions: torch.Tensor | None = None,
                 attn: Callable | None = None) -> torch.Tensor:
-        """tokens (B, T) int -> logits (B, T, vocab) float32.  ``positions``
-        (T,): the rows' positions for RoPE (default 0..T-1); ``attn``:
-        the attention of every layer (default the model's own)."""
+        """tokens (B, T) int -> logits (B, T, vocab) float32 (this rank's
+        (B, T, vocab/tp) where ``shard_vocab`` split the embedding).
+        ``positions`` (T,): the rows' positions for RoPE (default
+        0..T-1); ``attn``: the attention of every layer (default the
+        model's own)."""
         return self._forward_with(tokens, False, positions, attn)
 
     def forward_hidden(self, tokens: torch.Tensor,
@@ -485,7 +566,7 @@ def _head(model, h: torch.Tensor, return_hidden: bool) -> torch.Tensor:
     h = rms_norm(h, model.final_norm, cfg.norm_eps, cfg.use_fused_norm)
     if return_hidden:
         return h
-    return (h @ model.embed.t()).float()
+    return tied_logits(model, h)
 
 
 def pp_param_specs(cfg: LlamaConfig, n_stages: int) -> list[range]:
@@ -529,6 +610,7 @@ class LlamaStage(nn.Module):
                                      for i in layers})
         self.final_norm = nn.Parameter(torch.ones(cfg.dim, device=dev,
                                                   dtype=cfg.dtype))
+        self.vocab_group = None  # a stage's embedding is never split
         if not meta:
             init_params(self, generator)
 

@@ -1,5 +1,5 @@
-"""The (dp, fsdp, tp), (dp, fsdp, sp[, tp]) and (pp,) meshes, the
-training steps over them, the sequence-parallel attention (ring and
+"""The (dp, fsdp, tp), (dp, fsdp, sp[, tp]), (dp, fsdp, tp, ep) and
+(pp,) meshes, the training steps over them, the sequence-parallel attention (ring and
 Ulysses) and the pipeline (GPipe and 1F1B)."""
 
 from pytorch_operator_tpu_torch.parallel.mesh import (

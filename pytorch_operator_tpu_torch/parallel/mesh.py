@@ -15,15 +15,21 @@ as the JAX axes:
         activation; attention runs a ring or an all-to-all over sp
         (``parallel/ring_attention.py``, ``parallel/ulysses.py``);
         parameters replicated over it
-  tp    tensor parallelism: attention heads and the MLP hidden width
-        sharded (DTensor, ``llama.param_specs``)
+  tp    tensor parallelism: attention heads, the MLP hidden width and
+        the tied embedding's vocab rows sharded (DTensor,
+        ``llama.param_specs``, ``llama.shard_vocab``)
+  ep    expert parallelism: the MoE model's experts sharded
+        (``moe.shard_experts``; a (dp, fsdp, tp, ep) mesh), the rest
+        replicated over it
   pp    pipeline parallelism: a mesh of its own
         (``make_named_mesh({"pp": S})``), each rank one stage's layers
         (``llama.pp_param_specs``, ``parallel/pipeline.py``)
 
-tp is the innermost dim (its collectives run every layer), sp next, dp
-the outermost.  A batch is split over the data dims (dp, fsdp) and
-shared by the sp and tp ranks (``local_rows``); the sequence-parallel
+tp is the innermost dim (its collectives run every layer) but for ep,
+which follows it so that the experts' all-reduce over (tp, ep) spans
+neighbouring ranks; sp comes before tp, dp is the outermost.  A batch is
+split over the data dims (dp, fsdp) and shared by the sp, tp and ep
+ranks (``local_rows``); the sequence-parallel
 step keeps only the data dims that divide it, as the JAX ``forward_sp``.
 ``batch_spec`` has no counterpart: ``local_rows`` is its layout.
 """

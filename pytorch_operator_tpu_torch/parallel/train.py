@@ -1,4 +1,4 @@
-"""Training step for the Llama model, on one device or over a mesh.
+"""Training step for the Llama and MoE models, on one device or a mesh.
 
 Port of ``pytorch_operator_tpu/parallel/train.py``: next-token cross
 entropy (optionally with the tied head applied per sequence chunk), the
@@ -10,10 +10,13 @@ save and restore at any mesh shape (``restore_on_mesh``), the in-memory
 it is an eager step that updates the model and the optimizer in place,
 on one device (``mesh=None``) or on each rank of a (dp, fsdp, tp) or
 (dp, fsdp, sp[, tp]) ``DeviceMesh``: parameters sharded by FSDP2 over
-(dp, fsdp) and by the DTensor tp plan over tp, replicated over sp, the
-global batch split over (dp, fsdp).  Where the data dims hold one rank,
-FSDP2 is left out (it would only copy), and a mesh of one rank runs the
-plain model.  On a (pp,) mesh each rank holds one stage
+(dp, fsdp) and by the DTensor tp plan over tp (the tied embedding by
+vocab rows, its head and CE vocab-parallel), replicated over sp, the
+global batch split over (dp, fsdp).  The MoE model (``models/moe.py``)
+trains on a (dp, fsdp, tp, ep) mesh, its experts split over (tp, ep).
+Where the data dims hold one rank, FSDP2 is left out (it would only
+copy), and a mesh of one rank runs the plain model.  On a (pp,) mesh
+each rank holds one stage
 (``llama.LlamaStage``) and the step runs ``parallel/pipeline.py``.
 """
 
@@ -42,7 +45,7 @@ from torch.distributed.tensor import DTensor, Partial, Replicate
 from torch.distributed.tensor.parallel import parallelize_module
 from torch.utils.checkpoint import checkpoint
 
-from pytorch_operator_tpu_torch.models import llama
+from pytorch_operator_tpu_torch.models import llama, moe
 from pytorch_operator_tpu_torch.models.llama import (
     Llama,
     LlamaConfig,
@@ -50,6 +53,7 @@ from pytorch_operator_tpu_torch.models.llama import (
 )
 from pytorch_operator_tpu_torch.parallel.mesh import (
     AXIS_DP,
+    AXIS_EP,
     AXIS_FSDP,
     AXIS_PP,
     AXIS_SP,
@@ -64,6 +68,7 @@ from pytorch_operator_tpu_torch.parallel.pipeline import (
     pipeline_value_and_grad,
 )
 from pytorch_operator_tpu_torch.telemetry import StepProfiler
+from pytorch_operator_tpu_torch.utils import collectives
 
 
 @dataclasses.dataclass
@@ -80,27 +85,45 @@ def adamw(model: Llama, lr: float = 3e-4,
     Same betas (0.9, 0.999), eps 1e-8 outside the square root, bias
     correction, and decoupled decay lr * wd * param on every parameter.
     The moments take the parameter's dtype, as optax's default
-    ``mu_dtype=None`` keeps them (bf16 moments for a bf16 model)."""
-    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=weight_decay)
+    ``mu_dtype=None`` keeps them (bf16 moments for a bf16 model).
+
+    DTensor and plain parameters (a tp or ep layout without FSDP2 holds
+    both) go in two parameter groups of the same settings: the foreach
+    kernels, CUDA's default, take one kind of tensor per call."""
+    params = list(model.parameters())
+    groups = [g for g in ([p for p in params if isinstance(p, DTensor)],
+                          [p for p in params if not isinstance(p, DTensor)])
+              if g]
+    return torch.optim.AdamW([{"params": g} for g in groups], lr=lr,
+                             betas=(0.9, 0.999), eps=1e-8,
+                             weight_decay=weight_decay)
 
 
-def cross_entropy_loss(logits: torch.Tensor,
-                       targets: torch.Tensor) -> torch.Tensor:
-    """Mean next-token cross entropy; logits (B,T,V), targets (B,T)."""
+def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
+                       group=None) -> torch.Tensor:
+    """Mean next-token cross entropy; logits (B,T,V), targets (B,T).
+    With ``group`` the logits are this rank's vocab slice (B,T,V/n) of a
+    head split over ``group`` (``llama.shard_vocab``): the vocab-parallel
+    CE, in f32 as the whole one."""
+    if group is not None:
+        return collectives.vocab_parallel_nll(logits.float(), targets,
+                                              group).mean()
     V = logits.shape[-1]
     return F.cross_entropy(logits.float().reshape(-1, V),
                            targets.reshape(-1))
 
 
-def _chunk_logp_sum(hc, embed, tc):
+def _chunk_nll_sum(hc, embed, tc, group):
     logits = (hc @ embed.t()).float()
+    if group is not None:
+        return collectives.vocab_parallel_nll(logits, tc, group).sum()
     logp = torch.log_softmax(logits, dim=-1)
-    return logp.gather(-1, tc[..., None]).sum()
+    return -logp.gather(-1, tc[..., None]).sum()
 
 
 def chunked_tied_ce(h: torch.Tensor, embed: torch.Tensor,
-                    targets: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                    targets: torch.Tensor, chunk: int = 1024,
+                    group=None) -> torch.Tensor:
     """Mean next-token CE with the tied head applied per T-chunk.
 
     h (B, T, D), embed (V, D), targets (B, T).  Equal to
@@ -108,15 +131,32 @@ def chunked_tied_ce(h: torch.Tensor, embed: torch.Tensor,
     (chunk, V) f32 logits are recomputed in the backward
     (``torch.utils.checkpoint``) instead of being kept, so the full
     (T, V) logits never exist at once.  A ragged last slice is a smaller
-    chunk."""
+    chunk.  With ``group``, ``embed`` is this rank's vocab rows of a
+    head split over it: h enters the split region once (its gradient is
+    summed over the group once), and each chunk's vocab-parallel CE runs
+    its collectives again in the recompute, in the same order on every
+    rank."""
     B, T, _ = h.shape
     chunk = min(chunk, T)
+    if group is not None:
+        h = collectives.copy_to_group(h, group)
     total = h.new_zeros((), dtype=torch.float32)
     for i in range(0, T, chunk):
-        total = total + checkpoint(_chunk_logp_sum, h[:, i:i + chunk], embed,
-                                   targets[:, i:i + chunk],
+        total = total + checkpoint(_chunk_nll_sum, h[:, i:i + chunk], embed,
+                                   targets[:, i:i + chunk], group,
                                    use_reentrant=False)
-    return -total / (B * T)
+    return total / (B * T)
+
+
+def tied_ce(model, out: torch.Tensor, targets: torch.Tensor,
+            chunked_ce: bool = False, ce_chunk: int = 1024) -> torch.Tensor:
+    """The step's CE of ``model``'s output: its logits, or with
+    ``chunked_ce`` its final hidden states through the tied head per
+    ``ce_chunk`` tokens; vocab-parallel where its embedding is split."""
+    rows, group = llama.vocab_rows(model)
+    if chunked_ce:
+        return chunked_tied_ce(out, rows, targets, ce_chunk, group=group)
+    return cross_entropy_loss(out, targets, group=group)
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -165,21 +205,36 @@ def _mesh_device(mesh: DeviceMesh) -> torch.device:
     return torch.device(mesh.device_type)
 
 
+def _arch(cfg: LlamaConfig):
+    """The model family of ``cfg``: its module and its model class."""
+    if isinstance(cfg, moe.MoEConfig):
+        return moe, moe.MoELlama
+    return llama, Llama
+
+
 def _place(cfg: LlamaConfig, mesh: DeviceMesh) -> Llama:
-    """The Llama model laid out on ``mesh``, its memory allocated for
-    this rank's shards and its values not set: the tp plan
-    (``llama.param_specs``) over the mesh's tp dim when it is larger
-    than 1, each ``Block`` and then the root ``fully_shard``-ed over
-    (dp, fsdp) (HSDP: replicated over dp, sharded over fsdp) when those
-    dims hold more than one rank; on a mesh of one rank the plain model
-    (no FSDP2, no DTensor)."""
-    tp = dim_size(mesh, AXIS_TP)
+    """The model of ``cfg`` laid out on ``mesh``, its memory allocated
+    for this rank's shards and its values not set: the tp plan
+    (``param_specs``) and the vocab split (``llama.shard_vocab``) over
+    the mesh's tp dim when it is larger than 1, an MoE model's expert
+    banks over (tp, ep) (``moe.shard_experts``), each block and then the
+    root ``fully_shard``-ed over (dp, fsdp) (HSDP: replicated over dp,
+    sharded over fsdp) when those dims hold more than one rank; on a
+    mesh of one rank the plain model (no FSDP2, no DTensor)."""
+    tp, ep = dim_size(mesh, AXIS_TP), dim_size(mesh, AXIS_EP)
+    family, cls = _arch(cfg)
     llama.check_tp(cfg, tp)
+    if ep > 1 and family is not moe:
+        raise ValueError(f"the mesh's ep dim ({ep}) splits an MoE model's "
+                         f"experts; {type(cfg).__name__} has none")
     device = _mesh_device(mesh)
-    model = Llama(cfg, device="meta")
+    model = cls(cfg, device="meta")
     if mesh.size() > 1:
         if tp > 1:
-            parallelize_module(model, mesh[AXIS_TP], llama.param_specs(cfg))
+            parallelize_module(model, mesh[AXIS_TP], family.param_specs(cfg))
+            llama.shard_vocab(model, mesh[AXIS_TP])
+        if family is moe:
+            moe.shard_experts(model, mesh)
         if _data_ranks(mesh) > 1:
             data_mesh = mesh[AXIS_DP, AXIS_FSDP]
             for block in model.layers:
@@ -194,15 +249,17 @@ def _place(cfg: LlamaConfig, mesh: DeviceMesh) -> Llama:
 
 def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0,
                  specs: list[range] | None = None) -> Llama | LlamaStage:
-    """The Llama model built straight into its shards on ``mesh``, a
-    (dp, fsdp, tp) or (dp, fsdp, sp[, tp]) mesh (``_place``: FSDP2 over
-    the data dims, the tp plan over tp, replicated over sp, where those
-    hold more than one rank).  The sp ranks hold the same shards
+    """The model of ``cfg`` built straight into its shards on ``mesh``, a
+    (dp, fsdp, tp) or (dp, fsdp, sp[, tp]) mesh, or for an
+    ``moe.MoEConfig`` a (dp, fsdp, tp, ep) one (``_place``: FSDP2 over
+    the data dims, the tp plan and the vocab split over tp, the experts
+    over (tp, ep), replicated over sp, where those hold more than one
+    rank).  The sp ranks hold the same shards
     (``make_sp_train_step`` averages their gradients).  ``init_params``
     draws every matrix whole, one at a time, from
     ``torch.Generator(seed)`` on the mesh's device, and each rank keeps
     its shard, so the values are bit for bit those of the unsharded
-    ``Llama(cfg, generator=seed)`` on that device.
+    ``Llama(cfg, generator=seed)`` (``moe.MoELlama``) on that device.
 
     On a mesh of one rank that is the model returned: no FSDP2, no
     DTensor, so the step costs what the single-device step costs.
@@ -212,7 +269,11 @@ def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0,
     the embedding and the final norm), drawn from the same stream."""
     device = _mesh_device(mesh)
     gen = torch.Generator(device=device).manual_seed(seed)
+    family, cls = _arch(cfg)
     if specs is not None:
+        if family is moe:
+            raise ValueError("the MoE model has no pipeline layout (nor "
+                             "has the JAX package)")
         n = dim_size(mesh, AXIS_PP)
         if len(specs) != n or mesh.size() != n:
             raise ValueError(f"the pipeline layout of {len(specs)} stages "
@@ -222,9 +283,9 @@ def sharded_init(cfg: LlamaConfig, mesh: DeviceMesh, seed: int = 0,
             if AXIS_PP in (mesh.mesh_dim_names or ()) else 0
         return LlamaStage(cfg, specs[stage], device=device, generator=gen)
     if mesh.size() == 1:
-        return Llama(cfg, device=device, generator=gen)
+        return cls(cfg, device=device, generator=gen)
     model = _place(cfg, mesh)
-    llama.init_params(model, gen)
+    family.init_params(model, gen)
     return model
 
 
@@ -245,7 +306,8 @@ def make_train_step(
     before the update), as 0-d tensors on the model's device.  The model
     and the optimizer update in place; the returned state carries the
     step count.  ``chunked_ce`` applies the tied head per ``ce_chunk``
-    tokens (see chunked_tied_ce).
+    tokens (see chunked_tied_ce).  An ``moe.MoEConfig`` trains on the
+    JAX MoE step's loss, ce + ``moe.AUX_LOSS_WEIGHT`` · aux.
 
     With ``mesh`` the model is ``sharded_init``'s and every rank calls
     the step with the same global batch: each takes its rows
@@ -256,15 +318,49 @@ def make_train_step(
     parameters.  On a mesh of one rank the step is the single-device
     one."""
     _check_step_args(cfg, model, mesh, ce_chunk)
+    is_moe = _arch(cfg)[0] is moe
 
     def loss_fn(batch: torch.Tensor) -> torch.Tensor:
         inputs, targets = batch[:, :-1], batch[:, 1:]
-        if chunked_ce:
-            h = model.forward_hidden(inputs)
-            return chunked_tied_ce(h, model.embed, targets, ce_chunk)
-        return cross_entropy_loss(model(inputs), targets)
+        out = model.forward_hidden(inputs) if chunked_ce else model(inputs)
+        if is_moe:
+            out, aux = out
+            return (tied_ce(model, out, targets, chunked_ce, ce_chunk)
+                    + moe.AUX_LOSS_WEIGHT * aux)
+        return tied_ce(model, out, targets, chunked_ce, ce_chunk)
 
-    return _make_step(model, optimizer, mesh, loss_fn)
+    average_over_ep = None
+    if is_moe and mesh is not None and dim_size(mesh, AXIS_EP) > 1:
+        average_over_ep = _grad_averager(
+            [p for name, p in model.named_parameters()
+             if name.rsplit(".", 1)[-1] not in moe.EXPERT_BANKS],
+            mesh[AXIS_EP])
+    return _make_step(model, optimizer, mesh, loss_fn, average_over_ep)
+
+
+def _grad_averager(params: list, sub_mesh: DeviceMesh) -> Callable[[], None]:
+    """A function that averages the gradients of ``params``, which every
+    rank of ``sub_mesh`` holds alike, over its ranks: one all-reduce per
+    gradient (a DTensor's local shard), in place.  Ranks that compute the
+    same gradient apart (the sp ranks; the ep ranks on the attention,
+    whose fused flash backward sums dq with f32 atomics in an order that
+    changes from run to run) then hold the same bits, and their copies of
+    the parameters stay equal, as JAX's one logical copy is."""
+    group, n = sub_mesh.get_group(), sub_mesh.size()
+
+    def average() -> None:
+        works = []
+        for p in params:
+            if p.grad is not None:
+                g = p.grad.to_local() if isinstance(p.grad, DTensor) \
+                    else p.grad
+                works.append((g, dist.all_reduce(g, group=group,
+                                                 async_op=True)))
+        for g, work in works:
+            work.wait()
+            g /= n
+
+    return average
 
 
 def _check_step_args(cfg, model, mesh, ce_chunk) -> None:
@@ -273,7 +369,8 @@ def _check_step_args(cfg, model, mesh, ce_chunk) -> None:
     if model.cfg != cfg:
         raise ValueError("the model was built from another config")
     want = mesh is not None and (_data_ranks(mesh) > 1
-                                 or dim_size(mesh, AXIS_TP) > 1)
+                                 or dim_size(mesh, AXIS_TP) > 1
+                                 or dim_size(mesh, AXIS_EP) > 1)
     if _is_sharded(model) != want:
         raise ValueError("a sharded model (sharded_init) needs its mesh, "
                          "and a mesh needs sharded_init's model")
@@ -357,12 +454,14 @@ def make_sp_train_step(
     ``chunked_ce`` applies the tied head per ``ce_chunk`` of the rank's
     tokens."""
     _check_step_args(cfg, model, mesh, ce_chunk)
+    if _arch(cfg)[0] is moe:
+        raise ValueError("the MoE model has no sequence-parallel forward "
+                         "(nor has the JAX package)")
     if impl not in llama.SP_IMPLS:
         raise ValueError(f"unknown sp impl {impl!r}")
     sp_mesh = mesh[axis_name]
     group = sp_mesh.get_group()
     sp = sp_mesh.size()
-    params = list(model.parameters())
 
     def loss_fn(batch: torch.Tensor) -> torch.Tensor:
         inputs, targets = batch[:, :-1], batch[:, 1:]
@@ -371,25 +470,10 @@ def make_sp_train_step(
                                  inputs.device)
         h = llama.forward_sp(model, inputs, group, impl=impl,
                              return_hidden=chunked_ce)
-        targets = targets[:, pos]
-        if chunked_ce:
-            return chunked_tied_ce(h, model.embed, targets, ce_chunk)
-        return cross_entropy_loss(h, targets)
+        return tied_ce(model, h, targets[:, pos], chunked_ce, ce_chunk)
 
-    def average_over_sp() -> None:
-        if sp == 1:
-            return
-        works = []
-        for p in params:
-            if p.grad is not None:
-                g = p.grad.to_local() if isinstance(p.grad, DTensor) \
-                    else p.grad
-                works.append((g, dist.all_reduce(g, group=group,
-                                                 async_op=True)))
-        for g, work in works:
-            work.wait()
-            g /= sp
-
+    average_over_sp = (_grad_averager(list(model.parameters()), sp_mesh)
+                       if sp > 1 else None)
     return _make_step(model, optimizer, mesh, loss_fn, average_over_sp,
                       drop=True)
 
@@ -636,11 +720,12 @@ def reshard_state(state: TrainState | None, cfg: LlamaConfig,
     new_model = _place(cfg, mesh) if in_new else None
     new_opt = None
     if in_new:
-        new_opt = torch.optim.AdamW(new_model.parameters())
-        new_opt.param_groups[0].update(info["group"])
+        new_opt = adamw(new_model)
+        for group in new_opt.param_groups:
+            group.update(info["group"])
     old_params = dict(old_model.named_parameters()) if old_model else {}
     new_params = dict(new_model.named_parameters()) if new_model else {}
-    ref = Llama(cfg, device="meta")
+    ref = _arch(cfg)[1](cfg, device="meta")
 
     def move(shape, old_value, target):
         """The full value of one tensor of the old state into ``target``

@@ -31,8 +31,6 @@ from typing import IO, Any, Callable, Dict, Optional
 
 import torch
 
-from pytorch_operator_tpu_torch.models import llama
-
 #: Peak dense-matmul FLOPs per device (bf16, without sparsity), from
 #: NVIDIA's data sheets.  Keys are lowercased device-name prefixes, as
 #: ``torch.cuda.get_device_name`` gives them: the H100 SXM reports itself
@@ -151,15 +149,16 @@ class StepProfiler:
                   job: str = "", **kw) -> "StepProfiler":
         """Profiler sized from a LlamaConfig and a ``DeviceMesh`` (or
         one ``device`` when ``mesh`` is None): params from
-        ``llama.n_params``, device count from the mesh, peak FLOPs from
-        the device's name."""
+        ``cfg.n_params()`` (an ``MoEConfig``'s dense dispatch runs them
+        all), device count from the mesh, peak FLOPs from the device's
+        name."""
         if mesh is not None:
             device = mesh.device_type
             n_chips = mesh.size()
         else:
             n_chips = 1
         device = torch.device("cuda" if device is None else device)
-        return cls(job=job, n_params=llama.n_params(cfg), batch=batch,
+        return cls(job=job, n_params=cfg.n_params(), batch=batch,
                    seq_len=seq_len, n_chips=n_chips, device=device,
                    peak_flops=peak_flops_per_chip(device_kind(device)),
                    **kw)

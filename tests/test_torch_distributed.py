@@ -354,12 +354,13 @@ def test_sharded_step_matches_jax_mesh_step(shape, chunked_ce, tmp_path):
     for n, g in sgrads.items():
         np.testing.assert_allclose(grads[f"grad/{n}"], g, atol=1e-6,
                                    rtol=1e-5, err_msg=n)
-    # each rank holds 1/(fsdp*tp) of a tp-planned matrix and 1/fsdp of
-    # the embedding and norms (replicated over tp), moments alike
+    # each rank holds 1/(fsdp*tp) of a tp-planned matrix and of the
+    # embedding (its vocab rows split over tp), 1/fsdp of the norms
+    # (replicated over tp), moments alike
     dp, fsdp, tp = shape
     for n, s in res["sizes"].items():
         module = n.split(".")[-2] if "." in n else n
-        split = fsdp * tp if module in TP_PLANNED else fsdp
+        split = fsdp * tp if module in TP_PLANNED + ("embed",) else fsdp
         assert s["local"] * split == s["full"], (n, s)
         assert s["moments"] == [s["local"], s["local"]], (n, s)
         assert s["moments_dtensor"], n

@@ -518,3 +518,203 @@ def reshard_worker(rank, world, port, out_dir):
     with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
+
+
+def moe_step_worker(rank, world, port, spec_path, out_path):
+    """The MoE step on the spec's (dp, fsdp, tp, ep) mesh: sharded_init
+    against the unsharded init, the JAX weights loaded and ``steps``
+    steps on the spec's global batches.  Rank 0 writes losses, grad
+    norms, the first step's gathered gradients and each parameter's
+    local and full sizes; every rank writes the gathered values of the
+    parameters the ep ranks replicate, after the steps."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama, moe
+    from pytorch_operator_tpu_torch.parallel.mesh import make_named_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, make_train_step, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    data = np.load(spec["arrays"])
+    maybe_init_distributed("cpu")
+    mesh = make_named_mesh(dict(zip(("dp", "fsdp", "tp", "ep"),
+                                    spec["mesh"])), "cpu")
+    cfg = moe.tiny(**spec["cfg"])
+    try:  # the ep dim splits experts, which a Llama model lacks
+        sharded_init(llama.tiny(), mesh)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+
+    model = sharded_init(cfg, mesh, seed=spec["init_seed"])
+    ref = moe.MoELlama(cfg, device="cpu", generator=torch.Generator(
+        ).manual_seed(spec["init_seed"]))
+    init_bitwise = all(
+        torch.equal(llama.full_value(p), r)
+        for p, r in zip(model.parameters(), ref.parameters()))
+    del ref
+    tree = {"embed": data["embed"], "final_norm": data["final_norm"],
+            "layers": {k[len("layers/"):]: data[k] for k in data.files
+                       if k.startswith("layers/")}}
+    moe.load_jax_params(model, tree)
+    optimizer = adamw(model, spec["lr"], weight_decay=spec["wd"])
+    step = make_train_step(cfg, model, optimizer, mesh=mesh,
+                           chunked_ce=spec["chunked_ce"],
+                           ce_chunk=spec["ce_chunk"])
+    state = TrainState(model, optimizer)
+    losses, norms, grads = [], [], {}
+    for i in range(spec["steps"]):
+        state, m = step(state, data[f"batch{i}"])
+        losses.append(m["loss"].item())
+        norms.append(m["grad_norm"].item())
+        if i == 0:
+            grads = {n: _full(p.grad) for n, p in model.named_parameters()}
+    replicated = {n: _full(p) for n, p in model.named_parameters()
+                  if n.rsplit(".", 1)[-1] not in moe.EXPERT_BANKS}
+    sizes = {n: [p.to_local().numel() if hasattr(p, "to_local")
+                 else p.numel(), p.numel()]
+             for n, p in model.named_parameters()}
+    np.savez(f"{out_path}.{rank}.npz", **replicated)
+    if rank == 0:
+        np.savez(out_path, **{f"grad/{n}": g for n, g in grads.items()})
+        with open(out_path + ".json", "w") as f:
+            json.dump({"losses": losses, "norms": norms, "sizes": sizes,
+                       "init_bitwise": init_bitwise, "refusal": refusal},
+                      f)
+    dist.destroy_process_group()
+
+
+def moe_ep_average_worker(rank, world, port, out_path):
+    """Two steps of the tiny MoE on ep ``world`` whose ranks compute the
+    attention's gradients apart: a hook scales rank r's wq gradients by
+    1 + r/1000, as a backward that sums in an order that changes from run
+    to run differs in its rounding.  Rank 0 writes whether, after each
+    step, every parameter and gradient the ep ranks replicate is bit for
+    bit equal on every rank, and how far its wq gradients are from the
+    mean of the ranks' scales times its own unscaled ones."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import moe
+    from pytorch_operator_tpu_torch.parallel.mesh import make_named_mesh
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, make_train_step, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    maybe_init_distributed("cpu")
+    mesh = make_named_mesh({"dp": 1, "fsdp": 1, "tp": 1, "ep": world}, "cpu")
+    cfg = moe.tiny()
+    model = sharded_init(cfg, mesh, seed=3)
+    unscaled = {}
+    for i, blk in enumerate(model.layers):
+        def scale(g, i=i):
+            unscaled[i] = g.clone()
+            return g * (1 + rank / 1000)
+        blk.wq.weight.register_hook(scale)
+    optimizer = adamw(model, 1e-3)
+    step = make_train_step(cfg, model, optimizer, mesh=mesh)
+    state = TrainState(model, optimizer)
+    mean_scale = 1 + (world - 1) / 2000
+    res = {"params_equal": [], "grads_equal": [], "wq_grad_rel_err": []}
+    for i in range(2):
+        batch = np.random.default_rng(i).integers(0, cfg.vocab_size,
+                                                  (2, 17))
+        state, _ = step(state, batch)
+        equal = {"params_equal": True, "grads_equal": True}
+        for n, p in model.named_parameters():
+            if n.rsplit(".", 1)[-1] in moe.EXPERT_BANKS:
+                continue
+            for key, t in (("params_equal", p.detach()),
+                           ("grads_equal", p.grad)):
+                copies = [torch.empty_like(t) for _ in range(world)]
+                dist.all_gather(copies, t.contiguous())
+                equal[key] &= all(torch.equal(c, copies[0])
+                                  for c in copies[1:])
+        for key, ok in equal.items():
+            res[key].append(ok)
+        res["wq_grad_rel_err"].append(max(
+            float((blk.wq.weight.grad - mean_scale * unscaled[j]).norm()
+                  / unscaled[j].norm())
+            for j, blk in enumerate(model.layers)))
+    if rank == 0:
+        with open(out_path, "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def vocab_tp_worker(rank, world, port, in_path, out_dir):
+    """The vocab-split tied head on four gloo ranks: one step's loss and
+    gathered gradients through the plain and the chunked head on dp 2 x
+    tp 2 (``make_train_step``) and through ``forward_sp`` on sp 2 x tp 2
+    (``make_sp_train_step``, ring and ulysses); the embedding's local
+    shape and placements; the dp 2 x tp 2 state after its step saved,
+    restored on fsdp 4 (tp 1) and resharded back onto dp 2 x tp 2, each
+    stop's gathered values against the first.  Rank 0 writes the
+    results."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch.models import llama
+    from pytorch_operator_tpu_torch.parallel.mesh import (
+        make_mesh, make_sp_mesh)
+    from pytorch_operator_tpu_torch.parallel.train import (
+        TrainState, adamw, make_sp_train_step, make_train_step,
+        reshard_state, restore_on_mesh, save_checkpoint, sharded_init)
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    data = np.load(in_path)
+    maybe_init_distributed("cpu")
+    cfg = llama.tiny(**json.loads(str(data["cfg"])))
+    tree = {"embed": data["embed"], "final_norm": data["final_norm"],
+            "layers": {k[len("layers/"):]: data[k] for k in data.files
+                       if k.startswith("layers/")}}
+    batch = data["batch"]
+    mesh22 = make_mesh(2, 1, 2, "cpu")
+    out, res = {}, {}
+
+    def state_on(mesh):
+        model = llama.load_jax_params(sharded_init(cfg, mesh), tree)
+        return TrainState(model, adamw(model))
+
+    runs = [("plain", mesh22, False, None), ("chunked", mesh22, True, None),
+            ("sp_ring", make_sp_mesh(1, 2, tp=2, device="cpu"), False,
+             "ring"),
+            ("sp_ulysses_chunked", make_sp_mesh(1, 2, tp=2, device="cpu"),
+             True, "ulysses")]
+    for name, mesh, chunked, impl in runs:
+        state = state_on(mesh)
+        kw = dict(mesh=mesh, chunked_ce=chunked, ce_chunk=6)
+        step = (make_train_step(cfg, state.model, state.optimizer, **kw)
+                if impl is None else make_sp_train_step(
+                    cfg, state.model, state.optimizer, impl=impl, **kw))
+        state, m = step(state, batch)
+        res[name] = {"loss": m["loss"].item(),
+                     "embed_local": list(state.model.embed.to_local().shape),
+                     "embed_placements": [
+                         str(p) for p in state.model.embed.placements]}
+        for n, p in state.model.named_parameters():
+            out[f"{name}/grad/{n}"] = _full(p.grad)
+        if name == "plain":
+            trained = state
+    first = gathered_state(trained)
+    ckpt = os.path.join(out_dir, "ckpt")
+    save_checkpoint(trained, ckpt)
+    tp1 = restore_on_mesh(ckpt, 1, state_on(make_mesh(1, 4, 1, "cpu")))
+    res["tp1_embed_local"] = list(tp1.model.embed.to_local().shape)
+    res["restored_at_tp1"] = _same_values(first, gathered_state(tp1))
+    back = reshard_state(tp1, cfg, mesh22)
+    res["resharded_to_tp2"] = _same_values(first, gathered_state(back))
+    res["resharded_embed_local"] = list(back.model.embed.to_local().shape)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "grads.npz"), **out)
+        with open(os.path.join(out_dir, "res.json"), "w") as f:
+            json.dump(res, f)
+    dist.destroy_process_group()
+
+
+def _same_values(a: dict, b: dict) -> bool:
+    return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                          for k in a)
