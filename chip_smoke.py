@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # every phase; needs a CUDA card (phase 13: two)
 
-The phases run in the order 1-12, 14, 15, 13.
+The phases run in the order 1-12, 14, 15, 16, 13.
 
 Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
@@ -120,7 +120,14 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             ep 4 and tp 2 x ep 2 at depth 8 (launches per step exactly
             17/8/8 on every rank, step time, MFU, each rank's peak
             memory, the NCCL share); in each, the replicated weights bit
-            for bit equal over ep;
+            for bit equal over ep; ResNet-50's global-batch BatchNorm
+            over NCCL (one process per card, f32 with TF32 off, 64^2,
+            global batch 32: the first step's loss, every gradient and
+            the running statistics against one card's step on the whole
+            batch, within RESNET_NCCL, and the step with each BatchNorm
+            on its rank's rows reported beside it), train_resnet under
+            torch.distributed.run at --batch-size 1024 (images/s beside
+            n times phase 16's) and dist_allreduce on the cards;
 14. pipe    (runs before 13) Llama-2-7B's full width at depth 8: the
             loopback pipeline of 4 virtual stages (make_pp_train_step,
             mesh=None) under GPipe and 1F1B beside the same model
@@ -143,6 +150,17 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             the two routes send to other experts); at each step the
             loss of the same weights with the kernels off within 2e-2 of
             the kernels'.
+16. resnet  (runs before 13) ResNet-50 at full width through
+            train_resnet's entry points, B256 x 224^2, bf16,
+            channels_last, SGD-Nesterov 0.1 / 0.9 under the cosine decay,
+            8 steps on the pool of 4 batches: no launch of any of the
+            port's kernels (the path runs none), the loss finite and
+            falling, step time, images/s, conv-FLOP MFU, peak memory,
+            one profiled step's device time by class (conv, batch_norm,
+            optimizer, other); the bf16 model against f32 (TF32 off) of
+            the same weights on the same batch within RESNET_BF16; then
+            train_resnet from the command line, without --device, for 3
+            steps.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -1621,11 +1639,13 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _trainer(argv: list[str], nproc: int = 1) -> str:
-    """train_llama in a process of its own (the card's first process keeps
-    its memory), or under torch.distributed.run with ``nproc`` processes
-    (one per card); its output, or the phase fails.  The processes run in
-    a session of their own, which is killed whole at the time limit."""
+def _trainer(argv: list[str], nproc: int = 1,
+             module: str = "train_llama") -> str:
+    """A trainer of the port (train_llama unless ``module`` names another
+    entry) in a process of its own (the card's first process keeps its
+    memory), or under torch.distributed.run with ``nproc`` processes (one
+    per card); its output, or the phase fails.  The processes run in a
+    session of their own, which is killed whole at the time limit."""
     import signal
 
     env = dict(os.environ)
@@ -1639,7 +1659,7 @@ def _trainer(argv: list[str], nproc: int = 1) -> str:
                    str(nproc), "--master-addr", "127.0.0.1",
                    "--master-port", str(_free_port())]
     proc = subprocess.Popen(
-        launch + ["-m", "pytorch_operator_tpu_torch.train_llama", *argv],
+        launch + ["-m", f"pytorch_operator_tpu_torch.{module}", *argv],
         cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, start_new_session=True)
     try:
@@ -1652,7 +1672,7 @@ def _trainer(argv: list[str], nproc: int = 1) -> str:
     ranks = "\n".join(ln for ln in err.splitlines()
                       if ln.startswith("[rank"))
     require(proc.returncode == 0,
-            f"train_llama {argv} failed: {ranks[-4000:]}\n{err[-2000:]}")
+            f"{module} {argv} failed: {ranks[-4000:]}\n{err[-2000:]}")
     return out
 
 
@@ -2368,6 +2388,209 @@ def run_moe_path(torch) -> dict:
 
 
 # --------------------------------------------------------------------------
+# phase 16: ResNet-50 data-parallel training on one card
+# --------------------------------------------------------------------------
+
+
+# BASELINE config 4's model at its full width and the JAX example's
+# defaults: B256 x 224^2 x 3, SGD-Nesterov 0.1 / 0.9 under the cosine decay
+# over the run's steps, the pool of min(4, steps) batches
+RESNET = dict(B=256, S=224, steps=8, lr=0.1, momentum=0.9)
+# phase 13: the same per card, BASELINE config 4's global batch on four
+RESNET_CARDS = dict(B=1024, steps=10)
+# phase 16's bf16 step against f32 with TF32 off on the same weights and
+# batch: the bound on each of the logits (max|err| / max|ref|), the first
+# step's loss (|err|) and the running statistics (worst leaf's max|err| /
+# max|ref|).  On the CPU at 64^2 B32 the errors were 1.35e-2, 2.1e-3 and
+# 3.8e-3: bf16 rounds every conv's output and the BatchNorms' outputs.
+RESNET_BF16 = dict(logits=5e-2, loss=2e-2, stats=2e-2)
+# phase 13's global-batch BatchNorm over NCCL: ResNet-50 at 64^2 in f32
+# with TF32 off, global batch 32, one step, against one card on the whole
+# batch: the loss's relative error, the worst leaf's ||g - g1|| / ||g1||
+# and the running statistics' worst leaf max|err| / max|ref|
+RESNET_NCCL = dict(S=64, B=32, loss=1e-4, grad=1e-3, stats=1e-3)
+# the profile's classes: the first whose key is in the name of an
+# operator that (directly or through its callers) launched the kernel
+RESNET_CLASSES = (("batch_norm", ("flax_batch_norm",)),
+                  ("optimizer", ("Optimizer.step",)),
+                  ("conv", ("convolution",)))
+
+
+def resnet_flops(model, image_size: int) -> float:
+    """Forward FLOPs of one image: 2·Cout·Cin·k²·Hout·Wout for every conv
+    (its output shape from a forward of one image) and 2·in·out for the
+    head.  BatchNorm, ReLU, the max-pool, the residual adds and the mean
+    are not counted.  ResNet-50 at 224^2: 8.18 GFLOP (4.09 GMAC)."""
+    import torch
+
+    from pytorch_operator_tpu_torch.models import resnet
+
+    shapes = []
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: shapes.append((mod.weight.shape, out.shape)))
+        for m in model.modules() if isinstance(m, resnet.Conv)]
+    try:
+        with torch.no_grad():
+            resnet.apply(model, model.head.weight.new_zeros(
+                (1, image_size, image_size, 3)), train=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    conv = sum(2.0 * w.numel() * o[2] * o[3] for w, o in shapes)
+    return conv + 2.0 * model.head.weight.numel()
+
+
+def profile_resnet_step(torch, step) -> dict:
+    """Device time of one more step by class (``RESNET_CLASSES``, else
+    "other": ReLU, the pads and max-pool, the residual adds, the casts,
+    the head and the loss): each kernel goes to the class of the
+    innermost operator or range above its launch whose name has a key."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    by_class: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    attributed = 0.0
+    for e in prof.events():
+        if e.device_type != DeviceType.CPU or not e.kernels:
+            continue
+        cls, node = "other", e
+        while node is not None and cls == "other":
+            cls = next((c for c, keys in RESNET_CLASSES
+                        if any(k in node.name for k in keys)), "other")
+            node = node.cpu_parent
+        for k in e.kernels:
+            by_class[cls] = by_class.get(cls, 0.0) + k.duration / 1e3
+            counts[cls] = counts.get(cls, 0) + 1
+            attributed += k.duration / 1e3
+    device = sum(e.device_time_total for e in device_events(prof)) / 1e3
+    return {"device_ms": device, "device_ms_by_class": by_class,
+            "kernel_counts": counts, "attributed_ms": attributed}
+
+
+def resnet_same_weights(torch, images, labels) -> dict:
+    """ResNet-50 of seed 0 in bf16 and in f32 (TF32 off) on the same
+    batch: one forward in training mode each, its logits, loss and
+    running statistics."""
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.models import resnet
+
+    out = {}
+    for name, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = resnet.resnet50(dtype=dtype, device="cuda", generator=gen)
+        with torch.no_grad():
+            logits, stats = resnet.apply(model, images, train=True)
+            out[name] = {"logits": logits.float(),
+                         "loss": float(F.cross_entropy(logits, labels)),
+                         "stats": {k: v.clone() for k, v in stats.items()}}
+        del model
+        free_memory(torch)
+    a, b = out["bf16"], out["f32"]
+    worst = max((float((a["stats"][k] - v).abs().max())
+                 / max(float(v.abs().max()), 1e-12), k)
+                for k, v in b["stats"].items())
+    return {"logits_rel_err": float((a["logits"] - b["logits"]).abs().max())
+            / float(b["logits"].abs().max()),
+            "loss": [a["loss"], b["loss"]],
+            "loss_abs_err": abs(a["loss"] - b["loss"]),
+            "stats_worst_rel_err": worst[0], "stats_worst_leaf": worst[1],
+            "tf32": {"cudnn": torch.backends.cudnn.allow_tf32,
+                     "matmul": torch.backends.cuda.matmul.allow_tf32},
+            "tolerance": RESNET_BF16}
+
+
+def run_resnet_path(torch) -> dict:
+    """Phase 16: ResNet-50 (25.56M parameters) at its full width, B256 x
+    224^2 x 3, bf16, channels_last, through train_resnet's entry points
+    (resnet50, sgd, make_train_step, batch_pool): SGD-Nesterov 0.1 / 0.9
+    under the cosine decay, 8 steps on the pool of 4 batches, every launch
+    count reset just before and read just after (the path runs no kernel
+    of the port: each count must stay 0).  Reported: the losses, finite
+    and falling; the step time (median after the first), images/s and
+    MFU against resnet_flops' conv + dense count, 3 x 8.18 GFLOP an image
+    a step (forward, and twice that backward; BatchNorm not counted) over
+    989 TFLOP/s; peak memory; one profiled step's device time by class
+    (conv: cuDNN's kernels; batch_norm: the port's BatchNorm forward and
+    backward; optimizer: SGD's step; other).  Then the bf16 model
+    against the f32 one of the same weights with TF32 off on the first
+    batch (``resnet_same_weights``, within RESNET_BF16), and three steps
+    of ``train_resnet`` from the command line, without --device."""
+    from pytorch_operator_tpu_torch import kernels, train_resnet
+    from pytorch_operator_tpu_torch.models import resnet
+
+    B, S, steps = RESNET["B"], RESNET["S"], RESNET["steps"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = resnet.resnet50(device="cuda", generator=gen)
+    n_params = resnet.n_params(model)
+    flops = 3.0 * resnet_flops(model, S) * B
+    optimizer = train_resnet.sgd(model, RESNET["lr"], RESNET["momentum"])
+    step = train_resnet.make_train_step(model, optimizer, RESNET["lr"],
+                                        steps)
+    pool = train_resnet.batch_pool(0, 1, B, S, 1000, min(4, steps),
+                                   torch.device("cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    kernels.reset_launches()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        loss = step(*pool[i % len(pool)])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+    counts = kernels.launch_counts()
+    step_s = statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prof = profile_resnet_step(torch, lambda: step(*pool[0]))
+    del model, optimizer, step
+    free_memory(torch)
+    same = resnet_same_weights(torch, *pool[0])
+    del pool
+    free_memory(torch)
+    cli = io.StringIO()
+    with contextlib.redirect_stdout(cli):
+        rc = train_resnet.main(["--steps", "3", "--log-interval", "1"])
+    text = cli.getvalue()
+    cli_losses = [float(x) for x in re.findall(r"^step \d+: loss=(\S+)",
+                                               text, re.MULTILINE)]
+    free_memory(torch)
+    out = {"model": "resnet50 (flax's SAME padding and BatchNorm, global "
+                    "batch statistics), bf16, channels_last",
+           "n_params": n_params,
+           "batch": B, "image": S, "steps": steps, "losses": losses,
+           "step_ms_all": [t * 1e3 for t in times],
+           "step_ms": step_s * 1e3, "images_per_s": B / step_s,
+           "train_tflops_per_step": flops / 1e12,
+           "mfu": flops / step_s / PEAK_BF16_FLOPS,
+           "peak_mem_gib": peak, "launches": counts,
+           "profile": prof, "busy_share": prof["device_ms"] / (step_s * 1e3),
+           "same_weights_f32": same,
+           "cli": {"rc": rc, "losses": cli_losses,
+                   "output": text.splitlines()},
+           "mfu_convention": "3 x conv + dense FLOPs (resnet_flops) x B / "
+                             "median step after the first / 989 TFLOP/s"}
+    emit({"resnet_path": out})
+    require(all(map(math.isfinite, losses)) and losses[-1] < losses[0],
+            f"ResNet-50's loss is not finite and falling: {losses}")
+    require(not any(counts.values()),
+            f"the ResNet path launched a kernel of the port: {counts}")
+    require(same["logits_rel_err"] <= RESNET_BF16["logits"]
+            and same["loss_abs_err"] <= RESNET_BF16["loss"]
+            and same["stats_worst_rel_err"] <= RESNET_BF16["stats"],
+            f"bf16 ResNet-50 is off the f32 one: {same}")
+    require(rc == 0 and "training complete" in text and len(cli_losses) == 3
+            and all(map(math.isfinite, cli_losses)),
+            f"train_resnet failed: {text}")
+    return out
+
+
+# --------------------------------------------------------------------------
 # phase 13: several cards
 # --------------------------------------------------------------------------
 
@@ -3000,6 +3223,153 @@ def check_moe_nccl(torch, n: int, one_card: dict | None) -> dict:
     return out
 
 
+def _resnet_bn_nccl_worker(rank, n, port, out_dir) -> None:
+    """One rank of ``check_resnet_nccl``: ResNet-50 in f32 (TF32 off) of
+    seed 0 takes one train_resnet step (DDP over the n cards) on this
+    rank's rows of one seeded global batch, its BatchNorms over the
+    global batch, and again with each BatchNorm on its rank's rows;
+    rank 0 then takes the step on the whole batch alone and writes each
+    variant's distance from it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    device = _nccl_init(rank, n, port)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from pytorch_operator_tpu_torch import train_resnet
+    from pytorch_operator_tpu_torch.models import resnet
+
+    try:
+        S, B = RESNET_NCCL["S"], RESNET_NCCL["B"]
+        rng = np.random.default_rng(0)
+        x = torch.from_numpy(rng.standard_normal(
+            (B, S, S, 3), dtype=np.float32)).to(device)
+        y = torch.from_numpy(rng.integers(0, 1000, B)).to(device)
+
+        def one_step(group, rows, global_bn=True):
+            model = resnet.resnet50(
+                dtype=torch.float32, device=device, group=group,
+                generator=torch.Generator(device=device).manual_seed(0))
+            if not global_bn:
+                for m in model.modules():
+                    if isinstance(m, resnet.FlaxBatchNorm):
+                        m.group = None
+            optimizer = train_resnet.sgd(model, 0.1, 0.9)
+            step = train_resnet.make_train_step(model, optimizer, 0.1, 1)
+            loss = step(x[rows], y[rows])
+            if group is not None:
+                dist.all_reduce(loss)
+                loss /= n
+            return {"loss": float(loss),
+                    "grads": {k: p.grad.clone()
+                              for k, p in model.named_parameters()},
+                    "stats": {k: b.clone()
+                              for k, b in model.named_buffers()}}
+
+        mine = slice(rank * B // n, (rank + 1) * B // n)
+        runs = {"global_bn": one_step(dist.group.WORLD, mine),
+                "per_rank_bn": one_step(dist.group.WORLD, mine, False)}
+        res = {}
+        if rank == 0:
+            ref = one_step(None, slice(None))
+            for label, r in runs.items():
+                g = max((float((r["grads"][k] - v).norm())
+                         / max(float(v.norm()), 1e-30), k)
+                        for k, v in ref["grads"].items())
+                st = max((float((r["stats"][k] - v).abs().max())
+                          / max(float(v.abs().max()), 1e-30), k)
+                         for k, v in ref["stats"].items())
+                res[label] = {
+                    "loss": r["loss"], "one_card_loss": ref["loss"],
+                    "loss_rel_err": abs(r["loss"] - ref["loss"])
+                    / abs(ref["loss"]),
+                    "grad_worst_rel_err": g[0], "grad_worst_leaf": g[1],
+                    "stats_worst_rel_err": st[0], "stats_worst_leaf": st[1]}
+        with open(os.path.join(out_dir, f"{rank}.json"), "w") as f:
+            json.dump(res, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def check_resnet_nccl(torch, n: int) -> dict:
+    """The global-batch BatchNorm over NCCL: one spawned process per card
+    takes train_resnet's step on its rows of one global batch
+    (``_resnet_bn_nccl_worker``); the first step's loss, every gradient
+    and the running statistics against one card's step on the whole
+    batch, within RESNET_NCCL.  The same step with each BatchNorm on its
+    rank's rows is reported beside it, and must miss the gradient bound
+    by over ten times (the check can tell the two apart)."""
+    t0 = time.perf_counter()
+    res = _on_cards(_resnet_bn_nccl_worker, n, "the NCCL BatchNorm")[0]
+    out = {"ranks": n, "backend": "nccl", "seconds": time.perf_counter() - t0,
+           "model": f"resnet50 f32 (TF32 off) at {RESNET_NCCL['S']}^2, "
+                    f"global batch {RESNET_NCCL['B']}, one step",
+           "tolerance": RESNET_NCCL, **res}
+    emit({"resnet_bn_nccl": out})
+    g = res["global_bn"]
+    require(g["loss_rel_err"] <= RESNET_NCCL["loss"]
+            and g["grad_worst_rel_err"] <= RESNET_NCCL["grad"]
+            and g["stats_worst_rel_err"] <= RESNET_NCCL["stats"],
+            f"the global-batch BatchNorm over NCCL is off one card's: {g}")
+    require(res["per_rank_bn"]["grad_worst_rel_err"]
+            > 10 * RESNET_NCCL["grad"],
+            f"per-rank BatchNorm is as close as the global one: {res}")
+    return out
+
+
+def _resnet_cli_steps(text: str, images: int) -> tuple[list, list]:
+    """Losses and step times (s) from train_resnet's log at
+    --log-interval 1: its images/sec is cumulative from the first step.
+    The ranks share one pipe, so another rank's line can run into a step
+    line at either end."""
+    rows = re.findall(r"step (\d+): loss=(\S+?) images/sec=(\d+)", text)
+    ends = [(int(i) + 1) * images / float(r) for i, _, r in rows]
+    return ([float(x) for _, x, _ in rows],
+            [b - a for a, b in zip([0.0] + ends, ends)])
+
+
+def run_resnet_cards(torch, n: int, one_card: dict | None) -> dict:
+    """train_resnet under torch.distributed.run, one process per card, at
+    --batch-size RESNET_CARDS["B"] (BASELINE config 4's global batch:
+    256 a card on four), its steady images/s (median of the steps after
+    step 1) beside n times phase 16's; then dist_allreduce on the n
+    ranks."""
+    B, steps = RESNET_CARDS["B"], RESNET_CARDS["steps"]
+    argv = ["--batch-size", str(B), "--steps", str(steps),
+            "--log-interval", "1"]
+    t0 = time.perf_counter()
+    text = _trainer(argv, nproc=n, module="train_resnet")
+    seconds = time.perf_counter() - t0
+    losses, times = _resnet_cli_steps(text, B)
+    step_s = statistics.median(times[2:])
+    peaks = {int(r): float(g) for r, g in re.findall(
+        r"\[worker (\d+)/\d+\] peak_mem_gib=(\d+\.\d{3})", text)}
+    linear = one_card and n * one_card["images_per_s"]
+    t1 = time.perf_counter()
+    smoke = _trainer([], nproc=n, module="dist_allreduce")
+    out = {"processes": n, "argv": argv, "losses": losses,
+           "step_ms_all": [t * 1e3 for t in times],
+           "steady_step_ms": step_s * 1e3, "images_per_s": B / step_s,
+           "one_card_images_per_s_times_n": linear,
+           "scaling": linear and B / step_s / linear,
+           "peak_mem_gib_by_rank": peaks, "process_s": seconds,
+           "output": text.splitlines()[:3],
+           "dist_allreduce": {"process_s": time.perf_counter() - t1,
+                              "output": smoke.splitlines()}}
+    emit({"resnet_cards": out})
+    require(len(losses) == steps and all(map(math.isfinite, losses))
+            and "training complete" in text,
+            f"train_resnet on {n} cards failed: {text}")
+    require(smoke.count(f"all_reduce ok: psum(rank) == {n * (n - 1) // 2} "
+                        f"on all {n} devices") == n
+            and smoke.count("ppermute ring echo ok") == n
+            and smoke.count("smoke-dist passed") == n,
+            f"dist_allreduce on {n} cards failed: {smoke}")
+    return out
+
+
 def _rank_reports(text: str) -> dict:
     """Each rank's peak memory and launches from train_llama's output.
     The ranks write to one pipe and one rank's line can run into
@@ -3029,10 +3399,12 @@ def pipeline_runs(n: int) -> list:
 
 
 def run_cards(torch, pipe_plain: dict | None = None,
-              moe_one_card: dict | None = None) -> dict | None:
+              moe_one_card: dict | None = None,
+              resnet_one_card: dict | None = None) -> dict | None:
     """Phase 13, with more than one card: the NCCL ring, pipeline,
-    reshard and (four cards) MoE checks, then train_llama under
-    torch.distributed.run, one process per card (``train_runs``).  A
+    reshard and (four cards) MoE checks, the global-batch BatchNorm over
+    NCCL, train_resnet and dist_allreduce on the cards, then train_llama
+    under torch.distributed.run, one process per card (``train_runs``).  A
     check that fails is reported and the phase goes on with the next,
     so that one call on several cards measures every path it can; the
     phase fails at its end if any check did."""
@@ -3060,6 +3432,8 @@ def run_cards(torch, pipe_plain: dict | None = None,
     if cards >= 4:
         attempt(check_reshard_nccl, 4)
         attempt(check_moe_nccl, 4, moe_one_card)
+    attempt(check_resnet_nccl, sp)
+    attempt(run_resnet_cards, sp, resnet_one_card)
     T, L = 32768, CARDS_LAYERS
     long_argv = SP_ARGV + ["--layers", str(L), "--steps", str(CARDS_STEPS)]
     flag = ["--model", "flagship", "--batch-size", "4", "--seq-len", "2048",
@@ -3321,7 +3695,12 @@ def run() -> tuple[str, list[dict]]:
     seconds["moe"] = time.perf_counter() - t
     t = time.perf_counter()
     free_memory(torch)
-    run_cards(torch, cli["plain"], paths["moe_path"])
+    resnet_path = run_resnet_path(torch)
+    paths["resnet_path"] = {"launches": resnet_path["launches"]}
+    seconds["resnet"] = time.perf_counter() - t
+    t = time.perf_counter()
+    free_memory(torch)
+    run_cards(torch, cli["plain"], paths["moe_path"], resnet_path)
     seconds["cards"] = time.perf_counter() - t
     emit({"phase_seconds": seconds})
 

@@ -1,9 +1,10 @@
 """Data-plane telemetry: per-step timing, tokens/s and MFU.
 
 Port of ``pytorch_operator_tpu/telemetry``' step profiler
-(``step_timer``), and the trainers' ``torch.profiler`` trace of a window
-of steps (``trace``).  The push path to the operator (``push.py``) waits for
-the slice that ports the operator seams.
+(``step_timer``), the trainer side of the push path to the operator
+(``push``: ``PushClient``, whose ``on_record`` takes the profiler's
+records), and the trainers' ``torch.profiler`` trace of a window of
+steps (``trace``).
 """
 
 from pytorch_operator_tpu_torch.telemetry.step_timer import (

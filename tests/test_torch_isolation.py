@@ -14,8 +14,9 @@ import textwrap
 import pytest
 import torch
 
-from pytorch_operator_tpu_torch import default_device, kernels
-from pytorch_operator_tpu_torch.models import llama
+from pytorch_operator_tpu_torch import (default_device, dist_allreduce,
+                                        kernels, train_resnet)
+from pytorch_operator_tpu_torch.models import llama, resnet
 
 # the modules (ops/__init__ re-exports functions of the same names)
 fa = importlib.import_module("pytorch_operator_tpu_torch.ops.flash_attention")
@@ -38,6 +39,9 @@ def test_port_and_chip_smoke_import_no_jax():
                                                       pkg.__name__ + ".")]
         for m in mods:
             importlib.import_module(m)
+        assert {pkg.__name__ + "." + m for m in (
+            "models.resnet", "train_resnet", "dist_allreduce",
+            "telemetry.push")} <= set(mods)
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -88,6 +92,15 @@ class TestDefaultDevice:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             llama.Llama(llama.tiny(n_layers=1))
+
+    @pytest.mark.parametrize("entry", [
+        lambda: resnet.resnet50(), lambda: resnet.resnet18_thin(),
+        lambda: train_resnet.main(["--tiny", "--steps", "1"]),
+        lambda: dist_allreduce.main([])])
+    def test_resnet_and_the_seams_default_to_cuda(self, monkeypatch, entry):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            entry()
 
 
 @pytest.fixture()

@@ -718,3 +718,57 @@ def vocab_tp_worker(rank, world, port, in_path, out_dir):
 def _same_values(a: dict, b: dict) -> bool:
     return sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
                                           for k in a)
+
+
+def resnet_record(model, optimizer, step, batches, rows, world) -> dict:
+    """The losses (the global batch's mean), and after each step every
+    gradient, parameter, momentum and running statistic of a
+    ``train_resnet`` step on ``rows`` of each global batch."""
+    import torch.distributed as dist
+
+    out = {}
+    for i, (x, y) in enumerate(batches):
+        loss = step(torch.from_numpy(x[rows]), torch.from_numpy(y[rows]))
+        if world > 1:
+            dist.all_reduce(loss)
+            loss /= world
+        out[f"loss{i}"] = loss.numpy()
+        for n, p in model.named_parameters():
+            out[f"{i}/grad/{n}"] = p.grad.numpy().copy()
+            out[f"{i}/param/{n}"] = p.detach().numpy().copy()
+            out[f"{i}/momentum/{n}"] = optimizer.state[p][
+                "momentum_buffer"].numpy().copy()
+        for n, b in model.named_buffers():
+            out[f"{i}/stat/{n}"] = b.numpy().copy()
+    return out
+
+
+def resnet_step_worker(rank, world, port, in_path, global_bn, out_path):
+    """``train_resnet``'s step (DDP over the world) on this rank's rows of
+    the input file's global batches, the BatchNorms over the world's
+    batch when ``global_bn`` (else each on its rank's rows); rank 0
+    writes ``resnet_record``'s arrays."""
+    _rank_env(rank, world, port)
+    import torch.distributed as dist
+
+    from pytorch_operator_tpu_torch import train_resnet
+    from pytorch_operator_tpu_torch.models import resnet
+    from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+
+    data = np.load(in_path)
+    maybe_init_distributed("cpu")
+    model = resnet.resnet18_thin(10, device="cpu", group=dist.group.WORLD,
+                                 generator=torch.Generator().manual_seed(0))
+    if not global_bn:  # DDP over the world, each BatchNorm on its rows
+        for m in model.modules():
+            if isinstance(m, resnet.FlaxBatchNorm):
+                m.group = None
+    optimizer = train_resnet.sgd(model, 0.1, 0.9)
+    step = train_resnet.make_train_step(model, optimizer, 0.1, 2)
+    B = data["x0"].shape[0]
+    rows = slice(rank * B // world, (rank + 1) * B // world)
+    batches = [(data[f"x{i}"], data[f"y{i}"]) for i in range(2)]
+    out = resnet_record(model, optimizer, step, batches, rows, world)
+    if rank == 0:
+        np.savez(out_path, **out)
+    dist.destroy_process_group()
