@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py    # every phase; needs a CUDA card (phase 13: two)
 
-The phases run in the order 1-12, 14, 15, 16, 13.
+The phases run in the order 1-12, 14, 15, 16, 17, 13.
 
 Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
@@ -35,7 +35,10 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             same inputs in turns (new, old, old, new), the forward also
             at T16384, B3 and B4 at T16384; the fused backward against
             B3 + B4 at T8192 and T16384; fp16 and f32 at D 256 and bf16
-            at D 96 (padded) at T2048, forward beside SDPA;
+            at D 96 (padded) at T2048, forward beside SDPA; B1 and B2 at
+            the MoE's and the pipeline's length, B1 x T4096 with 32 q
+            heads over 8 kv heads, D128, beside SDPA and aten's
+            backward on k and v expanded to 32 heads;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -161,6 +164,26 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             the same weights on the same batch within RESNET_BF16; then
             train_resnet from the command line, without --device, for 3
             steps.
+17. pods    (runs before 13) the operator's env written out as the JAX
+            controller renders it (operator_env: WORLD_SIZE = pods,
+            RANK = pod, the master's MASTER_ADDR localhost, a free
+            MASTER_PORT, no LOCAL_RANK), each pod a process of python
+            -m pytorch_operator_tpu_torch.launch in a session of its
+            own: one pod with every visible card runs dist_allreduce
+            (the sum over every card) and train_resnet at B256 for 3
+            steps (images/s beside phase 16's); with two cards or more,
+            two pods at once, each with half the cards in its
+            CUDA_VISIBLE_DEVICES, run dist_allreduce over all of them;
+            with four, phase 13's flagship run (--fsdp 2 --tp 2, B4 x
+            T2048) on 2 pods x 2 cards, whose losses must be within
+            2e-2 of phase 13's and whose launches per rank must equal
+            them (checked at the end of phase 13), and train_resnet at
+            --batch-size 1024 on 2 pods (images/s beside phase 13's);
+            then train_resnet started without the launcher under
+            WORLD_SIZE=1 RANK=0 with several cards visible must exit
+            non-zero naming the launcher (fault C4's guard).  Every
+            launched rank reports its kernel launches, which the
+            kernels line sums as the "pods" path.
 
 The last lines are the card (nvidia-smi), one ``{"kernels": [...]}``
 JSON line, and ``{"ok": true, "device": {...}}``.
@@ -1030,6 +1053,61 @@ def time_long_kernels(torch, gen) -> dict:
             "two_kernel_bound_ms": bound(0, 14 * D * pairs_t)[0]}
     emit({"timing": "fused_vs_two_kernel", **routes})
     res["routes"] = routes
+    return res
+
+
+# the MoE's and the pipeline's attention length, at Mixtral's heads (32 q
+# heads over 8 kv heads, D128): B1 and B2, the fused backward's route
+GQA_T4096 = dict(B=1, T=4096, H=32, Hk=8, D=128)
+
+
+def time_gqa_kernels(torch, gen) -> dict:
+    """Phase 3's GQA_T4096 row: B1 and B2 (causal, bf16), each beside its
+    plain version, its bound (q, dO and dq at 32 heads, k, v, dk and dv at
+    8; lse and delta) and the library call on the same inputs with k and
+    v expanded to the 32 q heads (SDPA's forward; aten's flash backward,
+    whose dk and dv come per q head, as B2's f32 partials do)."""
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _flash_bwd_cuda,
+        _flash_bwd_reference,
+        _flash_fwd_cuda,
+        _flash_fwd_reference,
+    )
+
+    B, T, H, Hk, D = (GQA_T4096[x] for x in ("B", "T", "H", "Hk", "D"))
+    q, k, v, g = _flash_inputs(torch, gen, B, T, H, Hk, D, False)
+    scale = D ** -0.5
+    pairs = B * H * causal_pairs(T, True)
+    ioq, iok, rows = B * T * H * D * 2, B * T * Hk * D * 2, B * H * T * 4
+    slow = dict(warmup=1, iters=3, reps=3)  # the plain versions
+    ke, ve = (x.repeat_interleave(H // Hk, dim=2) for x in (k, v))
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, ke, ve))
+    fwd = timed(lambda: _flash_fwd_cuda(q, k, v, scale, True, False),
+                lambda: _flash_fwd_reference(q, k, v, scale, True, False),
+                lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                       is_causal=True),
+                plain_kw=slow)
+    out, lse = _flash_fwd_cuda(q, k, v, scale, True, False)
+    args = (q, k, v, g, lse.reshape(B * H, T),
+            (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+                B * H, T).contiguous(), scale, True, False)
+    bwd = timed(lambda: _flash_bwd_cuda(*args),
+                lambda: _flash_bwd_reference(*args),
+                aten_flash_bwd(torch, q, ke, ve, g, scale), plain_kw=slow)
+    res = {"shape": [B, T, H, Hk, D],
+           "fwd": {**fwd, "library": "scaled_dot_product_attention, k and "
+                                     "v expanded to 32 heads",
+                   **dict(zip(("bound_ms", "bound_by"),
+                              bound(2 * ioq + 2 * iok + rows,
+                                    4 * D * pairs)))},
+           "bwd": {**bwd, "library": "aten._scaled_dot_product_flash_"
+                                     "attention_backward, k and v expanded",
+                   **dict(zip(("bound_ms", "bound_by"),
+                              bound(3 * ioq + 4 * iok + 2 * rows,
+                                    10 * D * pairs)))}}
+    emit({"timing": "gqa_t4096", **res})
     return res
 
 
@@ -2532,7 +2610,7 @@ def run_resnet_path(torch) -> dict:
     optimizer = train_resnet.sgd(model, RESNET["lr"], RESNET["momentum"])
     step = train_resnet.make_train_step(model, optimizer, RESNET["lr"],
                                         steps)
-    pool = train_resnet.batch_pool(0, 1, B, S, 1000, min(4, steps),
+    pool = train_resnet.batch_pool(0, 0, 1, B, S, 1000, min(4, steps),
                                    torch.device("cuda"))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2587,6 +2665,340 @@ def run_resnet_path(torch) -> dict:
     require(rc == 0 and "training complete" in text and len(cli_losses) == 3
             and all(map(math.isfinite, cli_losses)),
             f"train_resnet failed: {text}")
+    return out
+
+
+# --------------------------------------------------------------------------
+# phase 17: the operator's pods, one process a card through the launcher
+# --------------------------------------------------------------------------
+
+
+POD_JOB = "chip-smoke"
+# phase 13's flagship run, as two pods of two cards each
+PODS_FLAGSHIP = ["--model", "flagship", "--batch-size", "4", "--seq-len",
+                 "2048", "--steps", str(CARDS_STEPS), "--log-interval", "1",
+                 "--dp", "1", "--fsdp", "2", "--tp", "2"]
+
+
+def operator_env(job: str, pods: int, rank: int, port: int) -> dict:
+    """The env the JAX operator renders into pod ``rank`` (0 the Master,
+    r the Worker r - 1) of PyTorchJob ``job`` with ``pods`` replicas and
+    the master port ``port`` (``controller/tpu_env.py::build_cluster_env``,
+    written out: this script imports nothing of the JAX package;
+    ``tests/test_torch_launch.py`` holds it against the controller's
+    rendering).  The port reads the c10d block; the TPU and JAX keys come
+    along as the operator sets them."""
+    hosts = [f"{job}-master-0"] + [f"{job}-worker-{i}"
+                                   for i in range(pods - 1)]
+    return {"MASTER_PORT": str(port),
+            "MASTER_ADDR": "localhost" if rank == 0 else hosts[0],
+            "WORLD_SIZE": str(pods), "RANK": str(rank),
+            "PYTHONUNBUFFERED": "1", "PJRT_DEVICE": "TPU",
+            "TPU_WORKER_ID": str(rank),
+            "TPU_WORKER_HOSTNAMES": ",".join(hosts),
+            "XRT_TPU_CONFIG": f"tpu_worker;{rank};"
+                              + ",".join(f"{h}:8470" for h in hosts),
+            "COORDINATOR_ADDRESS": f"{hosts[0]}:{port}",
+            "NUM_PROCESSES": str(pods), "PROCESS_ID": str(rank)}
+
+
+def _pods(torch, module: str, argv: list[str], pods: int,
+          timeout: float = 600.0, cards_per_pod: int | None = None,
+          launcher: bool = True) -> list[dict]:
+    """``pods`` pods of one job on this host, started at once, each running
+    ``python -m pytorch_operator_tpu_torch.launch
+    pytorch_operator_tpu_torch.<module> argv`` (``launcher=False``: the
+    module alone) under ``operator_env`` (the workers' MASTER_ADDR, the
+    master's service, replaced by 127.0.0.1), a free MASTER_PORT, no
+    LOCAL_RANK, and ``cards_per_pod`` of the visible cards (all of them
+    over the pods) in its CUDA_VISIBLE_DEVICES.  Each pod runs in a
+    session of its own; at the time limit each gets SIGTERM, on which the
+    launcher ends its workers (they run in sessions of their own), then
+    SIGKILL.  Each pod's rc, stdout and stderr."""
+    import signal
+    import tempfile
+
+    seen = os.environ.get("CUDA_VISIBLE_DEVICES")
+    cards = ([c.strip() for c in seen.split(",") if c.strip()] if seen
+             else [str(i) for i in range(torch.cuda.device_count())])
+    per = cards_per_pod or len(cards) // pods
+    port = _free_port()
+    procs = []
+    for rank in range(pods):
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("WORLD_SIZE", "RANK", "LOCAL_RANK", "GROUP_RANK",
+                            "MASTER_ADDR", "MASTER_PORT")}
+        env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+        env.update(operator_env(POD_JOB, pods, rank, port))
+        if rank:
+            env["MASTER_ADDR"] = "127.0.0.1"
+        env["CUDA_VISIBLE_DEVICES"] = ",".join(cards[rank * per:
+                                                     (rank + 1) * per])
+        cmd = [sys.executable, "-m"] + (
+            ["pytorch_operator_tpu_torch.launch"] if launcher else []) + [
+            f"pytorch_operator_tpu_torch.{module}", *argv]
+        out, err = tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+")
+        procs.append((subprocess.Popen(cmd, cwd=REPO, env=env, stdout=out,
+                                       stderr=err, text=True,
+                                       start_new_session=True), out, err))
+    deadline = time.monotonic() + timeout
+    try:
+        for p, _, _ in procs:
+            p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p, _, _ in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGTERM)
+        for p, _, _ in procs:
+            try:
+                p.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    res = []
+    for p, out, err in procs:
+        with out, err:
+            out.seek(0)
+            err.seek(0)
+            res.append({"rc": p.returncode, "out": out.read(),
+                        "err": err.read()})
+    return res
+
+
+def _check_allreduce(pods: list[dict], n: int) -> dict:
+    text = "".join(p["out"] for p in pods)
+    by_rank = _rank_reports(text)
+    require(all(p["rc"] == 0 for p in pods)
+            and text.count(f"all_reduce ok: psum(rank) == {n * (n - 1) // 2} "
+                           f"on all {n} devices") == n
+            and text.count("ppermute ring echo ok") == n
+            and text.count("smoke-dist passed") == n
+            and sorted(by_rank) == list(range(n)),
+            f"dist_allreduce on {len(pods)} pod(s) over {n} cards failed: "
+            + "; ".join(f"rc {p['rc']}: {p['out'][-1500:]} "
+                        f"{p['err'][-1500:]}" for p in pods))
+    return {"rcs": [p["rc"] for p in pods], "world": n, "by_rank": by_rank,
+            "output": text.splitlines()}
+
+
+def pod_launches(pods: dict) -> dict:
+    """The port's kernel launches over every rank of every launched run
+    of phase 17, from each rank's ``[worker r/n] ... launches=`` line (a
+    kernel missing from a line fails here)."""
+    return {s: sum(rep["launches"][s] for run in pods.values()
+                   if isinstance(run, dict) and "by_rank" in run
+                   for rep in run["by_rank"].values())
+            for s in KERNEL_INFO}
+
+
+def _launched_resnet(torch, pods: int, B: int, steps: int,
+                     world: int) -> dict:
+    """train_resnet on ``pods`` launched pods of ``world`` cards in all:
+    its losses, step times (median after step 1), images/s and each
+    rank's report."""
+    argv = ["--batch-size", str(B), "--steps", str(steps),
+            "--log-interval", "1"]
+    t0 = time.perf_counter()
+    runs = _pods(torch, "train_resnet", argv, pods)
+    seconds = time.perf_counter() - t0
+    text = "".join(p["out"] for p in runs)
+    losses, times = _resnet_cli_steps(text, B)
+    by_rank = _rank_reports(text)
+    require(all(p["rc"] == 0 for p in runs) and len(losses) == steps
+            and all(map(math.isfinite, losses))
+            and "training complete" in text
+            and sorted(by_rank) == list(range(world)),
+            f"launched train_resnet on {pods} pod(s) failed: "
+            + "; ".join(f"rc {p['rc']}: {p['out'][-1500:]} "
+                        f"{p['err'][-2500:]}" for p in runs))
+    step_s = statistics.median(times[1:])
+    return {"pods": pods, "argv": argv, "losses": losses,
+            "step_ms_all": [t * 1e3 for t in times],
+            "steady_step_ms": step_s * 1e3, "images_per_s": B / step_s,
+            "by_rank": by_rank, "process_s": seconds,
+            "output": text.splitlines()[:3]}
+
+
+def run_pods(torch, resnet_one_card: dict) -> dict:
+    """Phase 17: the operator's env on this host, literally
+    (``operator_env``), through ``python -m
+    pytorch_operator_tpu_torch.launch``.  One pod with every visible card:
+    dist_allreduce (the sum over every card) and train_resnet at B256
+    for 3 steps (images/s beside phase 16's).  With two cards or more,
+    two pods at once with half the cards each: dist_allreduce over all of
+    them; with four, phase 13's flagship run (fsdp 2 x tp 2, B4 x T2048)
+    on 2 pods x 2 cards (held against phase 13's run in ``check_pods``)
+    and train_resnet at --batch-size RESNET_CARDS["B"]; then the C4
+    guard: train_resnet started directly under WORLD_SIZE=1 RANK=0 with
+    no LOCAL_RANK and every card visible exits non-zero, names the
+    launcher, and trains no step."""
+    import tempfile
+
+    cards = torch.cuda.device_count()
+    res = {"cards": cards}
+    t0 = time.perf_counter()
+    res["one_pod_allreduce"] = _check_allreduce(
+        _pods(torch, "dist_allreduce", [], 1, timeout=300), cards)
+    res["one_pod_allreduce"]["process_s"] = time.perf_counter() - t0
+    r = res["one_pod_resnet"] = _launched_resnet(torch, 1, RESNET["B"], 3,
+                                                 cards)
+    r["phase16_images_per_s"] = resnet_one_card["images_per_s"]
+    if cards >= 2:
+        half = cards // 2
+        t0 = time.perf_counter()
+        res["two_pod_allreduce"] = _check_allreduce(
+            _pods(torch, "dist_allreduce", [], 2, timeout=300), 2 * half)
+        res["two_pod_allreduce"]["process_s"] = time.perf_counter() - t0
+    if cards >= 4:
+        with tempfile.TemporaryDirectory() as tmp:
+            argv = PODS_FLAGSHIP + ["--profile-dir", tmp,
+                                    "--profile-steps", "1"]
+            t0 = time.perf_counter()
+            runs = _pods(torch, "train_llama", argv, 2, cards_per_pod=2)
+            seconds = time.perf_counter() - t0
+            text = "".join(p["out"] for p in runs)
+            require(all(p["rc"] == 0 for p in runs)
+                    and "training complete" in text,
+                    "the launched flagship failed: " + "; ".join(
+                        f"rc {p['rc']}: {p['out'][-1500:]} "
+                        f"{p['err'][-2500:]}" for p in runs))
+            losses, times = _cli_steps(text, 4 * 2048)
+            step_s = statistics.median(times[2:])
+            res["flagship_pods"] = {
+                "pods": 2, "cards_per_pod": 2, "argv": argv,
+                "losses": losses, "step_ms_all": [t * 1e3 for t in times],
+                "steady_step_ms": step_s * 1e3,
+                "tokens_per_s": 4 * 2048 / step_s,
+                "profiled_step": _nccl_share(os.path.join(
+                    tmp, "trace_rank0.json")),
+                "by_rank": _rank_reports(text), "process_s": seconds,
+                "output": text.splitlines()[:3]}
+        res["resnet_pods"] = _launched_resnet(torch, 2, RESNET_CARDS["B"],
+                                              RESNET_CARDS["steps"], 4)
+    if cards >= 2:
+        [pod] = _pods(torch, "train_resnet", ["--steps", "1"], 1,
+                      timeout=300, launcher=False)
+        res["guard"] = {"rc": pod["rc"], "stderr": pod["err"][-600:]}
+        require(pod["rc"] != 0
+                and "pytorch_operator_tpu_torch.launch" in pod["err"]
+                and not re.search(r"^step \d+:", pod["out"], re.M),
+                f"train_resnet under the operator's env on {cards} cards "
+                f"did not refuse: rc {pod['rc']} {pod['out'][-1000:]} "
+                f"{pod['err'][-1000:]}")
+    emit({"pods": res})
+    return res
+
+
+def check_pods(torch, pods: dict, cards: dict | None,
+               resnet_cards: dict | None) -> dict:
+    """Phase 17's four-card runs against phase 13's on the same work: the
+    launched flagship's losses within 2e-2 of ``flagship_fsdp2_tp2``'s
+    step by step and its launches equal on every rank; step times and
+    images/s reported beside each other, not gated (NCCL between pods
+    with disjoint CUDA_VISIBLE_DEVICES may not take the NVLink P2P
+    path)."""
+    require(cards is not None and "flagship_fsdp2_tp2" in cards,
+            "phase 13's flagship_fsdp2_tp2 run is missing")
+    got, ref = pods["flagship_pods"], cards["flagship_fsdp2_tp2"]
+    diff = max(abs(a - b) for a, b in zip(got["losses"], ref["losses"]))
+    launches = {r: (got["by_rank"].get(r, {}).get("launches"),
+                    rep["launches"]) for r, rep in ref["by_rank"].items()}
+    out = {"flagship": {
+        "max_loss_abs_diff": diff, "losses": [got["losses"], ref["losses"]],
+        "steady_step_ms": [got["steady_step_ms"], ref["steady_step_ms"]],
+        "nccl_share": [got["profiled_step"].get("nccl_share"),
+                       ref["profiled_step"].get("nccl_share")],
+        "launches_equal": all(a == b for a, b in launches.values()),
+        "tolerance": "each step's loss within 2e-2 of phase 13's "
+                     "flagship_fsdp2_tp2 (bf16; the same seeded init and "
+                     "batches)"},
+        "resnet": resnet_cards and {
+            "images_per_s": [pods["resnet_pods"]["images_per_s"],
+                             resnet_cards["images_per_s"]],
+            "ratio": pods["resnet_pods"]["images_per_s"]
+            / resnet_cards["images_per_s"]},
+        "order": "[2 pods through the launcher, phase 13 under "
+                 "torch.distributed.run]"}
+    emit({"pods_vs_cards": out})
+    require(len(got["losses"]) == len(ref["losses"]) == CARDS_STEPS
+            and diff <= 2e-2, f"the launched flagship's losses are off "
+                              f"phase 13's: {out['flagship']}")
+    require(len(launches) == 4 and out["flagship"]["launches_equal"],
+            f"the launched flagship's launches differ: {launches}")
+    return out
+
+
+LAYOUT_STEPS = 16
+
+
+def time_launch_layouts(torch) -> dict:
+    """Not a phase (four cards, about 4 min): phase 17's flagship run
+    (fsdp 2 x tp 2, B4 x T2048) in three layouts, in the order T, L1,
+    L2, L1, T so that T and L1 each run early and late: under
+    torch.distributed.run (T, phase 13's), through one launcher pod of
+    the four cards (L1, what a pod renting four cards runs) and as two
+    launcher pods of two cards each (L2, phase 17's).  LAYOUT_STEPS
+    steps, no profiler; the steady step is the median of steps 2 on.
+    Every run has NCCL_DEBUG=INFO, and the transports NCCL names for its
+    channels (``via P2P/...``, ``via SHM/...``) are counted by run.
+    Losses must be within 2e-2 of the first run's; times are reported.
+    Run: ``python3 -c "import torch, chip_smoke as c; from
+    pytorch_operator_tpu_torch import kernels; kernels.build();
+    c.time_launch_layouts(torch)"``."""
+    import collections
+
+    require(torch.cuda.device_count() >= 4, "time_launch_layouts needs "
+                                            "four cards")
+    argv = list(PODS_FLAGSHIP)
+    argv[argv.index("--steps") + 1] = str(LAYOUT_STEPS)
+    nccl = {"NCCL_DEBUG": "INFO", "NCCL_DEBUG_SUBSYS": "INIT,P2P"}
+    saved = {k: os.environ.get(k) for k in nccl}
+    os.environ.update(nccl)
+    runs = []
+    try:
+        for layout in ("T", "L1", "L2", "L1", "T"):
+            t0 = time.perf_counter()
+            if layout == "T":
+                text = _trainer(argv, nproc=4)
+            else:
+                pods = _pods(torch, "train_llama", argv,
+                             1 if layout == "L1" else 2, cards_per_pod=(
+                                 4 if layout == "L1" else 2))
+                text = "".join(p["out"] + p["err"] for p in pods)
+                require(all(p["rc"] == 0 for p in pods)
+                        and "training complete" in text,
+                        f"{layout} failed: " + "; ".join(
+                            f"rc {p['rc']}: {p['err'][-2500:]}"
+                            for p in pods))
+            losses, times = _cli_steps(text, 4 * 2048)
+            require(len(losses) == LAYOUT_STEPS,
+                    f"{layout}: {len(losses)} steps")
+            steady = [t * 1e3 for t in times[2:]]
+            runs.append({
+                "layout": layout, "losses": losses,
+                "steady_step_ms": statistics.median(steady),
+                "min_ms": min(steady), "max_ms": max(steady),
+                "step_ms_all": [t * 1e3 for t in times],
+                "transports": dict(collections.Counter(
+                    re.findall(r" via (\S+)", text))),
+                "process_s": time.perf_counter() - t0})
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    diff = max(abs(a - b) for r in runs
+               for a, b in zip(r["losses"], runs[0]["losses"]))
+    out = {"runs": runs, "max_loss_abs_diff": diff,
+           "median_of_runs_ms": {
+               lay: statistics.median(r["steady_step_ms"] for r in runs
+                                      if r["layout"] == lay)
+               for lay in ("T", "L1", "L2")}}
+    emit({"launch_layouts": out})
+    require(diff <= 2e-2, f"the layouts' losses differ by {diff}")
     return out
 
 
@@ -3400,11 +3812,14 @@ def pipeline_runs(n: int) -> list:
 
 def run_cards(torch, pipe_plain: dict | None = None,
               moe_one_card: dict | None = None,
-              resnet_one_card: dict | None = None) -> dict | None:
+              resnet_one_card: dict | None = None,
+              pods: dict | None = None) -> dict | None:
     """Phase 13, with more than one card: the NCCL ring, pipeline,
     reshard and (four cards) MoE checks, the global-batch BatchNorm over
     NCCL, train_resnet and dist_allreduce on the cards, then train_llama
-    under torch.distributed.run, one process per card (``train_runs``).  A
+    under torch.distributed.run, one process per card (``train_runs``);
+    with four cards phase 17's launched runs against these
+    (``check_pods``).  A
     check that fails is reported and the phase goes on with the next,
     so that one call on several cards measures every path it can; the
     phase fails at its end if any check did."""
@@ -3433,7 +3848,7 @@ def run_cards(torch, pipe_plain: dict | None = None,
         attempt(check_reshard_nccl, 4)
         attempt(check_moe_nccl, 4, moe_one_card)
     attempt(check_resnet_nccl, sp)
-    attempt(run_resnet_cards, sp, resnet_one_card)
+    resnet_cards = attempt(run_resnet_cards, sp, resnet_one_card)
     T, L = 32768, CARDS_LAYERS
     long_argv = SP_ARGV + ["--layers", str(L), "--steps", str(CARDS_STEPS)]
     flag = ["--model", "flagship", "--batch-size", "4", "--seq-len", "2048",
@@ -3459,6 +3874,8 @@ def run_cards(torch, pipe_plain: dict | None = None,
                                                   "2", "--tp", "1"], 4,
                   2048, 16, CARDS_STEPS)]
     res = attempt(train_runs, runs + pipeline_runs(sp), pipe_plain)
+    if pods is not None and "flagship_pods" in pods:
+        attempt(check_pods, pods, res, resnet_cards)
     require(not failed, "phase 13: " + "; ".join(failed))
     return res
 
@@ -3652,6 +4069,7 @@ def run() -> tuple[str, list[dict]]:
     timing = time_kernels(torch, gen)
     timing.update(time_long_kernels(torch, gen))
     c3 = time_c3_kernels(torch, gen)
+    gqa = time_gqa_kernels(torch, gen)
     seconds["timing"] = time.perf_counter() - t
     t = time.perf_counter()
     paths["main_path"] = run_main_path(torch)
@@ -3700,7 +4118,11 @@ def run() -> tuple[str, list[dict]]:
     seconds["resnet"] = time.perf_counter() - t
     t = time.perf_counter()
     free_memory(torch)
-    run_cards(torch, cli["plain"], paths["moe_path"], resnet_path)
+    pods = run_pods(torch, resnet_path)
+    paths["pods"] = {"launches": pod_launches(pods)}
+    seconds["pods"] = time.perf_counter() - t
+    t = time.perf_counter()
+    run_cards(torch, cli["plain"], paths["moe_path"], resnet_path, pods)
     seconds["cards"] = time.perf_counter() - t
     emit({"phase_seconds": seconds})
 
@@ -3732,6 +4154,11 @@ def run() -> tuple[str, list[dict]]:
                   + ("_sm90" if c["kernels"] == "hopper" else "")}
         if row_c3:
             row["c3"] = row_c3
+        if short in ("flash_fwd_sm90", "flash_bwd_sm90"):
+            part = gqa[short.split("_")[1]]
+            row["gqa_t4096"] = {"shape": gqa["shape"], **{
+                k: part[k] for k in ("ms", "plain_ms", "library_ms",
+                                     "bound_ms", "bound_by")}}
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (

@@ -25,7 +25,8 @@ seams (the collective smoke test, the push client):
                     world size
   telemetry         the step profiler (tokens/s, MFU, JSONL step log)
                     and the push client to the operator
-  utils.distributed torch.distributed from the operator's rendezvous env
+  utils.distributed torch.distributed from the operator's rendezvous env,
+                    the JAX process index
   utils.collectives the collectives of a split region with their
                     gradients, the vocab-parallel lookup and CE
   data.mnist        the synthetic digits and the IDX loader (numpy)
@@ -38,6 +39,9 @@ seams (the collective smoke test, the push client):
   train_mnist       ``python -m pytorch_operator_tpu_torch.train_mnist``
   train_resnet      ``python -m pytorch_operator_tpu_torch.train_resnet``
   dist_allreduce    ``python -m pytorch_operator_tpu_torch.dist_allreduce``
+  launch            ``python -m pytorch_operator_tpu_torch.launch <module>``:
+                    one process a card in a pod the operator starts
+  manifests/        an H100 PyTorchJob for each job of the JAX examples
 
 Entry points run on ``cuda`` unless the caller asks for ``cpu``; on CPU
 tensors every kernel wrapper takes its plain PyTorch version.

@@ -11,6 +11,14 @@ sets the same), through ``maybe_init_distributed`` (NCCL; gloo with
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m pytorch_operator_tpu_torch.dist_allreduce --device cpu
 
+A pod of a PyTorchJob with several cards
+(``manifests/pytorch_job_sendrecv.yaml``) runs it through the launcher,
+one process a card, so that the check spans every card of every pod;
+started there directly it refuses to run on one card of several:
+
+    python -m pytorch_operator_tpu_torch.launch \\
+        pytorch_operator_tpu_torch.dist_allreduce
+
 It checks, on every rank of n:
 
   1. all-reduce: the sum of every rank's index is n(n-1)/2;
@@ -20,18 +28,21 @@ It checks, on every rank of n:
 
 A check that fails raises; each passes with the JAX script's lines
 (``all_reduce ok: ...``, ``ppermute ring echo ok``, ``smoke-dist
-passed``).  With one process (no ``WORLD_SIZE``) the ring is the rank
-itself and the sum its own 0.
+passed``), and on cuda each rank ends with ``[worker r/n]
+peak_mem_gib=... launches={...}`` as the trainers do.  With one process
+(no ``WORLD_SIZE``) the ring is the rank itself and the sum its own 0.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 
 import torch
 import torch.distributed as dist
 
+from pytorch_operator_tpu_torch import kernels
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.utils import maybe_init_distributed
 
@@ -70,6 +81,11 @@ def main(argv=None) -> int:
           f"devices", flush=True)
     print("ppermute ring echo ok", flush=True)
     print("smoke-dist passed", flush=True)
+    if device.type == "cuda":
+        # as the trainers' last line: the port's kernels launch none here
+        print(f"[worker {rank}/{n}] peak_mem_gib="
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} "
+              f"launches={json.dumps(kernels.launch_counts())}", flush=True)
     if created_group and dist.is_initialized():
         dist.destroy_process_group()
     return 0

@@ -183,4 +183,11 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict[str, int]:
+    """Every kernel's launches in this process, 0 for one whose op a
+    process never imported (an entry point that runs none of the ops
+    still reports each kernel)."""
+    from pytorch_operator_tpu_torch.ops import (  # noqa: F401  registers
+        flash_attention,
+        rms_norm,
+    )
     return {name: k.launches for name, k in KERNELS.items()}

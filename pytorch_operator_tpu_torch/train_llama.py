@@ -17,6 +17,14 @@ the mesh (all 0: ``factor_devices`` over the world size, tp at most 4);
         -m pytorch_operator_tpu_torch.train_llama --model tiny \\
         --device cpu --fsdp 2 --tp 2 --dp 1 --checkpoint-dir ckpt
 
+A pod of a PyTorchJob with several cards
+(``manifests/pytorch_job_llama_fsdp.yaml``: 32 pods of 4 cards under
+``--fsdp 32 --tp 4``) runs it through the launcher, one process a card;
+started there directly it refuses to train on one card of several:
+
+    python -m pytorch_operator_tpu_torch.launch \\
+        pytorch_operator_tpu_torch.train_llama --model 7b --fsdp 32 --tp 4
+
 Long-context training keeps the flash (out, lse) pair and the q/k/v
 projections per layer and applies the tied head per 1024 tokens:
 

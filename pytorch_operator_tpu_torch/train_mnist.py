@@ -10,6 +10,14 @@ one process per GPU, and wrap the model in ``DistributedDataParallel``
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m pytorch_operator_tpu_torch.train_mnist --device cpu
 
+A pod of a PyTorchJob with several cards
+(``manifests/pytorch_job_mnist.yaml``) runs it through the launcher, one
+process a card; started there directly it refuses to train on one card
+of several:
+
+    python -m pytorch_operator_tpu_torch.launch \\
+        pytorch_operator_tpu_torch.train_mnist --epochs 10
+
 ``--batch-size`` is the global batch, as in the JAX example: every rank
 loads the same seeded set, walks the same shuffled batches and trains
 on its rows ``[r·B/W, (r+1)·B/W)`` of each, so W ranks take the same

@@ -15,6 +15,14 @@ read the env the operator injects (``WORLD_SIZE``, ``RANK``,
     python -m torch.distributed.run --nproc-per-node 2 \\
         -m pytorch_operator_tpu_torch.train_resnet --device cpu --tiny
 
+A pod of a PyTorchJob with several cards
+(``manifests/pytorch_job_resnet.yaml``) runs it through the launcher,
+one process a card; started there directly it refuses to train on one
+card of several:
+
+    python -m pytorch_operator_tpu_torch.launch \\
+        pytorch_operator_tpu_torch.train_resnet --batch-size 1024
+
 The step is the JAX step's function over the global batch:
 
 * the BatchNorms normalise by the global batch's statistics (one
@@ -29,18 +37,23 @@ The step is the JAX step's function over the global batch:
   steps))``, k the updates done.
 
 The data are the JAX example's: each rank draws a pool of ``min(4,
-steps)`` global NHWC batches from ``np.random.default_rng(rank)``
-(images, then labels, per entry) and keeps its rows ``[r·B/n,
-(r+1)·B/n)`` on the device before the clock starts.  Lines printed:
+steps)`` global NHWC batches from ``np.random.default_rng(p)``, p the
+process index in the JAX sense (``utils.process_index``: the node rank
+under the launcher or torchrun, the pod's ``RANK`` at one process a
+pod), images then labels per entry, and keeps its rows ``[r·B/n,
+(r+1)·B/n)`` on the device before the clock starts: the rows the JAX
+example's process p puts on its devices.  Lines printed:
 ``[worker r/n] ...``, ``step i: loss=... images/sec=...`` (the global
 batch's loss; images/s from the first step, warm-up included) and
 ``training complete``; on cuda each rank ends with ``[worker r/n]
-peak_mem_gib=...``.
+peak_mem_gib=... launches={...}`` (the port's kernel launches, as
+train_llama's).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import math
 import sys
 import time
@@ -51,9 +64,13 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from pytorch_operator_tpu_torch import kernels
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.models import resnet
-from pytorch_operator_tpu_torch.utils import maybe_init_distributed
+from pytorch_operator_tpu_torch.utils import (
+    maybe_init_distributed,
+    process_index,
+)
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -119,13 +136,17 @@ def make_train_step(model: resnet.ResNet, optimizer: torch.optim.SGD,
     return step
 
 
-def batch_pool(rank: int, world: int, batch: int, image_size: int,
-               num_classes: int, entries: int, device: torch.device) -> list:
+def batch_pool(process: int, rank: int, world: int, batch: int,
+               image_size: int, num_classes: int, entries: int,
+               device: torch.device) -> list:
     """The JAX example's pool: ``entries`` global batches drawn from
-    ``np.random.default_rng(rank)`` (f32 NHWC images, then int64
-    labels), of which this rank keeps rows ``[r·B/n, (r+1)·B/n)`` on
-    ``device``."""
-    rng = np.random.default_rng(rank)
+    ``np.random.default_rng(process)`` (f32 NHWC images, then int64
+    labels), of which global rank ``rank`` keeps rows ``[r·B/n,
+    (r+1)·B/n)`` on ``device``.  ``process`` is the JAX process index
+    (``utils.process_index``): the JAX example's process p seeds its
+    draw with p and its devices, ranks p·k to p·k + k - 1 of the mesh's
+    n, hold those rows of it."""
+    rng = np.random.default_rng(process)
     shape = (batch, image_size, image_size, 3)
     rows = slice(rank * batch // world, (rank + 1) * batch // world)
     pool = []
@@ -166,8 +187,9 @@ def main(argv=None) -> int:
 
     optimizer = sgd(model, args.lr, args.momentum)
     step = make_train_step(model, optimizer, args.lr, args.steps)
-    pool = batch_pool(rank, world, args.batch_size, args.image_size,
-                      args.num_classes, min(4, args.steps), device)
+    pool = batch_pool(process_index(), rank, world, args.batch_size,
+                      args.image_size, args.num_classes, min(4, args.steps),
+                      device)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -188,9 +210,10 @@ def main(argv=None) -> int:
     if rank == 0:
         print("training complete", flush=True)
     if device.type == "cuda":
+        # the launches of the port's kernels: none on this path
         print(f"[worker {rank}/{world}] peak_mem_gib="
-              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f}",
-              flush=True)
+              f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} "
+              f"launches={json.dumps(kernels.launch_counts())}", flush=True)
     if created_group and dist.is_initialized():
         dist.destroy_process_group()
     return 0

@@ -11,6 +11,12 @@ reference example's ``should_distribute()`` decides.
 backend follows the device: NCCL for ``cuda`` (each process on the card
 ``LOCAL_RANK``), gloo for ``cpu``, which the caller must name.  A CUDA
 run never falls back to gloo: a failed NCCL start raises.
+
+The operator gives a pod one ``RANK`` and sets no ``LOCAL_RANK``, while
+a JAX process drives every chip of its host.  A pod with several cards
+therefore runs ``python -m pytorch_operator_tpu_torch.launch``, one
+process a card; a process started there directly refuses to train on
+one card of several.
 """
 
 from __future__ import annotations
@@ -33,6 +39,15 @@ def _env_int(name: str, default: int) -> int:
         raise ValueError(f"{name}={value!r} is not an integer") from None
 
 
+def process_index() -> int:
+    """This process's host index in the JAX sense (the ``pid`` the JAX
+    ``maybe_init_distributed`` returns): torchrun's ``GROUP_RANK`` (the
+    node rank, which the launcher sets to the pod's ``RANK``) where it
+    is set, else ``RANK`` (the operator's env: one process a pod), else
+    0."""
+    return _env_int("GROUP_RANK", _env_int("RANK", 0))
+
+
 def maybe_init_distributed(device: str | torch.device | None = None
                            ) -> tuple[int, int]:
     """Initialise ``torch.distributed`` when ``WORLD_SIZE`` > 1.
@@ -42,8 +57,20 @@ def maybe_init_distributed(device: str | torch.device | None = None
     starts at ``tcp://MASTER_ADDR:MASTER_PORT`` (defaults
     ``localhost:23456``, as in the JAX version) with NCCL on ``cuda``
     and gloo on ``cpu``.  A process group that already exists is kept
-    if it agrees with the env."""
+    if it agrees with the env.
+
+    Under the operator's env (``WORLD_SIZE`` set, no ``LOCAL_RANK``) on
+    a host with more than one visible card it raises: that pod needs
+    the launcher."""
     dev = default_device(device)
+    if (os.environ.get("WORLD_SIZE") and "LOCAL_RANK" not in os.environ
+            and dev.type == "cuda" and torch.cuda.device_count() > 1):
+        raise RuntimeError(
+            f"WORLD_SIZE is set without LOCAL_RANK (the operator's env: one "
+            f"process a pod) and {torch.cuda.device_count()} CUDA devices "
+            f"are visible, so this process would train on one of them; "
+            f"start the pod's processes with python -m "
+            f"pytorch_operator_tpu_torch.launch <module> [args], one a card")
     world_size = _env_int("WORLD_SIZE", 1)
     if world_size <= 1:
         return 0, 1

@@ -6,6 +6,7 @@ check runs in a fresh interpreter.
 
 import ctypes
 import importlib
+import json
 import os
 import subprocess
 import sys
@@ -13,6 +14,8 @@ import textwrap
 
 import pytest
 import torch
+
+import chip_smoke
 
 from pytorch_operator_tpu_torch import (default_device, dist_allreduce,
                                         kernels, train_resnet)
@@ -41,7 +44,7 @@ def test_port_and_chip_smoke_import_no_jax():
             importlib.import_module(m)
         assert {pkg.__name__ + "." + m for m in (
             "models.resnet", "train_resnet", "dist_allreduce",
-            "telemetry.push")} <= set(mods)
+            "telemetry.push", "launch")} <= set(mods)
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.")
@@ -53,6 +56,19 @@ def test_port_and_chip_smoke_import_no_jax():
     n, bad = res.stdout.split(" ", 1)
     assert int(n) >= 20  # every module of the package was imported
     assert bad.strip() == "[]"
+
+
+def test_launch_counts_name_every_kernel_in_a_process_without_ops():
+    """A process that imported no op module (dist_allreduce's) still
+    reports every kernel in its ranks' ``launches=`` lines, with 0."""
+    res = run_python("""
+        import json, sys
+        from pytorch_operator_tpu_torch import dist_allreduce, kernels
+        assert "pytorch_operator_tpu_torch.ops" not in sys.modules
+        print(json.dumps(kernels.launch_counts()))
+    """)
+    counts = json.loads(res.stdout.strip().splitlines()[-1])
+    assert counts == {name: 0 for name in chip_smoke.KERNEL_INFO}
 
 
 def test_kernel_modules_import_without_nvcc(tmp_path):

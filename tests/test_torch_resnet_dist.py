@@ -108,7 +108,8 @@ def test_train_resnet_cli_on_two_ranks():
     """The tiny trainer under torch.distributed.run: the batch rounded up
     to the world size, and its first loss that of one process on the
     global batch the two ranks' pools make (rank r's rows of the batch
-    rank r draws from its own seed, as the JAX example's)."""
+    that the one node draws from seed 0, as the JAX example's one
+    process on two devices)."""
     out = _torchrun("pytorch_operator_tpu_torch.train_resnet", 2,
                     "--device", "cpu", "--tiny", "--steps", "2",
                     "--batch-size", "7", "--image-size", "32",
@@ -119,7 +120,7 @@ def test_train_resnet_cli_on_two_ranks():
                                            r"images/sec=\d+$", out, re.M)]
     assert len(losses) == 2 and all(np.isfinite(losses))
     assert out.rstrip().endswith("training complete")
-    parts = [train_resnet.batch_pool(r, 2, 8, 32, 1000, 2, "cpu")[0]
+    parts = [train_resnet.batch_pool(0, r, 2, 8, 32, 1000, 2, "cpu")[0]
              for r in range(2)]
     x, y = (torch.cat(t) for t in zip(*parts))
     model = resnet.resnet18_thin(1000, device="cpu",
