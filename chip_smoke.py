@@ -9,17 +9,22 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 
 1. card     nvidia-smi's name and power limit, the device name, and the
             nvcc build of every kernel from pytorch_operator_tpu_torch/
-            csrc (timed, with ptxas' register and spill counts by kernel);
+            csrc (timed, with ptxas' register and spill counts by kernel
+            and instantiation; any spill byte in a _sm90 kernel fails);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
             card: the fused backward's route at the main path's shapes
             (plus GQA, T=1, a ragged T, non-causal, D=64/16, f32, the
-            (BH, T, D) flash_with_lse layout, fp16, head dims 48/96/200
-            zero-padded to the kernels' 64/128/256, D 256 in fp16, bf16
-            and f32 (the WMMA kernels' 32-row f32 tiles) and B*H =
-            65,536), the two-kernel route (dq, then dk/dv) at T4096 and
-            on the same variety with the route forced; the WMMA forward
-            and fused backward, which bf16 at D 64/128 no longer
-            reaches, at the main path's shape; at the long path's full
+            (BH, T, D) flash_with_lse layout, fp16 (at the main shape
+            too), head dims 48/96/200 zero-padded to the kernels'
+            64/128/256, D 256 in fp16 and bf16 (the Hopper kernels, GQA
+            at a ragged T, the bh layout) and f32 (the WMMA kernels'
+            32-row f32 tiles) and B*H = 65,536), the two-kernel route
+            (dq, then dk/dv) at T4096 and on the same variety with the
+            route forced (at fp16 D 256 B3 on WMMA beside the Hopper B4);
+            the Hopper B4's dk/dv bit for bit B2's at every bf16 and
+            fp16 instantiation (D 64/128/256); the WMMA forward
+            and fused backward, which bf16 and fp16 at D 64/128/256 no
+            longer reach, at the main path's shape; at the long path's full
             shape B1 and the Hopper and WMMA B3 and B4 against their
             plain versions on two of the heads (the Hopper B4's dk error
             beside the WMMA B4's: both form dS from the f32 P), the
@@ -34,8 +39,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             the Hopper flash kernels and their WMMA predecessors on the
             same inputs in turns (new, old, old, new), the forward also
             at T16384, B3 and B4 at T16384; the fused backward against
-            B3 + B4 at T8192 and T16384; fp16 and f32 at D 256 and bf16
-            at D 96 (padded) at T2048, forward beside SDPA; B1 and B2 at
+            B3 + B4 at T8192 and T16384; at T2048 fp16 and bf16 at D 256
+            and fp16 at D 128 (the Hopper B1 and B2, each in turns with
+            the WMMA kernel it replaced), f32 at D 256 and bf16 at D 96
+            (padded), the forward beside SDPA and the fused backward
+            beside aten's (or the reason aten refused); B1 and B2 at
             the MoE's and the pipeline's length, B1 x T4096 with 32 q
             heads over 8 kv heads, D128, beside SDPA and aten's
             backward on k and v expanded to 32 heads;
@@ -200,6 +208,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -274,6 +283,59 @@ def nvidia_smi() -> str:
         timeout=60)
     require(out.returncode == 0, f"nvidia-smi failed: {out.stdout}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_by_kernel(log: str) -> dict:
+    """Registers and spill bytes of each kernel entry in nvcc's
+    ``-Xptxas -v`` log, by demangled name without its arguments (c++filt
+    where the machine has it; else the mangled name)."""
+    by_entry, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            by_entry[entry] = {"registers": None, "spill_stores": None,
+                               "spill_loads": None}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m:
+            by_entry[entry]["spill_stores"] = int(m.group(1))
+            by_entry[entry]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            by_entry[entry]["registers"] = int(m.group(1))
+            entry = None
+    names = list(by_entry)
+    demangle = next((c for c in ("c++filt", "/usr/local/cuda/bin/cu++filt")
+                     if shutil.which(c)), None)
+    if demangle and names:
+        out = subprocess.run([demangle], input="\n".join(names),
+                             stdout=subprocess.PIPE, text=True, timeout=60)
+        readable = out.stdout.splitlines()
+        if out.returncode == 0 and len(readable) == len(names):
+            # "void (anonymous namespace)::k<__half, 256>(...)" -> k<...>
+            return {r.replace("(anonymous namespace)::", "").split("(")[0]
+                    .removeprefix("void "): by_entry[n]
+                    for n, r in zip(names, readable)}
+    return by_entry
+
+
+def check_sm90_ptxas(log: str) -> dict:
+    """Phase 1's check of the Hopper kernels' build: every instantiation
+    of a ``_sm90`` kernel spills no byte.  Returns their ptxas counts."""
+    sm90 = {name: c for name, c in ptxas_by_kernel(log).items()
+            if "_sm90" in name}
+    spilled = {name: c for name, c in sm90.items()
+               if c["spill_stores"] or c["spill_loads"]}
+    emit({"check": "sm90_ptxas", "kernels": sm90,
+          "tolerance": "0 spill bytes in every _sm90 instantiation",
+          "ok": bool(sm90) and not spilled})
+    require(bool(sm90), "ptxas reported no _sm90 kernel")
+    require(not spilled, f"ptxas spilled in a Hopper kernel: {spilled}")
+    return sm90
 
 
 def device_events(prof) -> list:
@@ -445,11 +507,16 @@ FLASH_CASES = {
     # the MoE path's attention (phase 15, phase 13's MoE runs): Mixtral's
     # 32 heads over 8 kv heads at T4096, still the fused backward
     "moe_t4096_gqa": (1, 4096, 32, 8, 128, True, False, BF16),
-    # fp16 (WMMA), head dims zero-padded to the kernels' (96 -> 128 and
-    # 48 -> 64 on the Hopper kernels, 200 -> 256 on the WMMA ones), D 256
-    # and B*H = 65,536 (the grid's y limit is 65,535)
+    # fp16 and D 256 on the Hopper kernels (fp16 at the main
+    # shape, D 256 in bf16 and fp16, GQA at a ragged T, the bh layout),
+    # head dims zero-padded to the kernels' (96 -> 128, 48 -> 64 and 200 ->
+    # 256, all Hopper) and B*H = 65,536 (the grid's y limit is 65,535)
     "fp16_d64_gqa": (2, 1000, 16, 4, 64, True, False, F16),
+    "fp16_d128_main": (2, 2048, 16, 16, 128, True, False, F16),
     "fp16_d256": (1, 1000, 8, 8, 256, True, False, F16),
+    "fp16_d256_gqa_ragged": (2, 333, 8, 2, 256, True, False, F16),
+    "d256_bf16": (1, 1000, 8, 8, 256, True, False, BF16),
+    "d256_bf16_bh": (1, 1000, 8, 4, 256, False, True, BF16),
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
     "d48_padded_non_causal": (2, 333, 8, 2, 48, False, False, BF16),
     "d200_padded_bh": (1, 500, 8, 4, 200, True, True, BF16),
@@ -479,6 +546,9 @@ TWO_KERNEL_CASES = {
     "fp16_d128": (2, 1000, 16, 4, 128, True, False, F16),
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
     "d256_bf16": (1, 1000, 8, 8, 256, True, False, BF16),
+    # B3 on WMMA beside the Hopper B4 (the route at fp16 and D 256)
+    "fp16_d256": (1, 1000, 8, 8, 256, True, False, F16),
+    "fp16_d256_gqa_bh": (1, 500, 8, 2, 256, False, True, F16),
     "bh65536_fp16": (4096, 65, 16, 8, 64, True, False, F16),
     "f32_d256": (1, 1000, 8, 8, 256, True, False, F32),
     "f32_d256_gqa_ragged": (2, 333, 8, 2, 256, True, False, F32),
@@ -529,24 +599,22 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 
 
 def flash_launches(torch, dtype, D, two) -> dict:
-    """The launches of one forward and backward: the Hopper kernels for
-    bf16 at D 64/128 (ops/flash_attention.py _sm90), else the WMMA ones;
-    the fused backward, or B3 + B4 on the two-kernel route."""
+    """The launches of one forward and backward: each kernel's Hopper or
+    WMMA version by the route (ops/flash_attention.py _sm90: B1, B2 and
+    B4 Hopper for bf16 and fp16 at D 64/128/256, B3 for bf16 at D
+    64/128); the fused backward, or B3 + B4 on the two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
     )
 
-    dt = getattr(torch, dtype)
-    sm90 = _sm90(dt, _kernel_dim(D))
-    fused = not two
-    return {"flash_fwd_sm90": int(sm90), "flash_fwd": int(not sm90),
-            "flash_bwd_sm90": int(sm90 and fused),
-            "flash_bwd": int(not sm90 and fused),
-            "flash_bwd_dq_sm90": int(sm90 and two),
-            "flash_bwd_dkv_sm90": int(sm90 and two),
-            "flash_bwd_dq": int(not sm90 and two),
-            "flash_bwd_dkv": int(not sm90 and two)}
+    dt, Dk = getattr(torch, dtype), _kernel_dim(D)
+    want = dict.fromkeys(FLASH_SYMBOLS, 0)
+    for kernel, name in (("fwd", "flash_fwd"), ("bwd", "flash_bwd"),
+                         ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+        if {"fwd": True, "bwd": not two}.get(kernel, two):
+            want[name + ("_sm90" if _sm90(kernel, dt, Dk) else "")] = 1
+    return want
 
 
 def check_flash(torch, gen, cases, route) -> dict:
@@ -644,9 +712,46 @@ def check_two_kernel_route(torch, gen) -> dict:
         fa._FUSED_DQ_BYTES = saved
 
 
+# Every instantiation of the Hopper B2 / B4 walk (dtype, D)
+SM90_WALKS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
+              (F16, 256))
+
+
+def check_dkv_bitwise(torch, gen) -> dict:
+    """The Hopper B4 is B2's walk without dq: at every instantiation its
+    dk / dv equal B2's bit for bit on the same inputs (GQA H16 / Hk4,
+    ragged T1000, causal in the (B, T, H, D) layout and not in the bh
+    one)."""
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_DKV_SM90_KERNEL,
+        BWD_SM90_KERNEL,
+        _flash_bwd_cuda,
+        _flash_bwd_dkv_cuda,
+    )
+
+    res = {}
+    for dtype, D in SM90_WALKS:
+        for causal, bh in ((True, False), (False, True)):
+            args = _bwd_args(torch, gen, 1, 1000, 16, D, dtype=dtype, Hk=4,
+                             causal=causal, bh=bh)
+            _, dkp, dvp = _flash_bwd_cuda(*args, kernel=BWD_SM90_KERNEL)
+            dkp2, dvp2 = _flash_bwd_dkv_cuda(*args,
+                                             kernel=BWD_DKV_SM90_KERNEL)
+            torch.cuda.synchronize()
+            res[f"{dtype}_d{D}_{'causal' if causal else 'bh'}"] = bool(
+                torch.equal(dkp, dkp2) and torch.equal(dvp, dvp2))
+            del args, dkp, dvp, dkp2, dvp2
+    ok = all(res.values())
+    emit({"check": "sm90_dkv_bitwise_b2", "cases": res,
+          "tolerance": "B4's dk and dv bit for bit B2's", "ok": ok})
+    require(ok, f"the Hopper B4's dk/dv differ from B2's: {res}")
+    return res
+
+
 def check_wmma_at_main(torch, gen) -> dict:
     """The WMMA forward and fused backward (flash_fwd.cu, flash_bwd.cu),
-    which bf16 at D 64/128 no longer reaches, at the main path's shape
+    which bf16 and fp16 at D 64/128/256 no longer reach, at the main
+    path's shape
     against their plain versions, so that the yardstick phase 3 times
     beside the Hopper kernels computes the same function.  Returns their
     max abs errors."""
@@ -694,19 +799,23 @@ def check_wmma_at_main(torch, gen) -> dict:
             "flash_bwd": max(e["max_abs_err"] for e in errs.values())}
 
 
-def _bwd_args(torch, gen, B, T, H, D):
-    """Backward-kernel arguments at (B, T, H, D) causal bf16: q, k, v, g,
-    lse, delta, scale, causal, layout."""
+def _bwd_args(torch, gen, B, T, H, D, dtype=BF16, Hk=None, causal=True,
+              bh=False):
+    """Backward-kernel arguments at (B, T, H, D), causal bf16 in the (B,
+    T, H, D) layout unless said otherwise: q, k, v, g, lse, delta, scale,
+    causal, layout."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _flash_fwd_cuda,
     )
 
-    q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False)
+    q, k, v, g = _flash_inputs(torch, gen, B, T, H, Hk or H, D, bh, dtype)
     scale = D ** -0.5
-    out, lse = _flash_fwd_cuda(q, k, v, scale, True, False)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
-        B * H, T).contiguous()
-    return (q, k, v, g, lse.reshape(B * H, T), delta, scale, True, False)
+    out, lse = _flash_fwd_cuda(q, k, v, scale, causal, bh)
+    delta = (g.float() * out.float()).sum(-1)
+    if not bh:
+        delta = delta.transpose(1, 2)
+    return (q, k, v, g, lse.reshape(B * H, T),
+            delta.reshape(B * H, T).contiguous(), scale, causal, bh)
 
 
 # The heads of the long shape held against the plain versions: with
@@ -823,16 +932,20 @@ def check_long_routes(torch, gen) -> dict:
 # --------------------------------------------------------------------------
 
 
-def aten_flash_bwd(torch, q, k, v, g, scale):
+def aten_flash_bwd(torch, q, k, v, g, scale, errors=None):
     """The backward alone of PyTorch's flash attention (dq, dk and dv) on
     (B, T, H, D) causal inputs, as a callable: aten's private op, whose
-    signature may move between releases (None if so)."""
+    signature may move between releases, and which refuses some dtypes
+    and head dims (None if so; the reason is printed and appended to
+    ``errors``)."""
     qt, kt, vt, gt = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     try:
         lib = torch.ops.aten._scaled_dot_product_flash_attention(
             qt, kt, vt, 0.0, True, False, scale=scale)
     except (RuntimeError, TypeError, AttributeError) as e:
         emit({"timing": "aten flash backward", "library_error": repr(e)})
+        if errors is not None:
+            errors.append(repr(e))
         return None
     lib_out, lib_lse, cq, ck, mq, mk, rng, unused = lib[:8]
     return lambda: (torch.ops.aten.
@@ -1111,10 +1224,12 @@ def time_gqa_kernels(torch, gen) -> dict:
     return res
 
 
-# C3's cases at the main path's length: fp16 and f32 at D 256 (the WMMA
-# kernels; f32 on 32-row tiles) and bf16 at D 96, zero-padded to the
-# Hopper kernels' 128: (dtype, D, heads)
-C3_CASES = {"fp16_d256": (F16, 256, 8), "f32_d256": (F32, 256, 8),
+# C3's cases at the main path's length: fp16 and bf16 at D 256 and fp16
+# at D 128 (the Hopper kernels, each beside its WMMA predecessor), f32 at
+# D 256 (the WMMA kernels on 32-row tiles) and bf16 at D 96, zero-padded
+# to the Hopper kernels' 128: (dtype, D, heads)
+C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
+            "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "bf16_d96_padded": (BF16, 96, 16)}
 
 
@@ -1122,11 +1237,15 @@ def time_c3_kernels(torch, gen) -> dict:
     """Phase 3's C3 rows at B2 x T2048, causal: the forward and the fused
     backward through their wrappers (the padding and slicing included),
     each beside its plain version, its bound (at the true D; f32 against
-    the TF32 peak, in which its products run) and, for the forward,
-    SDPA's time on the same inputs."""
+    the TF32 peak, in which its products run), the library call on the
+    same inputs (SDPA's forward; aten's flash backward, or the reason it
+    refused the shape) and, where the route takes a Hopper kernel, the
+    WMMA kernel it replaced on the same inputs, in turns."""
     import torch.nn.functional as F
 
     from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_KERNEL,
+        FWD_KERNEL,
         _flash_bwd_cuda,
         _flash_bwd_reference,
         _flash_fwd_cuda,
@@ -1146,32 +1265,46 @@ def time_c3_kernels(torch, gen) -> dict:
         io = B * T * H * D * dt.itemsize
         peak = PEAK_TF32_FLOPS if dtype == F32 else PEAK_BF16_FLOPS
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        fwd = timed(lambda: _flash_fwd_cuda(q, k, v, scale, True, False),
-                    lambda: _flash_fwd_reference(q, k, v, scale, True,
-                                                 False),
-                    lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, is_causal=True), plain_kw=slow)
         out, lse = _flash_fwd_cuda(q, k, v, scale, True, False)
         args = (q, k, v, g, lse.reshape(B * H, T),
                 (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
                     B * H, T).contiguous(), scale, True, False)
-        bwd = timed(lambda: _flash_bwd_cuda(*args),
-                    lambda: _flash_bwd_reference(*args), None,
-                    plain_kw=slow)
-        res[name] = {
-            "shape": [B, T, H, H, D], "dtype": dtype,
-            "kernels": "hopper" if _sm90(dt, _kernel_dim(D)) else "wmma",
-            "kernel_dim": _kernel_dim(D),
-            "fwd": {**fwd, "library": "scaled_dot_product_attention",
-                    **dict(zip(("bound_ms", "bound_by"),
-                               bound(4 * io + B * H * T * 4, 4 * D * pairs,
-                                     peak)))},
-            "bwd": {**bwd, "library": None,
-                    **dict(zip(("bound_ms", "bound_by"),
-                               bound(7 * io + 2 * B * H * T * 4,
-                                     10 * D * pairs, peak)))}}
-        emit({"timing": f"c3_{name}", **res[name]})
-        del q, k, v, g, qt, kt, vt, out, lse, args
+        refused = []
+        aten = aten_flash_bwd(torch, q, k, v, g, scale, refused)
+        row = {"shape": [B, T, H, H, D], "dtype": dtype,
+               "kernel_dim": _kernel_dim(D)}
+        for part, kernel_fn, plain_fn, wmma, library, nbytes, flops in (
+                ("fwd", lambda **kw: _flash_fwd_cuda(q, k, v, scale, True,
+                                                     False, **kw),
+                 lambda: _flash_fwd_reference(q, k, v, scale, True, False),
+                 FWD_KERNEL,
+                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                        is_causal=True),
+                 4 * io + B * H * T * 4, 4 * D * pairs),
+                ("bwd", lambda **kw: _flash_bwd_cuda(*args, **kw),
+                 lambda: _flash_bwd_reference(*args), BWD_KERNEL, aten,
+                 7 * io + 2 * B * H * T * 4, 10 * D * pairs)):
+            hopper = _sm90(part, dt, _kernel_dim(D))
+            if hopper:
+                new, old = in_turns(kernel_fn,
+                                    lambda f=kernel_fn, w=wmma: f(kernel=w))
+            else:
+                new = time_ms(kernel_fn)
+            lib = library and time_ms(library)
+            row[part] = {
+                **timing_row(new, time_ms(plain_fn, **slow), lib),
+                "kernel": f"flash_{part}" + ("_sm90" if hopper else ""),
+                "library": ({"fwd": "scaled_dot_product_attention",
+                             "bwd": "aten._scaled_dot_product_flash_"
+                                    "attention_backward"}[part]
+                            if library else f"aten refused: {refused[0]}"),
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound(nbytes, flops, peak)))}
+            if hopper:
+                row[part].update(previous(new, old))
+        res[name] = row
+        emit({"timing": f"c3_{name}", **row})
+        del q, k, v, g, qt, kt, vt, out, lse, args, aten
     return res
 
 
@@ -4047,6 +4180,7 @@ def run() -> tuple[str, list[dict]]:
                                           "spill", "wgmma"))
              or ln.startswith("==")]
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
+    check_sm90_ptxas(log.read_text() if log.exists() else "")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds, paths = {}, {}
@@ -4054,6 +4188,7 @@ def run() -> tuple[str, list[dict]]:
     t = time.perf_counter()
     fused = check_flash(torch, gen, FLASH_CASES, "fused")
     check_two_kernel_route(torch, gen)
+    check_dkv_bitwise(torch, gen)
     wmma = check_wmma_at_main(torch, gen)
     # B3 and B4 run on the long path only: their errors at its shape
     long = check_long_routes(torch, gen)
@@ -4144,14 +4279,12 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("f32, fp16 and D 16/32/256 only; timed beside "
-                           "its Hopper successor at its shape as the "
-                           "yardstick")
+            row["path"] = ("f32 and D 16/32 only (B3 also fp16 and D 256); "
+                           "timed beside its Hopper successor at its shape "
+                           "as the yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
-                  for part in ("fwd", "bwd")
-                  if short == {"fwd": "flash_fwd", "bwd": "flash_bwd"}[part]
-                  + ("_sm90" if c["kernels"] == "hopper" else "")}
+                  for part in ("fwd", "bwd") if c[part]["kernel"] == short}
         if row_c3:
             row["c3"] = row_c3
         if short in ("flash_fwd_sm90", "flash_bwd_sm90"):

@@ -19,7 +19,7 @@ constexpr float NEG_INF = -1e30f;
 
 // The element types the flash kernels take: the C entries' `dtype`
 // argument, as rms_norm_fwd's (0 = float32, 1 = bfloat16), and float16
-// (2, the WMMA flash kernels only).
+// (2, the flash kernels only).
 enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
 
 __device__ __forceinline__ float warp_sum(float v) {

@@ -46,6 +46,7 @@
 namespace {
 
 using namespace ptt::sm90;
+using E = __nv_bfloat16;  // bf16 only (see flash_attention.py _sm90)
 
 constexpr int BQ = 128, BK = 64, SLAB = 128;  // rows; bytes per slab row
 constexpr int THREADS = 384, STAGES = 4;
@@ -176,15 +177,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
         const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-        mma_ss<0, 0>(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
-                     kk > 0);
+        mma_ss<E, 0, 0>(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
+                        kk > 0);
       }
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
         const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
         const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-        mma_ss<0, 0>(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
-                     kk > 0);
+        mma_ss<E, 0, 0>(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
+                        kk > 0);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -206,17 +207,17 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
           if (key >= T || (causal && key > row)) p0 = 0.f;
           if (key + 1 >= T || (causal && key + 1 > row)) p1 = 0.f;
         }
-        da[t] = pack_bf16(p0 * (dp[e] - dl[r]) * scale,
-                          p1 * (dp[e + 1] - dl[r]) * scale);
+        da[t] = pack<E>(p0 * (dp[e] - dl[r]) * scale,
+                        p1 * (dp[e + 1] - dl[r]) * scale);
       }
 
       // dq += dS K: K (64 keys, D) MN-major
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs<1>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-                  da[4 * kk + 3], desc(k_addr + kk * 16 * SLAB, S::KV_SLAB),
-                  1);
+        mma_rs<E, 1>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                     da[4 * kk + 3],
+                     desc(k_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -235,7 +236,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 #pragma unroll
     for (int c = 0; c < D / 8; ++c)
       *reinterpret_cast<uint32_t*>(out + 8 * c) =
-          pack_bf16(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+          pack<E>(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
   }
 }
 
@@ -245,10 +246,10 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            int Hk, int T, int bh_layout, float scale, int causal,
            cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  int e = make_head_map(&mq, q, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map(&mdo, dout, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map(&mk, k, D, Hk, T, B, bh_layout, BK);
-  if (!e) e = make_head_map(&mv, v, D, Hk, T, B, bh_layout, BK);
+  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, BQ);
+  if (!e) e = make_head_map<E>(&mdo, dout, D, H, T, B, bh_layout, BQ);
+  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, BK);
+  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, BK);
   if (e) return e;
   const int bytes = DqSmem<D>::BYTES, tiles = (T + BQ - 1) / BQ;
   if (!ptt::grid_fits(tiles, B * H))

@@ -2,7 +2,11 @@
 // TMA tensor loads, wgmma descriptors and instructions, warp-specialisation
 // helpers, and the host-side tensor maps.
 //
-// The one layout every piece agrees on: a 64-column bf16 slab of a tile in
+// Every piece takes the element type E of the kernel's inputs: bf16
+// (__nv_bfloat16) or fp16 (__half), both 2 bytes, both multiplied by the
+// same wgmma shapes into f32 accumulators.
+//
+// The one layout every piece agrees on: a 64-column slab of a tile in
 // shared memory, 128 bytes per row, 128-byte swizzled (16-byte chunk c of
 // row r sits at chunk c ^ (r % 8)), slabs 1024-byte aligned.  TMA writes it
 // (CU_TENSOR_MAP_SWIZZLE_128B with a 64-column box), the wgmma descriptors
@@ -13,8 +17,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace ptt {
 namespace sm90 {
@@ -27,7 +34,8 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of element (r, c) (c < 64) in a 128-byte-swizzled bf16 slab.
+// Byte offset of element (r, c) (c < 64) in a 128-byte-swizzled slab of
+// 2-byte elements.
 __device__ __forceinline__ uint32_t swizzle_128b(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
 }
@@ -163,11 +171,18 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Two f32 -> one register of two bf16, `lo` in the low half: the layout
-// of an A fragment (and of a wgmma accumulator's column pair).
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// Two f32 -> one register of two E (rounded to nearest), `lo` in the low
+// half: the layout of an A fragment (and of a wgmma accumulator's column
+// pair).
+template <typename E>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  if constexpr (std::is_same_v<E, __half>) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
 __device__ __forceinline__ float ex2(float x) {
@@ -176,167 +191,197 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
-// m64nNk16, bf16 in, f32 accumulate.  The accumulator of a warpgroup's
-// 64 x N product: thread t (warp w = t / 32, lane l) holds d[i] at
+// m64nNk16, E (bf16 or fp16) in, f32 accumulate.  The accumulator of a
+// warpgroup's 64 x N product: thread t (warp w = t / 32, lane l) holds d[i] at
 //   row 16 w + l / 4 + 8 ((i / 2) % 2),  column 8 (i / 4) + 2 (l % 4) + i % 2.
 // An A fragment in registers (k16) is that layout over 16 columns, as
-// bf16 pairs: a0..a3 = columns 16 kk + {0..15} of a 64 x N accumulator
+// E pairs: a0..a3 = columns 16 kk + {0..15} of a 64 x N accumulator
 // are the pairs of d[8 kk .. 8 kk + 7].  TA / TB: 0 K-major, 1 MN-major.
 
 // d (64 x 32, f32) (+)= A (64 x 16) B (16 x 32), A and B from shared memory
 // (descriptors a, b).
-template <int TA, int TB>
+#define PTT_MMA_SS_N32(TY)                                              \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
+      "setp.ne.b32 p, %19, 0;\n"                                        \
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"              \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" TY " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "                         \
+      "da, db, p, 1, 1, %20, %21;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])               \
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),   \
+        "n"(TB))
+template <typename E, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[16], Desc a, Desc b,
                                        int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
-      "setp.ne.b32 p, %19, 0;\n"
-      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "da, db, p, 1, 1, %20, %21;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),
-        "n"(TB));
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_SS_N32(".f16.f16");
+  else
+    PTT_MMA_SS_N32(".bf16.bf16");
 }
+#undef PTT_MMA_SS_N32
 
 // d (64 x 64, f32) (+)= A (64 x 16) B (16 x 64), A and B from shared memory
 // (descriptors a, b).
-template <int TA, int TB>
+#define PTT_MMA_SS_N64(TY)                                              \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
+      "setp.ne.b32 p, %35, 0;\n"                                        \
+      "mov.b64 da, {%32, %34};\nmov.b64 db, {%33, %34};\n"              \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" TY " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "da, db, p, 1, 1, %36, %37;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),   \
+        "n"(TB))
+template <typename E, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[32], Desc a, Desc b,
                                        int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
-      "setp.ne.b32 p, %35, 0;\n"
-      "mov.b64 da, {%32, %34};\nmov.b64 db, {%33, %34};\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "da, db, p, 1, 1, %36, %37;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),
-        "n"(TB));
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_SS_N64(".f16.f16");
+  else
+    PTT_MMA_SS_N64(".bf16.bf16");
 }
+#undef PTT_MMA_SS_N64
 
-// d (64 x 64, f32) (+)= A (64 x 16, bf16 pairs in registers) B (16 x 64,
+// d (64 x 64, f32) (+)= A (64 x 16, E pairs in registers) B (16 x 64,
 // shared memory, descriptor b).
-template <int TB>
+#define PTT_MMA_RS_N64(TY)                                              \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 db;\n"                               \
+      "setp.ne.b32 p, %38, 0;\n"                                        \
+      "mov.b64 db, {%36, %37};\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32" TY " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "{%32, %33, %34, %35}, db, p, 1, 1, %39;\n}\n"                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),    \
+        "r"(accumulate), "n"(TB))
+template <typename E, int TB>
 __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        Desc b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 db;\n"
-      "setp.ne.b32 p, %38, 0;\n"
-      "mov.b64 db, {%36, %37};\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, db, p, 1, 1, %39;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),
-        "r"(accumulate), "n"(TB));
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_RS_N64(".f16.f16");
+  else
+    PTT_MMA_RS_N64(".bf16.bf16");
 }
+#undef PTT_MMA_RS_N64
 
 // d (64 x 128, f32) (+)= A (64 x 16) B (16 x 128), A and B from shared memory
 // (descriptors a, b).
-template <int TA, int TB>
+#define PTT_MMA_SS_N128(TY)                                             \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
+      "setp.ne.b32 p, %67, 0;\n"                                        \
+      "mov.b64 da, {%64, %66};\nmov.b64 db, {%65, %66};\n"              \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " {"             \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                         \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                         \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                         \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "da, db, p, 1, 1, %68, %69;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+       "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),              \
+       "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),              \
+       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+       "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),              \
+       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),              \
+       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
+       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),              \
+       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),   \
+        "n"(TB))
+template <typename E, int TA, int TB>
 __device__ __forceinline__ void mma_ss(float (&d)[64], Desc a, Desc b,
                                        int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
-      "setp.ne.b32 p, %67, 0;\n"
-      "mov.b64 da, {%64, %66};\nmov.b64 db, {%65, %66};\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "da, db, p, 1, 1, %68, %69;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-       "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-       "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-       "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),
-        "n"(TB));
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_SS_N128(".f16.f16");
+  else
+    PTT_MMA_SS_N128(".bf16.bf16");
 }
+#undef PTT_MMA_SS_N128
 
-// d (64 x 128, f32) (+)= A (64 x 16, bf16 pairs in registers) B (16 x 128,
+// d (64 x 128, f32) (+)= A (64 x 16, E pairs in registers) B (16 x 128,
 // shared memory, descriptor b).
-template <int TB>
+#define PTT_MMA_RS_N128(TY)                                             \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 db;\n"                               \
+      "setp.ne.b32 p, %70, 0;\n"                                        \
+      "mov.b64 db, {%68, %69};\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " {"             \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      "%16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      "%24, %25, %26, %27, %28, %29, %30, %31,"                         \
+      "%32, %33, %34, %35, %36, %37, %38, %39,"                         \
+      "%40, %41, %42, %43, %44, %45, %46, %47,"                         \
+      "%48, %49, %50, %51, %52, %53, %54, %55,"                         \
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "{%64, %65, %66, %67}, db, p, 1, 1, %71;\n}\n"                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),              \
+       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),              \
+       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
+       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
+       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),              \
+       "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),              \
+       "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),              \
+       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),              \
+       "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),              \
+       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),              \
+       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
+       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),              \
+       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),    \
+        "r"(accumulate), "n"(TB))
+template <typename E, int TB>
 __device__ __forceinline__ void mma_rs(float (&d)[64], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        Desc b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\n.reg .b64 db;\n"
-      "setp.ne.b32 p, %70, 0;\n"
-      "mov.b64 db, {%68, %69};\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, db, p, 1, 1, %71;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-       "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-       "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-       "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-       "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-       "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-       "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-       "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-       "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-       "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-       "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-       "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),
-        "r"(accumulate), "n"(TB));
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_RS_N128(".f16.f16");
+  else
+    PTT_MMA_RS_N128(".bf16.bf16");
 }
+#undef PTT_MMA_RS_N128
 
 // ---------------------------------------------------------------------------
 // host: tensor maps
@@ -369,12 +414,13 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The bf16 tensor at `base` as a 4-D map (D, Hx, T, Bx), innermost first,
+// The tensor of E at `base` as a 4-D map (D, Hx, T, Bx), innermost first,
 // read in boxes of (64, 1, rows, 1), 128-byte swizzled.  The port's two
 // layouts: (B, T, Hx, D) is (D, Hx, T, B); (B*Hx, T, D) is (D, 1, T, B*Hx).
 // Rows at or past T read as zeros, so the host pads nothing.
-inline int make_map(CUtensorMap* map, const void* base, int D, int Hx,
-                    int T, int Bx, int rows) {
+template <typename E>
+int make_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
+             int Bx, int rows) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hx, (cuuint64_t)T,
@@ -383,7 +429,10 @@ inline int make_map(CUtensorMap* map, const void* base, int D, int Hx,
                                  (cuuint64_t)T * Hx * D * 2};
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+  constexpr CUtensorMapDataType type = std::is_same_v<E, __half>
+                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUresult r = encode(map, type, 4,
                       const_cast<void*>(base), dims, strides, box, unit,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
                       CU_TENSOR_MAP_SWIZZLE_128B,
@@ -394,10 +443,11 @@ inline int make_map(CUtensorMap* map, const void* base, int D, int Hx,
 
 // make_map for a tensor of Hx heads in one of the port's layouts
 // (bh_layout 0: (B, T, Hx, D); 1: (B*Hx, T, D)).
-inline int make_head_map(CUtensorMap* map, const void* base, int D, int Hx,
-                         int T, int B, int bh_layout, int rows) {
-  return bh_layout ? make_map(map, base, D, 1, T, B * Hx, rows)
-                   : make_map(map, base, D, Hx, T, B, rows);
+template <typename E>
+int make_head_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
+                  int B, int bh_layout, int rows) {
+  return bh_layout ? make_map<E>(map, base, D, 1, T, B * Hx, rows)
+                   : make_map<E>(map, base, D, Hx, T, B, rows);
 }
 
 // Map coordinates (c1, c3) of head h of batch b in either layout.

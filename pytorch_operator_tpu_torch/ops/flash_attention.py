@@ -20,11 +20,14 @@ The backward takes one of the JAX module's two routes, by the same rule
               or ``csrc/flash_bwd_dkv.cu`` (``_bwd_dkv_kernel``): no
               atomics, dq bit-identical from run to run
 
-Each of the four kernels has two versions, picked by a fixed rule on
-dtype and head dim (``_sm90``), not a fallback: bf16 at D in {64, 128}
-(every model's attention but the tiny one's) takes the Hopper kernels
-built on ``wgmma``, TMA and a warp-specialized mbarrier ring; f32, fp16
-and D 16/32/256 take the WMMA kernels.  A build or launch failure of
+Each of the four kernels has two versions, picked by a fixed rule per
+kernel on dtype and (kernel) head dim (``_sm90``), not a fallback.  The
+Hopper versions are built on ``wgmma``, TMA and a warp-specialized
+mbarrier ring; the forward, the fused backward and the dk / dv kernel
+run them for bf16 and fp16 at D 64, 128 and 256, the dq kernel for bf16
+at D 64 and 128 (every model's attention but the tiny one's is bf16 at
+D 64 or 128).  Everything else, f32 and D 16/32, and the dq kernel at
+fp16 or D 256, runs the WMMA versions.  A build or launch failure of
 either raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
@@ -96,14 +99,25 @@ BWD_DKV_SM90_KERNEL = kernels.CudaKernel("flash_bwd_dkv_sm90",
 _FUSED_DQ_BYTES = 4 * 1024 * 1024
 
 
-def _sm90(dtype: torch.dtype, D: int) -> bool:
-    """True where the flash kernels run their Hopper versions
-    (``flash_fwd_sm90``, ``flash_bwd_sm90``, ``flash_bwd_dq_sm90``,
-    ``flash_bwd_dkv_sm90``): bf16 at (kernel) head dim 64 or 128.
-    Elsewhere the WMMA versions (``flash_fwd``, ``flash_bwd``,
-    ``flash_bwd_dq``, ``flash_bwd_dkv``) run; the Hopper ones are
-    bf16-only by design."""
-    return dtype == torch.bfloat16 and D in (64, 128)
+# Per flash kernel, the dtypes and kernel head dims its Hopper version
+# takes.  The dk / dv kernel is the fused kernel's walk without dq, so
+# the two take the same.
+SM90_RULE = {
+    "fwd": ((torch.bfloat16, torch.float16), (64, 128, 256)),
+    "bwd": ((torch.bfloat16, torch.float16), (64, 128, 256)),
+    "dkv": ((torch.bfloat16, torch.float16), (64, 128, 256)),
+    "dq": ((torch.bfloat16,), (64, 128)),
+}
+
+
+def _sm90(kernel: str, dtype: torch.dtype, D: int) -> bool:
+    """True where flash kernel ``kernel`` ("fwd", "bwd", "dq" or "dkv")
+    runs its Hopper version at (kernel) head dim ``D``, by SM90_RULE;
+    elsewhere its WMMA version (``flash_fwd``, ``flash_bwd``,
+    ``flash_bwd_dq``, ``flash_bwd_dkv``) runs: f32, D 16/32, and the dq
+    kernel at fp16 or D 256."""
+    dtypes, dims = SM90_RULE[kernel]
+    return dtype in dtypes and D in dims
 
 
 def _use_fused_bwd(T: int, D: int) -> bool:
@@ -284,8 +298,8 @@ def _flash_fwd_cuda(q, k, v, scale, causal, bh, kernel=None):
     out = torch.empty_like(q)
     lse = torch.empty(B * H, 1, T, dtype=torch.float32, device=q.device)
     if kernel is None:
-        kernel = FWD_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
-            FWD_KERNEL
+        kernel = FWD_SM90_KERNEL if _sm90("fwd", q.dtype, q.shape[-1]) \
+            else FWD_KERNEL
     _launch(kernel, (q, k, v, out, lse), q, k, bh, scale, causal)
     return _unpad(D, out)[0], lse
 
@@ -297,8 +311,8 @@ def _flash_bwd_cuda(q, k, v, g, lse, delta, scale, causal, bh, kernel=None):
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if kernel is None:
-        kernel = BWD_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
-            BWD_KERNEL
+        kernel = BWD_SM90_KERNEL if _sm90("bwd", q.dtype, q.shape[-1]) \
+            else BWD_KERNEL
     _launch(kernel, (q, k, v, g, lse, delta, dq, dkp, dvp), q, k, bh, scale,
             causal)
     return _unpad(D, dq, dkp, dvp)
@@ -310,8 +324,8 @@ def _flash_bwd_dq_cuda(q, k, v, g, lse, delta, scale, causal, bh,
     (*_, D), (q, k, v, g) = _checked_inputs(q, k, bh, (q, k, v, g))
     dq = torch.empty_like(q)
     if kernel is None:
-        kernel = BWD_DQ_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
-            BWD_DQ_KERNEL
+        kernel = BWD_DQ_SM90_KERNEL if _sm90("dq", q.dtype, q.shape[-1]) \
+            else BWD_DQ_KERNEL
     _launch(kernel, (q, k, v, g, lse, delta, dq), q, k, bh, scale, causal)
     return _unpad(D, dq)[0]
 
@@ -323,8 +337,8 @@ def _flash_bwd_dkv_cuda(q, k, v, g, lse, delta, scale, causal, bh,
     dkp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dvp = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     if kernel is None:
-        kernel = BWD_DKV_SM90_KERNEL if _sm90(q.dtype, q.shape[-1]) else \
-            BWD_DKV_KERNEL
+        kernel = BWD_DKV_SM90_KERNEL if _sm90("dkv", q.dtype, q.shape[-1]) \
+            else BWD_DKV_KERNEL
     _launch(kernel, (q, k, v, g, lse, delta, dkp, dvp), q, k, bh, scale,
             causal)
     return _unpad(D, dkp, dvp)

@@ -114,17 +114,25 @@ def _launches():
     return {n: kernels.KERNELS[n].launches for n in FLASH_KERNELS}
 
 
-def _want(hopper, two):
-    """One forward and backward's launches: the Hopper kernels or the WMMA
-    ones; the fused backward or B3 + B4."""
-    fused = not two
-    return {"flash_fwd_sm90": int(hopper), "flash_fwd": int(not hopper),
-            "flash_bwd_sm90": int(hopper and fused),
-            "flash_bwd": int(not hopper and fused),
-            "flash_bwd_dq_sm90": int(hopper and two),
-            "flash_bwd_dkv_sm90": int(hopper and two),
-            "flash_bwd_dq": int(not hopper and two),
-            "flash_bwd_dkv": int(not hopper and two)}
+def _hopper(kernel, dtype, D):
+    """The stated route at head dim ``D`` (padded to the kernels' next):
+    B1, B2 and B4 run Hopper for bf16 and fp16 at 64/128/256, B3 for bf16
+    at 64/128; everything else runs WMMA."""
+    D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
+    if kernel == "dq":
+        return dtype == torch.bfloat16 and D in (64, 128)
+    return dtype in (torch.bfloat16, torch.float16) and D in (64, 128, 256)
+
+
+def _want(dtype, D, two):
+    """One forward and backward's launches by the route: the Hopper or
+    the WMMA version of each kernel; the fused backward or B3 + B4."""
+    want = dict.fromkeys(FLASH_KERNELS, 0)
+    for kernel, name in (("fwd", "flash_fwd"), ("bwd", "flash_bwd"),
+                         ("dq", "flash_bwd_dq"), ("dkv", "flash_bwd_dkv")):
+        if {"fwd": True, "bwd": not two}.get(kernel, two):
+            want[name + ("_sm90" if _hopper(kernel, dtype, D) else "")] = 1
+    return want
 
 
 def _flash_case(gen, B, T, H, Hk, D, causal, dtype, bh):
@@ -160,25 +168,24 @@ TOL = {torch.bfloat16: 1e-2, torch.float32: 5e-3}
 
 
 @pytest.mark.parametrize("route", ["fused", "two_kernel"])
-@pytest.mark.parametrize("dtype,D,B,T,H,Hk,causal,bh,hopper", [
-    (torch.bfloat16, 16, 2, 200, 4, 2, True, False, False),
-    (torch.bfloat16, 32, 1, 130, 4, 4, False, False, False),
-    (torch.bfloat16, 128, 1, 300, 4, 1, True, True, True),
-    (torch.float32, 16, 2, 200, 4, 2, True, False, False),
-    (torch.float32, 64, 1, 257, 2, 2, False, False, False),
-    (torch.float32, 128, 1, 300, 4, 2, True, True, False)])
+@pytest.mark.parametrize("dtype,D,B,T,H,Hk,causal,bh", [
+    (torch.bfloat16, 16, 2, 200, 4, 2, True, False),
+    (torch.bfloat16, 32, 1, 130, 4, 4, False, False),
+    (torch.bfloat16, 128, 1, 300, 4, 1, True, True),
+    (torch.float32, 16, 2, 200, 4, 2, True, False),
+    (torch.float32, 64, 1, 257, 2, 2, False, False),
+    (torch.float32, 128, 1, 300, 4, 2, True, True)])
 def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
-                                           D, B, T, H, Hk, causal, bh,
-                                           hopper):
+                                           D, B, T, H, Hk, causal, bh):
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
     through the f32 plain forward, with exact launch counts: the Hopper
-    kernels for bf16 at D 128 only, the WMMA ones for f32 and D 16/32."""
+    kernels for bf16 at D 128 here, the WMMA ones for f32 and D 16/32."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
                                       bh)
-    assert launched == _want(hopper, two=route == "two_kernel")
+    assert launched == _want(dtype, D, two=route == "two_kernel")
     assert got[1].dtype == dtype
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
@@ -189,23 +196,23 @@ TOL[torch.float16] = 1e-2
 
 
 @pytest.mark.parametrize("route", ["fused", "two_kernel"])
-@pytest.mark.parametrize("dtype,D,hopper", [
-    (torch.float16, 64, False), (torch.float16, 128, False),
-    (torch.float16, 256, False), (torch.float16, 80, False),
-    (torch.bfloat16, 96, True), (torch.bfloat16, 48, True),
-    (torch.bfloat16, 256, False), (torch.bfloat16, 200, False),
-    (torch.float32, 96, False), (torch.float32, 256, False)])
-def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype, D,
-                                         hopper):
-    """fp16 through the WMMA kernels, and head dims between the kernels'
-    ones zero-padded to the next (D 256 through the WMMA kernels, f32 on
-    32-row tiles), against autograd through the f32 plain forward at the
-    true D, with exact launch counts (GQA H4 / Hk2, ragged T)."""
+@pytest.mark.parametrize("dtype,D", [
+    (torch.float16, 64), (torch.float16, 128), (torch.float16, 256),
+    (torch.float16, 80), (torch.bfloat16, 96), (torch.bfloat16, 48),
+    (torch.bfloat16, 256), (torch.bfloat16, 200), (torch.float32, 96),
+    (torch.float32, 256)])
+def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype,
+                                         D):
+    """fp16, D 256 and head dims between the kernels' ones zero-padded to
+    the next, against autograd through the f32 plain forward at the true
+    D, with exact launch counts by the route (GQA H4 / Hk2, ragged T):
+    Hopper B1, B2 and B4 for bf16 and fp16 up to 256, B3 on WMMA at fp16
+    and D 256, and f32 (on 32-row tiles at D 256) on WMMA."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 2, 200, 4, 2, D, True, dtype,
                                       False)
-    assert launched == _want(hopper, two=route == "two_kernel")
+    assert launched == _want(dtype, D, two=route == "two_kernel")
     for a, b in zip(got, want):
         assert a.shape == b.shape
         err = (a.float() - b.float()).abs().max().item()
@@ -213,17 +220,17 @@ def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype, D,
 
 
 @pytest.mark.parametrize("route", ["fused", "two_kernel"])
-@pytest.mark.parametrize("dtype,D,hopper", [(torch.bfloat16, 64, True),
-                                            (torch.float16, 64, False)])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
+                                     (torch.float16, 64)])
 def test_flash_batch_heads_past_the_grid_y_limit(cuda, monkeypatch, route,
-                                                 dtype, D, hopper):
+                                                 dtype, D):
     """B * H = 65,536 (one past a grid's y limit): every kernel runs it on
     its one-dimensional grid, the last heads as right as the first."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 4096, 65, 16, 8, D, True, dtype,
                                       False)
-    assert launched == _want(hopper, two=route == "two_kernel")
+    assert launched == _want(dtype, D, two=route == "two_kernel")
     for a, b in zip(got, want):
         for part in (slice(0, 8), slice(-8, None)):
             x, y = a[part].float(), b[part].float()
@@ -268,12 +275,15 @@ def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
-                                     (torch.float32, 64)])
+                                     (torch.float32, 64),
+                                     (torch.float16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256)])
 def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     """B3 sums dq without atomics: two runs give the same bits.  B4 is the
-    fused kernel's walk without dq: the Hopper B4 (bf16) gives the Hopper
-    B2's dk / dv bit for bit, the WMMA B4 (f32) the WMMA B2's (GQA H16 /
-    Hk4, ragged T)."""
+    fused kernel's walk without dq: the Hopper B4 (bf16, fp16) gives the
+    Hopper B2's dk / dv bit for bit at each instantiation, the WMMA B4
+    (f32) the WMMA B2's (GQA H16 / Hk4, ragged T)."""
     args = _bwd_args(cuda, 1, 1000, 16, 4, D, dtype, bh, causal)
     first = fa._flash_bwd_dq_cuda(*args)
     second = fa._flash_bwd_dq_cuda(*args)
@@ -282,7 +292,7 @@ def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     assert torch.equal(first, second)
     dkv = fa._flash_bwd_dkv_cuda(*args)
     fused = fa._flash_bwd_cuda(*args, kernel=(
-        fa.BWD_SM90_KERNEL if dtype == torch.bfloat16 else fa.BWD_KERNEL))
+        fa.BWD_SM90_KERNEL if _hopper("bwd", dtype, D) else fa.BWD_KERNEL))
     torch.cuda.synchronize()
     for a, b in zip(dkv, fused[1:]):
         assert torch.equal(a, b)
@@ -299,7 +309,7 @@ def test_sm90_kernels_match_plain(cuda, D, causal, T, bh):
     with exactly one launch of each and none of the WMMA kernels."""
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)
-    assert launched == _want(hopper=True, two=False)
+    assert launched == _want(torch.bfloat16, D, two=False)
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= TOL[torch.bfloat16] * b.abs().max().item() + 1e-3, err
@@ -317,10 +327,35 @@ def test_sm90_two_kernel_match_plain(cuda, monkeypatch, D, causal, T, bh):
     monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)
-    assert launched == _want(hopper=True, two=True)
+    assert launched == _want(torch.bfloat16, D, two=True)
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= TOL[torch.bfloat16] * b.abs().max().item() + 1e-3, err
+
+
+@pytest.mark.parametrize("route", ["fused", "two_kernel"])
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("T", [1, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64),
+                                     (torch.float16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256)])
+def test_sm90_fp16_and_d256_match_plain(cuda, monkeypatch, dtype, D, causal,
+                                        T, bh, route):
+    """The Hopper instantiations beyond bf16 at D 64/128 (GQA H16 / Hk4):
+    B1 with B2, or B1 with B3 (WMMA at fp16 and D 256) + B4, against
+    autograd through the f32 plain forward at T = 1, ragged T (not a
+    multiple of the 64- and 128-row tiles) and T1000, in both layouts,
+    with exact launch counts."""
+    if route == "two_kernel":
+        monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal, dtype,
+                                      bh)
+    assert launched == _want(dtype, D, two=route == "two_kernel")
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL[dtype] * b.abs().max().item() + 1e-3, err
 
 
 def test_train_llama_tiny_on_cuda(cuda, capsys):

@@ -223,17 +223,29 @@ class TestTwoKernelRoute:
         assert fa._FUSED_DQ_BYTES == jax_fa._FUSED_DQ_VMEM_BYTES
 
 
+def hopper_by_the_rule(kernel, dtype, D):
+    """The stated route, written out: the forward, the fused backward and
+    the dk / dv kernel run their Hopper versions for bf16 and fp16 at
+    kernel head dim 64, 128 or 256, the dq kernel for bf16 at 64 or 128;
+    everything else runs WMMA."""
+    if kernel == "dq":
+        return dtype == torch.bfloat16 and D in (64, 128)
+    return dtype in (torch.bfloat16, torch.float16) and D in (64, 128, 256)
+
+
 class TestHopperDispatch:
-    """Which forward and fused backward kernel a CUDA call launches: the
-    Hopper ones (``flash_fwd_sm90`` / ``flash_bwd_sm90``) for bf16 at D 64
-    or 128, the WMMA ones (``flash_fwd`` / ``flash_bwd``) elsewhere."""
+    """Which version of each flash kernel a CUDA call launches, by the
+    per-kernel rule (``_sm90``): the Hopper ones for bf16 and fp16 at D
+    64/128/256 (the dq kernel: bf16 at D 64/128), the WMMA ones
+    elsewhere."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
     @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
     def test_sm90_rule(self, dtype, D):
-        want = dtype == torch.bfloat16 and D in (64, 128)
-        assert fa._sm90(dtype, D) is want
+        for kernel in ("fwd", "bwd", "dq", "dkv"):
+            want = hopper_by_the_rule(kernel, dtype, D)
+            assert fa._sm90(kernel, dtype, D) is want, kernel
 
     @pytest.mark.parametrize("D", [64, 128])
     def test_cpu_tensors_take_the_plain_versions(self, monkeypatch, D):
@@ -276,13 +288,14 @@ class TestHopperDispatch:
 
 
 class TestTwoKernelDispatch:
-    """Which dq and dk / dv kernel a CUDA call launches: the Hopper ones
-    (``flash_bwd_dq_sm90`` / ``flash_bwd_dkv_sm90``) for bf16 at D 64 or
-    128, the WMMA ones (``flash_bwd_dq`` / ``flash_bwd_dkv``) for f32 and
-    D 16/32, by the same ``_sm90`` rule as the forward."""
+    """Which kernel each wrapper launches (the forward, the fused backward,
+    the dq and the dk / dv kernel): its Hopper version where the
+    per-kernel rule takes it (bf16 and fp16 at D 64/128/256; the dq
+    kernel bf16 at D 64/128), else its WMMA version."""
 
-    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-    @pytest.mark.parametrize("D", [16, 32, 64, 128])
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
+                                       torch.float16])
+    @pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
     def test_wrappers_pick_by_the_rule(self, monkeypatch, dtype, D):
         picked = []
         monkeypatch.setattr(fa, "_checked_inputs",
@@ -293,18 +306,24 @@ class TestTwoKernelDispatch:
         q = torch.zeros(1, 8, 2, D, dtype=dtype)
         lse = torch.zeros(2, 8)
         args = (q, q, q, q, lse, lse, D ** -0.5, True, False)
+        out, _ = fa._flash_fwd_cuda(*args[:3], D ** -0.5, True, False)
+        fa._flash_bwd_cuda(*args)
         dq = fa._flash_bwd_dq_cuda(*args)
         dkp, dvp = fa._flash_bwd_dkv_cuda(*args)
-        if dtype == torch.bfloat16 and D in (64, 128):
-            assert picked == [fa.BWD_DQ_SM90_KERNEL, fa.BWD_DKV_SM90_KERNEL]
-        else:
-            assert picked == [fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL]
-        assert dq.dtype == dtype
+        want = [(fa.FWD_SM90_KERNEL, fa.FWD_KERNEL),
+                (fa.BWD_SM90_KERNEL, fa.BWD_KERNEL),
+                (fa.BWD_DQ_SM90_KERNEL, fa.BWD_DQ_KERNEL),
+                (fa.BWD_DKV_SM90_KERNEL, fa.BWD_DKV_KERNEL)]
+        assert picked == [
+            hopper if hopper_by_the_rule(kernel, dtype, D) else wmma
+            for kernel, (hopper, wmma) in zip(("fwd", "bwd", "dq", "dkv"),
+                                              want)]
+        assert out.dtype == dq.dtype == dtype
         assert dkp.dtype == dvp.dtype == torch.float32
         # a kernel the caller names is the one launched
         fa._flash_bwd_dq_cuda(*args, kernel=fa.BWD_DQ_KERNEL)
         fa._flash_bwd_dkv_cuda(*args, kernel=fa.BWD_DKV_KERNEL)
-        assert picked[2:] == [fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL]
+        assert picked[4:] == [fa.BWD_DQ_KERNEL, fa.BWD_DKV_KERNEL]
 
 
 class TestPlainVersions:
