@@ -10,21 +10,26 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 1. card     nvidia-smi's name and power limit, the device name, and the
             nvcc build of every kernel from pytorch_operator_tpu_torch/
             csrc (timed, with ptxas' register and spill counts by kernel
-            and instantiation; any spill byte in a _sm90 kernel fails);
+            and instantiation; any spill byte in a _sm90 kernel fails),
+            and what a TMA load of f32 gives back through a FLOAT32 and
+            a TFLOAT32 tensor map (copied, rounded or truncated);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
             card: the fused backward's route at the main path's shapes
             (plus GQA, T=1, a ragged T, non-causal, D=64/16, f32, the
             (BH, T, D) flash_with_lse layout, fp16 (at the main shape
             too), head dims 48/96/200 zero-padded to the kernels'
             64/128/256, D 256 in fp16 and bf16 (the Hopper kernels, GQA
-            at a ragged T, the bh layout) and f32 (the WMMA kernels'
-            32-row f32 tiles) and B*H = 65,536), the two-kernel route
-            (dq, then dk/dv) at T4096 and on the same variety with the
-            route forced (at fp16 D 256 B3 on WMMA beside the Hopper B4);
-            the Hopper B4's dk/dv bit for bit B2's at every bf16 and
-            fp16 instantiation (D 64/128/256); the WMMA forward
-            and fused backward, which bf16 and fp16 at D 64/128/256 no
-            longer reach, at the main path's shape; at the long path's full
+            at a ragged T, the bh layout), f32 on the Hopper TF32
+            kernels (D 64 with GQA at a ragged T and in the bh layout,
+            D 128 at the main shape, the forward at D 256 beside the
+            WMMA backward's 32-row tiles) and B*H = 65,536), the
+            two-kernel route (dq, then dk/dv) at T4096 and on the same
+            variety with the route forced (at fp16, f32 and D 256 B3 on
+            WMMA beside the Hopper B4); the Hopper B4's dk/dv bit for bit
+            B2's at every bf16, fp16 and f32 instantiation; the WMMA
+            forward and fused backward, which bf16, fp16 and f32 at D
+            64/128 no longer reach, at the main path's shape in bf16 and
+            f32; at the long path's full
             shape B1 and the Hopper and WMMA B3 and B4 against their
             plain versions on two of the heads (the Hopper B4's dk error
             beside the WMMA B4's: both form dS from the f32 P), the
@@ -39,11 +44,14 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             the Hopper flash kernels and their WMMA predecessors on the
             same inputs in turns (new, old, old, new), the forward also
             at T16384, B3 and B4 at T16384; the fused backward against
-            B3 + B4 at T8192 and T16384; at T2048 fp16 and bf16 at D 256
-            and fp16 at D 128 (the Hopper B1 and B2, each in turns with
-            the WMMA kernel it replaced), f32 at D 256 and bf16 at D 96
-            (padded), the forward beside SDPA and the fused backward
-            beside aten's (or the reason aten refused); B1 and B2 at
+            B3 + B4 at T8192 and T16384; at T2048 fp16 and bf16 at D 256,
+            fp16 at D 128 and f32 at D 64, 128 and 256 (the Hopper B1 and
+            B2, each in turns with the WMMA kernel it replaced; f32's B2
+            at D 256 on WMMA), bf16 at D 96 (padded), and B3 + B4 on the
+            two-kernel route at fp16 D 256 and f32 D 128 (B3 on WMMA,
+            B4 Hopper), the forward beside SDPA and the backward beside
+            aten's flash backward (bf16, fp16) or SDPA's memory-efficient
+            backward (f32, which aten's refuses); B1 and B2 at
             the MoE's and the pipeline's length, B1 x T4096 with 32 q
             heads over 8 kv heads, D128, beside SDPA and aten's
             backward on k and v expanded to 32 heads;
@@ -338,6 +346,50 @@ def check_sm90_ptxas(log: str) -> dict:
     return sm90
 
 
+def probe_tma_tfloat32(torch) -> dict:
+    """Phase 1: what one TMA load gives back of an 8 x 32 f32 tile
+    (csrc/tma_tf32_probe.cu) through a tensor map of type FLOAT32 and of
+    type TFLOAT32, as the f32 Hopper kernels map their inputs: the bits
+    as they are, rounded to TF32 (to nearest, ties away or to even),
+    truncated to it, or otherwise.  Reported, not gated: were the
+    TFLOAT32 map to copy, wgmma would read the f32 operands as TF32 by
+    dropping their low 13 mantissa bits, which the f32 bounds hold
+    (tests/test_torch_flash_dtypes.py's truncation test)."""
+    import ctypes
+
+    from pytorch_operator_tpu_torch import kernels
+
+    fn = kernels.load().tma_tf32_probe
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(8, 32, generator=gen, device="cuda")
+    bits = x.view(torch.int32)
+    low = bits & 0x1FFF
+    trunc = bits & ~0x1FFF
+    rna = (bits + 0x1000) & ~0x1FFF
+    tie_even = (low == 0x1000) & ((bits & 0x2000) == 0)
+    rne = torch.where(tie_even, trunc, rna)
+    res = {}
+    for name, mode in (("float32", 0), ("tfloat32", 1)):
+        out = torch.full_like(x, float("nan"))
+        rc = fn(kernels.ptr(x), kernels.ptr(out), mode,
+                kernels.stream(x.device))
+        torch.cuda.synchronize()
+        if rc:
+            res[name] = f"refused: CUDA error {rc}"
+            continue
+        got = out.view(torch.int32)
+        res[name] = next((what for what, want in (
+            ("copied", bits), ("rounded to nearest, ties away", rna),
+            ("rounded to nearest, ties to even", rne),
+            ("truncated", trunc)) if torch.equal(got, want)),
+            f"other: {int((got != bits).sum())} of 256 values changed")
+    emit({"check": "tma_tfloat32", "tile": [8, 32], "loads": res,
+          "ok": True})
+    return res
+
+
 def device_events(prof) -> list:
     """The profiler's kernels and copies.  A record_function range (the
     optimizer's, say) also shows on the device and would count its
@@ -525,6 +577,11 @@ FLASH_CASES = {
     # padded to it
     "f32_d256_gqa": (2, 1000, 8, 4, 256, True, False, F32),
     "f32_d160_padded_bh": (1, 333, 8, 8, 160, False, True, F32),
+    # f32 on the Hopper kernels (TF32 wgmma): D 64 with GQA at a ragged T
+    # and in the bh layout, D 128 at the main shape
+    "f32_d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, F32),
+    "f32_d64_bh": (1, 1000, 16, 4, 64, False, True, F32),
+    "f32_d128_main": (2, 2048, 16, 16, 128, True, False, F32),
 }
 
 # The two-kernel route: T4096 at the long path's heads, then the same
@@ -552,6 +609,10 @@ TWO_KERNEL_CASES = {
     "bh65536_fp16": (4096, 65, 16, 8, 64, True, False, F16),
     "f32_d256": (1, 1000, 8, 8, 256, True, False, F32),
     "f32_d256_gqa_ragged": (2, 333, 8, 2, 256, True, False, F32),
+    # B3 on WMMA beside the Hopper B4 at f32 D 64 and 128
+    "f32_d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, F32),
+    "f32_d64_bh": (1, 1000, 16, 4, 64, False, True, F32),
+    "f32_d128_main": (2, 2048, 16, 16, 128, True, False, F32),
 }
 
 
@@ -600,9 +661,10 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
-    WMMA version by the route (ops/flash_attention.py _sm90: B1, B2 and
-    B4 Hopper for bf16 and fp16 at D 64/128/256, B3 for bf16 at D
-    64/128); the fused backward, or B3 + B4 on the two-kernel route."""
+    WMMA version by the route (ops/flash_attention.py _sm90: B1 Hopper
+    for bf16, fp16 and f32 at D 64/128/256, B2 and B4 for bf16 and fp16
+    at D 64/128/256 and f32 at D 64/128, B3 for bf16 at D 64/128); the
+    fused backward, or B3 + B4 on the two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -714,7 +776,7 @@ def check_two_kernel_route(torch, gen) -> dict:
 
 # Every instantiation of the Hopper B2 / B4 walk (dtype, D)
 SM90_WALKS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
-              (F16, 256))
+              (F16, 256), (F32, 64), (F32, 128))
 
 
 def check_dkv_bitwise(torch, gen) -> dict:
@@ -750,11 +812,10 @@ def check_dkv_bitwise(torch, gen) -> dict:
 
 def check_wmma_at_main(torch, gen) -> dict:
     """The WMMA forward and fused backward (flash_fwd.cu, flash_bwd.cu),
-    which bf16 and fp16 at D 64/128/256 no longer reach, at the main
-    path's shape
-    against their plain versions, so that the yardstick phase 3 times
-    beside the Hopper kernels computes the same function.  Returns their
-    max abs errors."""
+    which bf16, fp16 and (at D 64/128) f32 no longer reach, at the main
+    path's shape in bf16 and in f32 against their plain versions, so
+    that the yardstick phase 3 times beside the Hopper kernels computes
+    the same function.  Returns the bf16 max abs errors."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         BWD_KERNEL,
         FWD_KERNEL,
@@ -765,38 +826,47 @@ def check_wmma_at_main(torch, gen) -> dict:
     )
 
     B, T, H, D = (MAIN[x] for x in "BTHD")
-    q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False)
-    scale = D ** -0.5
-    out, lse = _flash_fwd_cuda(q, k, v, scale, True, False,
-                               kernel=FWD_KERNEL)
-    ref_out, ref_lse = _flash_fwd_reference(q.float(), k.float(), v.float(),
-                                            scale, True, False)
-    o_err, o_rel = _rel_errs(out, ref_out)
-    l_err, _ = _rel_errs(lse, ref_lse)
-    del ref_out, ref_lse
-    lse2 = lse.reshape(B * H, T)
-    delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
-        B * H, T).contiguous()
-    args = (q, k, v, g, lse2, delta, scale, True, False)
-    got = _flash_bwd_cuda(*args, kernel=BWD_KERNEL)
-    ref = _flash_bwd_reference(*args)
-    torch.cuda.synchronize()
-    ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-3
-    errs = {}
-    for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
-        errs[gname], grad_ok = _grad_errs(a, b)
-        ok &= grad_ok
-    del got, ref
-    emit({"check": "wmma_at_main", "shape": [B, T, H, H, D],
-          "out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
-                  "lse_max_abs_err": l_err}, **errs,
-          "tolerance": "as the flash_fwd and flash_bwd checks, the "
-                       "backward given the kernel's own lse and delta",
-          "ok": ok})
-    require(ok, "a WMMA flash kernel disagrees with its plain version at "
-                "the main path's shape")
-    return {"flash_fwd": o_err,
-            "flash_bwd": max(e["max_abs_err"] for e in errs.values())}
+    worst = {}
+    for dtype in (BF16, F32):
+        q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False, dtype)
+        scale = D ** -0.5
+        out, lse = _flash_fwd_cuda(q, k, v, scale, True, False,
+                                   kernel=FWD_KERNEL)
+        ref_out, ref_lse = _flash_fwd_reference(q.float(), k.float(),
+                                                v.float(), scale, True,
+                                                False)
+        o_err, o_rel = _rel_errs(out, ref_out)
+        l_err, _ = _rel_errs(lse, ref_lse)
+        del ref_out, ref_lse
+        lse2 = lse.reshape(B * H, T)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
+            B * H, T).contiguous()
+        args = (q, k, v, g, lse2, delta, scale, True, False)
+        got = _flash_bwd_cuda(*args, kernel=BWD_KERNEL)
+        ref = _flash_bwd_reference(*args)
+        torch.cuda.synchronize()
+        l_tol = 1e-3 if dtype == BF16 else 1e-2
+        ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= l_tol
+        errs = {}
+        for gname, a, b in zip(("dq", "dk", "dv"), got, ref):
+            errs[gname], grad_ok = _grad_errs(a, b)
+            ok &= grad_ok
+        del got, ref
+        emit({"check": "wmma_at_main", "shape": [B, T, H, H, D],
+              "dtype": dtype,
+              "out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
+                      "lse_max_abs_err": l_err}, **errs,
+              "tolerance": "as the flash_fwd and flash_bwd checks, the "
+                           "backward given the kernel's own lse and delta",
+              "ok": ok})
+        require(ok, f"a WMMA flash kernel disagrees with its plain version "
+                    f"at the main path's shape in {dtype}")
+        if dtype == BF16:
+            worst = {"flash_fwd": o_err,
+                     "flash_bwd": max(e["max_abs_err"]
+                                      for e in errs.values())}
+        del q, k, v, g, out, lse, args
+    return worst
 
 
 def _bwd_args(torch, gen, B, T, H, D, dtype=BF16, Hk=None, causal=True,
@@ -1224,29 +1294,70 @@ def time_gqa_kernels(torch, gen) -> dict:
     return res
 
 
+def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
+    """The backward alone of SDPA's memory-efficient attention (dq, dk and
+    dv) on (B, T, H, D) causal inputs, as a callable: autograd of
+    F.scaled_dot_product_attention under
+    sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION), the graph kept and the
+    backward alone timed.  It takes f32, which aten's flash backward
+    refuses (None if it refuses the inputs; the reason is printed and
+    appended to ``errors``)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k, v))
+    gt = g.transpose(1, 2).contiguous()
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    except RuntimeError as e:
+        emit({"timing": "SDPA memory-efficient backward",
+              "library_error": repr(e)})
+        if errors is not None:
+            errors.append(repr(e))
+        return None
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                       retain_graph=True)
+
+
 # C3's cases at the main path's length: fp16 and bf16 at D 256 and fp16
 # at D 128 (the Hopper kernels, each beside its WMMA predecessor), f32 at
-# D 256 (the WMMA kernels on 32-row tiles) and bf16 at D 96, zero-padded
-# to the Hopper kernels' 128: (dtype, D, heads)
+# D 64, 128 (the Hopper TF32 kernels, each beside its WMMA predecessor)
+# and 256 (the Hopper TF32 forward; the WMMA backward on 32-row tiles),
+# and bf16 at D 96, zero-padded to the Hopper kernels' 128: (dtype, D,
+# heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
+            "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
             "bf16_d96_padded": (BF16, 96, 16)}
+# the cases whose two-kernel route (B3 then B4) phase 3 also times: B3 on
+# WMMA at fp16 D 256, and at f32 D 128 beside the Hopper TF32 B4
+C3_TWO_KERNEL = ("fp16_d256", "f32_d128")
 
 
 def time_c3_kernels(torch, gen) -> dict:
     """Phase 3's C3 rows at B2 x T2048, causal: the forward and the fused
     backward through their wrappers (the padding and slicing included),
-    each beside its plain version, its bound (at the true D; f32 against
-    the TF32 peak, in which its products run), the library call on the
-    same inputs (SDPA's forward; aten's flash backward, or the reason it
-    refused the shape) and, where the route takes a Hopper kernel, the
-    WMMA kernel it replaced on the same inputs, in turns."""
+    and for C3_TWO_KERNEL the dq and dk / dv kernels of the two-kernel
+    route, each beside its plain version, its bound (at the true D; f32
+    against the TF32 peak, in which its products run), the library call
+    on the same inputs (SDPA's forward; aten's flash backward for bf16
+    and fp16, SDPA's memory-efficient backward for f32, which aten's
+    refuses) and, where the route takes a Hopper kernel, the WMMA kernel
+    it replaced on the same inputs, in turns."""
     import torch.nn.functional as F
 
     from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_DKV_KERNEL,
+        BWD_DQ_KERNEL,
         BWD_KERNEL,
         FWD_KERNEL,
         _flash_bwd_cuda,
+        _flash_bwd_dkv_cuda,
+        _flash_bwd_dkv_reference,
+        _flash_bwd_dq_cuda,
+        _flash_bwd_dq_reference,
         _flash_bwd_reference,
         _flash_fwd_cuda,
         _flash_fwd_reference,
@@ -1263,6 +1374,8 @@ def time_c3_kernels(torch, gen) -> dict:
         scale = D ** -0.5
         pairs = B * H * causal_pairs(T, True)
         io = B * T * H * D * dt.itemsize
+        f32 = B * T * H * D * 4
+        rows = 2 * B * H * T * 4  # lse and delta
         peak = PEAK_TF32_FLOPS if dtype == F32 else PEAK_BF16_FLOPS
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         out, lse = _flash_fwd_cuda(q, k, v, scale, True, False)
@@ -1270,20 +1383,40 @@ def time_c3_kernels(torch, gen) -> dict:
                 (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
                     B * H, T).contiguous(), scale, True, False)
         refused = []
-        aten = aten_flash_bwd(torch, q, k, v, g, scale, refused)
+        if dtype == F32:
+            lib_bwd = sdpa_efficient_bwd(torch, q, k, v, g, refused)
+            lib_bwd_name = ("SDPA memory-efficient backward (autograd under "
+                            "sdpa_kernel(EFFICIENT_ATTENTION))")
+        else:
+            lib_bwd = aten_flash_bwd(torch, q, k, v, g, scale, refused)
+            lib_bwd_name = "aten._scaled_dot_product_flash_attention_backward"
         row = {"shape": [B, T, H, H, D], "dtype": dtype,
                "kernel_dim": _kernel_dim(D)}
-        for part, kernel_fn, plain_fn, wmma, library, nbytes, flops in (
-                ("fwd", lambda **kw: _flash_fwd_cuda(q, k, v, scale, True,
-                                                     False, **kw),
-                 lambda: _flash_fwd_reference(q, k, v, scale, True, False),
-                 FWD_KERNEL,
-                 lambda: F.scaled_dot_product_attention(qt, kt, vt,
-                                                        is_causal=True),
-                 4 * io + B * H * T * 4, 4 * D * pairs),
-                ("bwd", lambda **kw: _flash_bwd_cuda(*args, **kw),
-                 lambda: _flash_bwd_reference(*args), BWD_KERNEL, aten,
-                 7 * io + 2 * B * H * T * 4, 10 * D * pairs)):
+        parts = [
+            ("fwd", "flash_fwd",
+             lambda **kw: _flash_fwd_cuda(q, k, v, scale, True, False, **kw),
+             lambda: _flash_fwd_reference(q, k, v, scale, True, False),
+             FWD_KERNEL,
+             lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                    is_causal=True),
+             "scaled_dot_product_attention",
+             4 * io + B * H * T * 4, 4 * D * pairs),
+            ("bwd", "flash_bwd", lambda **kw: _flash_bwd_cuda(*args, **kw),
+             lambda: _flash_bwd_reference(*args), BWD_KERNEL, lib_bwd,
+             lib_bwd_name, 7 * io + rows, 10 * D * pairs)]
+        if name in C3_TWO_KERNEL:
+            two = lib_bwd_name + " (dq, dk and dv: compare with B3 + B4)"
+            parts += [
+                ("dq", "flash_bwd_dq",
+                 lambda **kw: _flash_bwd_dq_cuda(*args, **kw),
+                 lambda: _flash_bwd_dq_reference(*args), BWD_DQ_KERNEL,
+                 lib_bwd, two, 5 * io + rows, 6 * D * pairs),
+                ("dkv", "flash_bwd_dkv",
+                 lambda **kw: _flash_bwd_dkv_cuda(*args, **kw),
+                 lambda: _flash_bwd_dkv_reference(*args), BWD_DKV_KERNEL,
+                 lib_bwd, two, 4 * io + rows + 2 * f32, 8 * D * pairs)]
+        for (part, kname, kernel_fn, plain_fn, wmma, library, lib_name,
+             nbytes, flops) in parts:
             hopper = _sm90(part, dt, _kernel_dim(D))
             if hopper:
                 new, old = in_turns(kernel_fn,
@@ -1293,18 +1426,17 @@ def time_c3_kernels(torch, gen) -> dict:
             lib = library and time_ms(library)
             row[part] = {
                 **timing_row(new, time_ms(plain_fn, **slow), lib),
-                "kernel": f"flash_{part}" + ("_sm90" if hopper else ""),
-                "library": ({"fwd": "scaled_dot_product_attention",
-                             "bwd": "aten._scaled_dot_product_flash_"
-                                    "attention_backward"}[part]
-                            if library else f"aten refused: {refused[0]}"),
+                "kernel": kname + ("_sm90" if hopper else ""),
+                "library": (lib_name if library
+                            else f"refused: {refused[0]}"),
                 **dict(zip(("bound_ms", "bound_by"),
                            bound(nbytes, flops, peak)))}
             if hopper:
                 row[part].update(previous(new, old))
         res[name] = row
         emit({"timing": f"c3_{name}", **row})
-        del q, k, v, g, qt, kt, vt, out, lse, args, aten
+        del q, k, v, g, qt, kt, vt, out, lse, args, lib_bwd, parts
+        torch.cuda.empty_cache()
     return res
 
 
@@ -1613,10 +1745,13 @@ PROFILE_CLASS = {"rms_norm_fwd": "rms_norm",
 # Hopper kernels' __global__ names come first, though no WMMA key is a
 # substring of them (nor the reverse)
 KERNEL_CLASSES = (("rms_norm", ("rms_norm_kernel",)),
-                  ("flash_fwd_sm90", ("flash_fwd_sm90_kernel",)),
-                  ("flash_bwd_sm90", ("flash_bwd_sm90_kernel",)),
+                  ("flash_fwd_sm90", ("flash_fwd_sm90_kernel",
+                                      "flash_fwd_sm90_tf32_kernel")),
+                  ("flash_bwd_sm90", ("flash_bwd_sm90_kernel",
+                                      "flash_bwd_sm90_tf32_kernel")),
                   ("flash_bwd_dq_sm90", ("flash_bwd_dq_sm90_kernel",)),
-                  ("flash_bwd_dkv_sm90", ("flash_bwd_dkv_sm90_kernel",)),
+                  ("flash_bwd_dkv_sm90", ("flash_bwd_dkv_sm90_kernel",
+                                          "flash_bwd_dkv_sm90_tf32_kernel")),
                   ("flash_fwd", ("flash_fwd_kernel",)),
                   ("flash_bwd", ("flash_bwd_kernel",)),
                   ("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
@@ -4147,6 +4282,35 @@ KERNEL_INFO = {
 }
 
 
+def run_f32_phases(torch) -> dict:
+    """Phases 1-3 for f32 alone, about two minutes (not a phase of
+    ``run``): the build with its ptxas check and the TMA probe, every f32
+    case of FLASH_CASES and TWO_KERNEL_CASES, B4 bitwise B2 at f32, the
+    WMMA kernels at the main shape, and the f32 C3 rows.  On the card:
+    ``python3 -c "import torch, chip_smoke as c; c.run_f32_phases(torch)"``.
+    Returns the C3 rows."""
+    global FLASH_CASES, TWO_KERNEL_CASES, SM90_WALKS, C3_CASES
+    from pytorch_operator_tpu_torch import kernels
+
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(nvidia_smi(), flush=True)
+    so = kernels.build()
+    check_sm90_ptxas(so.with_suffix(".log").read_text())
+    probe_tma_tfloat32(torch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    FLASH_CASES = {k: v for k, v in FLASH_CASES.items() if v[-1] == F32}
+    TWO_KERNEL_CASES = {k: v for k, v in TWO_KERNEL_CASES.items()
+                        if v[-1] == F32}
+    SM90_WALKS = tuple(w for w in SM90_WALKS if w[0] == F32)
+    C3_CASES = {k: v for k, v in C3_CASES.items() if v[0] == F32}
+    check_flash(torch, gen, FLASH_CASES, "fused")
+    check_two_kernel_route(torch, gen)
+    check_dkv_bitwise(torch, gen)
+    check_wmma_at_main(torch, gen)
+    return time_c3_kernels(torch, gen)
+
+
 def run() -> tuple[str, list[dict]]:
     """Every phase in order; returns the card and the kernels' rows."""
     import torch
@@ -4181,6 +4345,7 @@ def run() -> tuple[str, list[dict]]:
              or ln.startswith("==")]
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
     check_sm90_ptxas(log.read_text() if log.exists() else "")
+    probe_tma_tfloat32(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     seconds, paths = {}, {}
@@ -4279,12 +4444,14 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("f32 and D 16/32 only (B3 also fp16 and D 256); "
-                           "timed beside its Hopper successor at its shape "
-                           "as the yardstick")
+            row["path"] = ("D 16/32 only, and the backward at f32 D 256, "
+                           "B3 but at bf16 D 64/128; timed beside its "
+                           "Hopper successor at its shape as the "
+                           "yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
-                  for part in ("fwd", "bwd") if c[part]["kernel"] == short}
+                  for part in ("fwd", "bwd", "dq", "dkv")
+                  if part in c and c[part]["kernel"] == short}
         if row_c3:
             row["c3"] = row_c3
         if short in ("flash_fwd_sm90", "flash_bwd_sm90"):

@@ -1,11 +1,11 @@
 // dk / dv kernel of the two-kernel flash-attention backward for Hopper:
-// bf16 or fp16 in, f32 accumulate, head dim 64, 128 or 256, causal or not,
-// GQA, either layout.
+// bf16 or fp16 in at head dim 64, 128 or 256, or f32 (as TF32) at 64 or
+// 128, f32 accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
 // _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) for bf16 and fp16
-// at D in {64, 128, 256}; the WMMA kernel flash_bwd_dkv.cu keeps f32 and D
-// 16/32.  Its
+// at D in {64, 128, 256} and f32 at D in {64, 128}; the WMMA kernel
+// flash_bwd_dkv.cu keeps D 16/32 and f32 at D 256.  Its
 // contract is flash_bwd_dkv's: per (key tile, q head) it accumulates
 //   dk[j] = sum_i dS[i, j]^T Q[i],   dv[j] = sum_i P[i, j]^T dO[i]
 // (four products per tile) and writes them once per q head as f32
@@ -22,7 +22,9 @@
 // tiles by TMA through an mbarrier ring, two consumer warpgroups with dK
 // and dV in wgmma accumulators.  Being the same walk, its dk and dv are
 // bitwise those of flash_bwd_sm90.  Like it, and like the JAX kernel, it
-// forms dS from the f32 P.
+// forms dS from the f32 P.  f32 runs walk_tf32<D, false>
+// (flash_bwd_dkv_sm90_tf32_kernel), bitwise flash_bwd_sm90's f32 dk / dv
+// in the same way.
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -64,6 +66,43 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                               const __grid_constant__ CUtensorMap mk,
+                               const __grid_constant__ CUtensorMap mv,
+                               const __grid_constant__ CUtensorMap mdo,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               float* __restrict__ dkp,
+                               float* __restrict__ dvp, int H, int Hk, int T,
+                               int bh_layout, float scale, int causal) {
+  walk_tf32<D, false>(mq, mk, mv, mdo, lse, delta, nullptr, dkp, dvp, H, Hk,
+                      T, bh_layout, scale, causal);
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                float* dkp, float* dvp, int B, int H, int Hk, int T,
+                int bh_layout, float scale, int causal,
+                cudaStream_t stream) {
+  using S = BwdTf32Smem<D, false>;
+  Maps m;
+  int e = make_maps<float, D>(&m, q, k, v, dout, B, H, Hk, T, bh_layout);
+  if (e) return e;
+  const int tiles = (T + S::BK - 1) / S::BK;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  e = ptt::allow_smem(flash_bwd_dkv_sm90_tf32_kernel<D>, S::BYTES);
+  if (e) return e;
+  flash_bwd_dkv_sm90_tf32_kernel<D>
+      <<<tiles * B * H, THREADS, S::BYTES, stream>>>(
+          m.q, m.k, m.v, m.dout, lse, delta, dkp, dvp, H, Hk, T, bh_layout,
+          scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename E>
 int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dkp, float* dvp,
@@ -83,8 +122,9 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // As flash_bwd_dkv (flash_bwd_dkv.cu) for bf16 (dtype 1) and fp16 (dtype
-// 2) at D in {64, 128, 256}; any other dtype or head dim is
-// cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned.
+// 2) at D in {64, 128, 256} and f32 (dtype 0) at D in {64, 128}; any
+// other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout
+// 16-byte aligned.
 extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                                   const void* v, const void* dout,
                                   const float* lse, const float* delta,
@@ -95,6 +135,15 @@ extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
   if (B * H == 0 || T == 0) return 0;
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::F32) {
+    if (D == 64)
+      return launch_tf32<64>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
+                             T, bh_layout, scale, causal, s);
+    if (D == 128)
+      return launch_tf32<128>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
+                              T, bh_layout, scale, causal, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == ptt::BF16)
     return launch_dim<__nv_bfloat16>(q, k, v, dout, lse, delta, dkp, dvp, B,
                                      H, Hk, T, D, bh_layout, scale, causal, s);

@@ -1,10 +1,11 @@
 // Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16
-// or fp16 in, f32 accumulate, head dim 64, 128 or 256, causal or not, GQA,
-// either layout.
+// or fp16 in at head dim 64, 128 or 256, or f32 (as TF32) at 64 or 128,
+// f32 accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
 // _bwd_fused_kernel (pallas_call in _flash_bwd_fused) for bf16 and fp16 at
-// D in {64, 128, 256}; the WMMA kernel flash_bwd.cu keeps f32 and D 16/32.  Its
+// D in {64, 128, 256} and f32 at D in {64, 128}; the WMMA kernel
+// flash_bwd.cu keeps D 16/32 and f32 at D 256.  Its
 // contract is flash_bwd's: dq f32, zeroed by the caller and added to here;
 // dk / dv as per-q-head f32 partials that the wrapper sums over each GQA
 // group.
@@ -36,7 +37,10 @@
 //  - dK and dV are written once, rows at or past T skipped; TMA zero-fills
 //    the tiles past T, so the host pads nothing.
 // The walk is flash_bwd_sm90.cuh's walk<E, D, DQ> with DQ; the dk/dv kernel
-// flash_bwd_dkv_sm90.cu runs it without.
+// flash_bwd_dkv_sm90.cu runs it without.  f32 runs walk_tf32<D, DQ>
+// (flash_bwd_sm90_tf32_kernel): the same walk on TF32 wgmma with Q^T,
+// dO^T and K^T written in shared memory, 32-row q tiles, and dq formed
+// as dq^T = K^T dS^T (flash_bwd_sm90.cuh).
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -78,6 +82,42 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           const __grid_constant__ CUtensorMap mdo,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           float* __restrict__ dq, float* __restrict__ dkp,
+                           float* __restrict__ dvp, int H, int Hk, int T,
+                           int bh_layout, float scale, int causal) {
+  walk_tf32<D, true>(mq, mk, mv, mdo, lse, delta, dq, dkp, dvp, H, Hk, T,
+                     bh_layout, scale, causal);
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                float* dq, float* dkp, float* dvp, int B, int H, int Hk,
+                int T, int bh_layout, float scale, int causal,
+                cudaStream_t stream) {
+  using S = BwdTf32Smem<D, true>;
+  Maps m;
+  int e = make_maps<float, D>(&m, q, k, v, dout, B, H, Hk, T, bh_layout);
+  if (e) return e;
+  const int tiles = (T + S::BK - 1) / S::BK;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  e = ptt::allow_smem(flash_bwd_sm90_tf32_kernel<D>, S::BYTES);
+  if (e) return e;
+  flash_bwd_sm90_tf32_kernel<D><<<tiles * B * H, THREADS, S::BYTES, stream>>>(
+      m.q, m.k, m.v, m.dout, lse, delta, dq, dkp, dvp, H, Hk, T, bh_layout,
+      scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename E>
 int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* delta, float* dq, float* dkp,
@@ -97,9 +137,9 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // As flash_bwd (flash_bwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
-// in {64, 128, 256}; any other dtype or head dim is
-// cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned; dq zeroed by the
-// caller.
+// in {64, 128, 256} and f32 (dtype 0) at D in {64, 128}; any other dtype
+// or head dim is cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
+// dq zeroed by the caller.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, float* dq, float* dkp,
@@ -109,6 +149,15 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
   if (B * H == 0 || T == 0) return 0;
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::F32) {
+    if (D == 64)
+      return launch_tf32<64>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
+                             Hk, T, bh_layout, scale, causal, s);
+    if (D == 128)
+      return launch_tf32<128>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
+                              Hk, T, bh_layout, scale, causal, s);
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (dtype == ptt::BF16)
     return launch_dim<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, dkp, dvp,
                                      B, H, Hk, T, D, bh_layout, scale, causal,

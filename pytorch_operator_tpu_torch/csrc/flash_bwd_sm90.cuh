@@ -24,6 +24,27 @@
 //    its 128 columns of dq_tile as two 64-column products, so that a
 //    thread holds at most dK, dV and 32 (S^T, dP^T) or 32 (dq_tile) f32
 //    beside them; each writes half of dS^T's q columns.
+//
+// f32 (walk_tf32, D 64 and 128) multiplies in TF32, whose wgmma takes
+// both shared-memory operands K-major.  S^T = K Q^T and dP^T = V dO^T
+// are K-major already; the other three products read an MN-major
+// operand at 16 bits, so the f32 walk writes transposed copies:
+//  - dV += P^T dO and dK += dS^T Q take dO^T and Q^T (D rows of the 32
+//    q of a tile), written by the producer warpgroup's warps 1-3 from
+//    each ring slot (TMA rounds Q, dO, K and V to TF32 as it loads them:
+//    sm90.cuh make_map), q in the order [0, 2, 4, 6, 1, 3,
+//    5, 7] of each 8 so that P^T's and dS^T's accumulator registers,
+//    rounded (cvt.rna), are the k8 A fragments as they are (sm90.cuh);
+//  - dq = dS K is formed as dq^T = K^T dS^T: K^T written once a CTA by
+//    the same warps, dS stored by the consumers q-row-major (keys
+//    K-major), rounded to TF32, and dq^T's elements added to dq by
+//    scalar f32 reductions.
+// Shared memory doubles at f32: 32-row q tiles, and at D 128 64-key
+// tiles split by D's columns as at D 256 above (K + V 64 KB, K^T 32,
+// ring 66, Q^T + dO^T 32, two dS buffers 16: 210 KB); at D 64 128 keys
+// split by keys (194 KB, two Q^T / dO^T buffers).  D 256 does not fit:
+// K and V alone take 128 KB at 64 keys, K^T 64 more, so f32 D 256 stays
+// on the WMMA kernels.
 #pragma once
 
 #include "common.cuh"
@@ -69,10 +90,19 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
+// Rows of the walk's q tiles and key tiles over E at head dim D: the
+// f32 walk's (walk_tf32) are 32 q rows and 64 keys at D 128, 128 at D 64.
+template <typename E, int D> struct WalkTiles {
+  static constexpr int BQ = bwd_sm90::BQ, BK = key_tile<D>();
+};
+template <int D> struct WalkTiles<float, D> {
+  static constexpr int BQ = 32, BK = D == 128 ? 64 : 128;
+};
+
 template <typename E, int D>
 int make_maps(Maps* m, const void* q, const void* k, const void* v,
               const void* dout, int B, int H, int Hk, int T, int bh_layout) {
-  constexpr int BK = key_tile<D>();
+  constexpr int BQ = WalkTiles<E, D>::BQ, BK = WalkTiles<E, D>::BK;
   int e = make_head_map<E>(&m->q, q, D, H, T, B, bh_layout, BQ);
   if (!e) e = make_head_map<E>(&m->dout, dout, D, H, T, B, bh_layout, BQ);
   if (!e) e = make_head_map<E>(&m->k, k, D, Hk, T, B, bh_layout, BK);
@@ -339,6 +369,335 @@ __device__ __forceinline__ void walk(
       }
     } else {
       if (tid == 0) mbar_arrive(&q_empty[s]);
+    }
+  }
+
+  // dK / dV partials of this warpgroup's 64 keys and DW columns
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_a + 8 * r;
+    if (key >= T) continue;
+    const int64_t off = q_base + (int64_t)key * q_rs + cw + col;
+#pragma unroll
+    for (int c = 0; c < DW / 8; ++c) {
+      *reinterpret_cast<float2*>(dkp + off + 8 * c) =
+          make_float2(dk[4 * c + 2 * r], dk[4 * c + 2 * r + 1]);
+      *reinterpret_cast<float2*>(dvp + off + 8 * c) =
+          make_float2(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// f32: the walk with TF32 wgmma (see the header)
+// ---------------------------------------------------------------------------
+
+template <int D, bool DQ> struct BwdTf32Smem {
+  static_assert(D == 64 || D == 128, "the f32 walk takes D 64 and 128");
+  // D 128: both warpgroups own all BK keys and half of D's columns of dK
+  // and dV; D 64: each its own 64 keys and all of D
+  static constexpr bool SPLIT = D == 128;
+  static constexpr int BK = WalkTiles<float, D>::BK;
+  static constexpr int BQ = WalkTiles<float, D>::BQ;
+  static constexpr int SLABS = D / 32;  // 32 f32 columns a slab
+  static constexpr int K_SLAB = BK * SLAB, Q_SLAB = BQ * SLAB;
+  static constexpr int K = 0;
+  static constexpr int V = K + SLABS * K_SLAB;
+  // with DQ: K^T, D rows of BK keys (BK / 32 slabs of D rows), written once
+  static constexpr int KT_SLAB = D * SLAB;
+  static constexpr int KT = V + SLABS * K_SLAB;
+  static constexpr int RING = KT + (DQ ? (BK / 32) * KT_SLAB : 0);
+  // one ring slot: Q, dO (BQ rows each), then lse (times log2 e) and delta
+  static constexpr int DO_OFF = SLABS * Q_SLAB;
+  static constexpr int LSE_OFF = 2 * SLABS * Q_SLAB;
+  static constexpr int DELTA_OFF = LSE_OFF + BQ * 4;
+  static constexpr int SLOT = (DELTA_OFF + BQ * 4 + 1023) / 1024 * 1024;
+  // Q^T then dO^T of a slot's tile: D rows of BQ = 32 q each (one slab
+  // each), q in the A fragments' order; QT_STAGES buffers
+  static constexpr int QT_SLAB = D * SLAB, QT_STAGES = SPLIT ? 1 : 2;
+  static constexpr int QT = RING + STAGES * SLOT;
+  // with DQ: dS (BQ q rows of BK keys, BK / 32 slabs), two buffers
+  static constexpr int DS_SLAB = BQ * SLAB, DS_BUF = (BK / 32) * DS_SLAB;
+  static constexpr int DS = QT + QT_STAGES * 2 * QT_SLAB;
+  static constexpr int BAR = DS + (DQ ? 2 : 0) * DS_BUF;
+  // kv_full, kt_full, q_full[STAGES], q_empty[STAGES], qt_full[QT_STAGES],
+  // qt_empty[QT_STAGES]
+  static constexpr int BYTES =
+      BAR + 8 * (2 + 2 * STAGES + 2 * QT_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+};
+
+// As walk<E, D, DQ> for f32 inputs at D 64 and 128: the same contract,
+// grid (ceil(T / BK) * B * H blocks, BwdTf32Smem<D, DQ>::BYTES of dynamic
+// shared memory) and maps (make_maps<float, D>).
+template <int D, bool DQ>
+__device__ __forceinline__ void walk_tf32(
+    const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+    const CUtensorMap& mdo, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dq,
+    float* __restrict__ dkp, float* __restrict__ dvp, int H, int Hk, int T,
+    int bh_layout, float scale, int causal) {
+  using S = BwdTf32Smem<D, DQ>;
+  constexpr int SLABS = S::SLABS, BK = S::BK, BQ = S::BQ;
+  constexpr int QTS = S::QT_STAGES;
+  constexpr bool SPLIT = S::SPLIT;
+  constexpr int DW = SPLIT ? D / 2 : D;  // dK / dV columns a warpgroup
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* kt_full = kv_full + 1;
+  uint64_t* q_full = kt_full + 1;
+  uint64_t* q_empty = q_full + STAGES;
+  uint64_t* qt_full = q_empty + STAGES;
+  uint64_t* qt_empty = qt_full + QTS;
+
+  const int kt = grid_tile((T + BK - 1) / BK);  // tile 0 walks the most q tiles
+  const int bh = grid_bh((T + BK - 1) / BK);
+  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
+  const int k0 = kt * BK;
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int i0 = causal ? k0 / BQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    mbar_init(kt_full, TF32_TRANSPOSERS);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&q_full[s], 32);  // the producer warp's lanes
+      mbar_init(&q_empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < QTS; ++s) {
+      mbar_init(&qt_full[s], TF32_TRANSPOSERS);
+      mbar_init(&qt_empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: warp 0 streams K, V and the ring as the 16-bit walk
+    // does; warps 1-3 write K^T once (with DQ) and each slot's Q^T and
+    // dO^T ----
+    setmaxnreg_dec<TF32_PRODUCER_REGS>();
+    const int pt = threadIdx.x - 256;
+    if (pt < 32) {
+      const int lane = pt;
+      if (lane == 0) {
+        prefetch_map(&mq);
+        prefetch_map(&mdo);
+        const int2 ck = head_coords(b, hk, Hk, bh_layout);
+        mbar_expect_tx(kv_full, 2 * SLABS * S::K_SLAB);
+        for (int r = 0; r < SLABS; ++r) {
+          tma_load_4d(smem + S::K + r * S::K_SLAB, &mk, kv_full, 32 * r,
+                      ck.x, k0, ck.y);
+          tma_load_4d(smem + S::V + r * S::K_SLAB, &mv, kv_full, 32 * r,
+                      ck.x, k0, ck.y);
+        }
+      }
+      const int2 cq = head_coords(b, h, H, bh_layout);
+      const float* lse_row = lse + (int64_t)bh * T;
+      const float* delta_row = delta + (int64_t)bh * T;
+      for (int i = i0; i < n_qt; ++i) {
+        const int it = i - i0, s = it % STAGES, q0 = i * BQ;
+        mbar_wait(&q_empty[s], ((it / STAGES) & 1) ^ 1);
+        unsigned char* slot = smem + S::RING + s * S::SLOT;
+        float* lse_s = reinterpret_cast<float*>(slot + S::LSE_OFF);
+        float* delta_s = reinterpret_cast<float*>(slot + S::DELTA_OFF);
+        for (int t = lane; t < BQ; t += 32) {
+          const bool in = q0 + t < T;
+          lse_s[t] = in ? lse_row[q0 + t] * LOG2E : 0.f;
+          delta_s[t] = in ? delta_row[q0 + t] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect_tx(&q_full[s], 2 * SLABS * S::Q_SLAB);
+          for (int r = 0; r < SLABS; ++r) {
+            tma_load_4d(slot + r * S::Q_SLAB, &mq, &q_full[s], 32 * r, cq.x,
+                        q0, cq.y);
+            tma_load_4d(slot + S::DO_OFF + r * S::Q_SLAB, &mdo, &q_full[s],
+                        32 * r, cq.x, q0, cq.y);
+          }
+        } else {
+          mbar_arrive(&q_full[s]);
+        }
+      }
+    } else {
+      constexpr int W = TF32_TRANSPOSERS / 32;
+      constexpr int Q_UNITS = (D / 32) * (BQ / 32);  // of Q^T; dO^T's next
+      const int tw = pt / 32 - 1, lane = pt % 32;
+      if constexpr (DQ) {
+        mbar_wait(kv_full, 0);
+        transpose_tf32<BK, D, false, W>(smem + S::K, smem + S::KT, tw, lane);
+        fence_proxy_async();
+        mbar_arrive(kt_full);
+      }
+      for (int i = i0; i < n_qt; ++i) {
+        const int it = i - i0, s = it % STAGES, qs = it % QTS;
+        mbar_wait(&q_full[s], (it / STAGES) & 1);
+        mbar_wait(&qt_empty[qs], ((it / QTS) & 1) ^ 1);
+        const unsigned char* slot = smem + S::RING + s * S::SLOT;
+        unsigned char* qt = smem + S::QT + qs * 2 * S::QT_SLAB;
+        transpose_tf32<BQ, D, true, W>(slot, qt, tw, lane);
+        transpose_tf32<BQ, D, true, W>(slot + S::DO_OFF, qt + S::QT_SLAB, tw,
+                                       lane, Q_UNITS);
+        fence_proxy_async();
+        mbar_arrive(&qt_full[qs]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns keys [k0 + kw, k0 + kw + 64) and
+  // columns [cw, cw + DW) of dK and dV
+  setmaxnreg_inc<TF32_CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int kw = SPLIT ? 0 : 64 * wg, cw = SPLIT ? DW * wg : 0;
+  const int key_a = k0 + kw + 16 * warp + lane / 4;  // key_b = +8
+  const int col = 2 * (lane % 4);
+
+  float dk[DW / 2], dv[DW / 2];
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  const uint32_t k_addr = smem_u32(smem + S::K) + kw * SLAB;
+  const uint32_t v_addr = smem_u32(smem + S::V) + kw * SLAB;
+  // dq^T = K^T dS^T, this warpgroup's part: SPLIT, d rows [64 wg, 64 wg +
+  // 64) over all BQ q; else all 64 d rows over q [16 wg, 16 wg + 16)
+  constexpr int DQN = SPLIT ? BQ : BQ / 2;  // q columns of the product
+  const int dm = SPLIT ? 64 * wg : 0, qn = SPLIT ? 0 : DQN * wg;
+  const uint32_t kt_addr = smem_u32(smem + S::KT) + dm * SLAB;
+  int64_t q_rs;
+  const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
+  mbar_wait(kv_full, 0);
+
+  for (int i = i0; i < n_qt; ++i) {
+    const int it = i - i0, s = it % STAGES, qs = it % QTS, q0 = i * BQ;
+    mbar_wait(&q_full[s], (it / STAGES) & 1);
+    unsigned char* slot = smem + S::RING + s * S::SLOT;
+    const uint32_t q_addr = smem_u32(slot);
+    const uint32_t do_addr = q_addr + S::DO_OFF;
+    const float* lse_s = reinterpret_cast<const float*>(slot + S::LSE_OFF);
+    const float* delta_s =
+        reinterpret_cast<const float*>(slot + S::DELTA_OFF);
+    const bool mask = (causal && q0 < k0 + BK) || q0 + BQ > T || k0 + BK > T;
+
+    // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, BQ q), m64n32k8 from
+    // shared memory, issued back to back
+    float st[BQ / 2], dpt[BQ / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+      mma_ss_tf32(st, desc_k(k_addr + koff), desc_k(q_addr + qoff), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
+      const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+      mma_ss_tf32(dpt, desc_k(v_addr + koff), desc_k(do_addr + qoff),
+                  kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(st);
+    fence_regs(dpt);
+
+    // P^T and dS^T in f32 (dS^T from the f32 P^T), in place
+    const float sl2 = scale * LOG2E;
+#pragma unroll
+    for (int e = 0; e < BQ / 2; e += 2) {  // columns c and c + 1 of a key row
+      const int key = key_a + 8 * ((e / 2) % 2);
+      const int c = 8 * (e / 4) + col;
+      const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+      const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+      float p0 = ex2(fmaf(st[e], sl2, -ls.x));
+      float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
+      if (mask) {
+        const int q = q0 + c;
+        const bool kin = key < T;
+        if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
+        if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
+      }
+      st[e] = p0;
+      st[e + 1] = p1;
+      dpt[e] = p0 * (dpt[e] - dl.x) * scale;
+      dpt[e + 1] = p1 * (dpt[e + 1] - dl.y) * scale;
+    }
+    // their TF32 A fragments: each k8 block of q in the order Q^T and
+    // dO^T are written in
+    uint32_t pa[BQ / 2], da[BQ / 2];
+#pragma unroll
+    for (int t = 0; t < BQ / 8; ++t) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int e = 4 * t + (j == 1 ? 2 : j == 2 ? 1 : j);
+        pa[4 * t + j] = tf32(st[e]);
+        da[4 * t + j] = tf32(dpt[e]);
+      }
+    }
+    unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;
+    if constexpr (DQ) {
+      // dS (q rows, keys K-major) into shared memory for dq^T = K^T dS^T
+      // below, rounded to TF32 (SPLIT: both warpgroups hold all of it,
+      // each writes q columns [16 wg, 16 wg + 16))
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        if (SPLIT && (e / 4) / 2 != wg) continue;
+        const int key = kw + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+        const int q = 8 * (e / 4) + col + (e % 2);
+        *reinterpret_cast<uint32_t*>(
+            ds_buf + (key / 32) * S::DS_SLAB +
+            swizzle_128b_f32(q, key % 32)) = tf32(dpt[e]);
+      }
+      fence_proxy_async();
+    }
+
+    // dV += P^T dO and dK += dS^T Q: B = dO^T and Q^T (this warpgroup's
+    // DW rows of D, BQ q K-major), m64n64k8
+    mbar_wait(&qt_full[qs], (it / QTS) & 1);
+    const uint32_t qt_addr =
+        smem_u32(smem + S::QT + qs * 2 * S::QT_SLAB) + cw * SLAB;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk)
+      mma_rs_tf32(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                  pa[4 * kk + 3], desc_k(qt_addr + S::QT_SLAB + kk * 32), 1);
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk)
+      mma_rs_tf32(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                  da[4 * kk + 3], desc_k(qt_addr + kk * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if (tid == 0) {
+      mbar_arrive(&qt_empty[qs]);
+      mbar_arrive(&q_empty[s]);
+    }
+
+    if constexpr (DQ) {
+      // both warpgroups' parts of dS are in place, and K^T
+      named_barrier(1, 256);
+      mbar_wait(kt_full, 0);
+      const uint32_t ds_addr = smem_u32(ds_buf) + qn * SLAB;
+      float dqa[DQN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        mma_ss_tf32(
+            dqa, desc_k(kt_addr + (kk / 4) * S::KT_SLAB + (kk % 4) * 32),
+            desc_k(ds_addr + (kk / 4) * S::DS_SLAB + (kk % 4) * 32), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dqa);
+      // dq^T's (d, q) element added to dq[q, d] (red.global.add.f32)
+#pragma unroll
+      for (int e = 0; e < DQN / 2; ++e) {
+        const int d = dm + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+        const int q = q0 + qn + 8 * (e / 4) + col + (e % 2);
+        if (q < T) atomicAdd(dq + q_base + (int64_t)q * q_rs + d, dqa[e]);
+      }
     }
   }
 

@@ -1,15 +1,17 @@
-// Flash-attention forward for Hopper: bf16 or fp16 in, f32 accumulate,
-// head dim 64, 128 or 256, causal or not, GQA, either layout.
+// Flash-attention forward for Hopper: bf16, fp16 or f32 in (f32 as TF32),
+// f32 accumulate, head dim 64, 128 or 256, causal or not, GQA, either
+// layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _fwd_kernel (pallas_call in _flash_fwd) for bf16 and fp16 at D in {64,
-// 128, 256}; the WMMA kernel flash_fwd.cu keeps f32 and D 16/32.  It
+// _fwd_kernel (pallas_call in _flash_fwd) for bf16, fp16 and f32 at D in
+// {64, 128, 256}; the WMMA kernel flash_fwd.cu keeps D 16/32.  It
 // computes what that kernel computes: per (batch, q head) o = softmax(q
 // k^T * scale) v with an online softmax, and lse = m + log(l) as a
 // natural log, reading kv head h / (H / Hk).
 //
 // Bound on the H100: tensor-core operations (at B2 T2048 H16 D128 causal,
-// 34.4 GFLOP against 67 MB).  Design, FlashAttention-3 style:
+// 34.4 GFLOP against 67 MB in bf16; in TF32 at half the rate against
+// twice the bytes).  Design, FlashAttention-3 style:
 //  - one CTA per (128-row q tile, q head), longest causal rows first;
 //    three warpgroups.  Warp 0 of the last one is the producer: it loads
 //    Q once, then streams BK-row K and V tiles through a ring of
@@ -32,6 +34,32 @@
 //    shared-memory scratch.
 //  - o / l is written in E and lse in f32, rows at or past T skipped;
 //    TMA zero-fills the tiles past T, so the host pads nothing.
+//
+// f32 (flash_fwd_sm90_tf32_kernel) runs the same walk on TF32 wgmma
+// (m64nNk8), which has no transpose bit: both shared-memory operands
+// must be K-major, and V in O += P V is MN-major.  Of the two ways round
+// (V^T written in shared memory, or O^T = V^T P^T with V^T loaded into
+// A fragments by plain loads and P stored to shared memory), the kernel
+// writes V^T: one pass a tile, shared by both consumer warpgroups, where
+// the other way would have each warpgroup load all of V into registers
+// and spill P through shared memory every tile.  The producer warpgroup's
+// warps 1-3 write it into a V^T buffer with its own
+// full / empty mbarriers, while warp 0 keeps the TMA ring going.  Its
+// keys go in the order [0, 2, 4, 6, 1, 3, 5, 7] of each 8: the k8 A
+// fragment a thread gives wgmma holds columns (t, t + 4) of each 8, its
+// S accumulator columns (2t, 2t + 1), so P's registers, rounded to TF32
+// (cvt.rna), are the A operand as they are once the B rows come in that
+// order.  TMA rounds Q, K and V to TF32 as it loads them (a TFLOAT32
+// tensor map, sm90.cuh make_map), as the WMMA kernel rounds its
+// operands.  Shared memory doubles at f32, so
+// the tiles shrink per D (within 227 KB):
+//  - D 64: 128-row Q (32 KB), 128-key K + V stages (2 x 64 KB), two
+//    V^T buffers (2 x 32 KB);
+//  - D 128: 128-row Q (64 KB), 64-key stages (2 x 64 KB), one V^T (32
+//    KB);
+//  - D 256: 64-row Q (64 KB), 32-key stages (2 x 64 KB), one V^T (32
+//    KB); both consumer warpgroups form S for the same 64 rows and each
+//    owns half of D's columns of O (64 registers).
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -255,6 +283,262 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   }
 }
 
+// ---- f32: TF32 wgmma (see the header) ----
+
+template <int D> struct FwdTf32Smem {
+  // D 256: both consumer warpgroups own the same 64 q rows, each half of
+  // D's columns of O (a 128-row Q tile alone would take 128 KB)
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BQ = SPLIT ? 64 : 128;
+  static constexpr int BK = D == 64 ? 128 : D == 128 ? 64 : 32;
+  static constexpr int STAGES = 2, VT_STAGES = D == 64 ? 2 : 1;
+  static constexpr int DW = SPLIT ? D / 2 : D;  // O columns a warpgroup
+  static constexpr int SLABS = D / 32;          // 32 f32 columns a slab
+  static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
+  static constexpr int KV_TILE = SLABS * KV_SLAB;
+  // V^T: D rows (of 128 bytes: 32 keys), BK / 32 slabs
+  static constexpr int VT_SLAB = D * SLAB, VT_TILE = (BK / 32) * VT_SLAB;
+  static constexpr int Q = 0;
+  static constexpr int K = Q + SLABS * Q_SLAB;  // slot s at K + s * KV_TILE
+  static constexpr int V = K + STAGES * KV_TILE;
+  static constexpr int VT = V + STAGES * KV_TILE;
+  static constexpr int BAR = VT + VT_STAGES * VT_TILE;
+  // q_full, kv_full[STAGES], kv_empty[STAGES], vt_full[VT_STAGES],
+  // vt_empty[VT_STAGES]
+  static constexpr int BYTES =
+      BAR + 8 * (1 + 2 * STAGES + 2 * VT_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                           const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv,
+                           float* __restrict__ o, float* __restrict__ lse,
+                           int H, int Hk, int T, int bh_layout, float scale,
+                           int causal) {
+  using S = FwdTf32Smem<D>;
+  constexpr int STAGES = S::STAGES, VS = S::VT_STAGES, SLABS = S::SLABS;
+  constexpr int BQ = S::BQ, BK = S::BK, DW = S::DW;
+  constexpr bool SPLIT = S::SPLIT;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + STAGES;
+  uint64_t* vt_full = kv_empty + STAGES;
+  uint64_t* vt_empty = vt_full + VS;
+
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - ptt::grid_tile(n_qt);  // longest causal rows first
+  const int bh = ptt::grid_bh(n_qt);
+  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
+  const int q0 = qt * BQ;
+  int n_kt = (T + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (qt + 1) * (BQ / BK));
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < VS; ++s) {
+      mbar_init(&vt_full[s], TF32_TRANSPOSERS);
+      mbar_init(&vt_empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: thread 256 issues the TMA loads; warps 1-3 write
+    // each V tile's transpose V^T, keys in the A fragments' order ----
+    setmaxnreg_dec<TF32_PRODUCER_REGS>();
+    const int pt = threadIdx.x - 256;
+    if (pt == 0) {
+      prefetch_map(&mq);
+      prefetch_map(&mk);
+      prefetch_map(&mv);
+      const int2 cq = head_coords(b, h, H, bh_layout);
+      const int2 ck = head_coords(b, hk, Hk, bh_layout);
+      mbar_expect_tx(q_full, SLABS * S::Q_SLAB);
+      for (int r = 0; r < SLABS; ++r)
+        tma_load_4d(smem + S::Q + r * S::Q_SLAB, &mq, q_full, 32 * r, cq.x,
+                    q0, cq.y);
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&kv_empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&kv_full[s], 2 * S::KV_TILE);
+        for (int r = 0; r < SLABS; ++r) {
+          tma_load_4d(smem + S::K + s * S::KV_TILE + r * S::KV_SLAB, &mk,
+                      &kv_full[s], 32 * r, ck.x, j * BK, ck.y);
+          tma_load_4d(smem + S::V + s * S::KV_TILE + r * S::KV_SLAB, &mv,
+                      &kv_full[s], 32 * r, ck.x, j * BK, ck.y);
+        }
+      }
+    } else if (pt >= 32) {
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES, vs = j % VS;
+        mbar_wait(&kv_full[s], (j / STAGES) & 1);
+        mbar_wait(&vt_empty[vs], ((j / VS) & 1) ^ 1);
+        transpose_tf32<BK, D, true, TF32_TRANSPOSERS / 32>(
+            smem + S::V + s * S::KV_TILE, smem + S::VT + vs * S::VT_TILE,
+            pt / 32 - 1, pt % 32);
+        fence_proxy_async();
+        mbar_arrive(&vt_full[vs]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
+  // and all of D, or (SPLIT) rows [q0, q0 + 64) and columns [DW wg, DW wg
+  // + DW) of O
+  setmaxnreg_inc<TF32_CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int rw = SPLIT ? 0 : 64 * wg;  // this warpgroup's first q row
+  const int row_a = q0 + rw + 16 * warp + lane / 4;  // row_b = +8
+  const int col = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+
+  float acc[DW / 2];
+#pragma unroll
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
+  float m[2] = {ptt::NEG_INF, ptt::NEG_INF}, l[2] = {0.f, 0.f};
+
+  const uint32_t q_addr = smem_u32(smem + S::Q) + rw * SLAB;
+  int n_kt_wg = n_kt;
+  if constexpr (!SPLIT && BK < BQ)
+    if (causal) n_kt_wg = min(n_kt, (q0 + rw + 64 + BK - 1) / BK);
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_kt_wg; ++j) {
+    const int s = j % STAGES, vs = j % VS;
+    mbar_wait(&kv_full[s], (j / STAGES) & 1);
+    const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
+
+    // S = Q K^T: (64, BK) f32, m64nBKk8 from shared memory
+    float sc[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t off = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+      const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+      mma_ss_tf32(sc, desc_k(q_addr + off), desc_k(k_addr + koff), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    if ((causal && (BK == BQ ? j == n_kt - 1 : j >= n_kt - BQ / BK)) ||
+        (j + 1) * BK > T) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int key = j * BK + 8 * (i / 4) + col + (i % 2);
+        const int row = row_a + 8 * ((i / 2) % 2);
+        if (key >= T || (causal && key > row)) sc[i] = ptt::NEG_INF;
+      }
+    }
+
+    float mx[2] = {ptt::NEG_INF, ptt::NEG_INF};
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float alpha[2], neg_m[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r] * sl2);
+      alpha[r] = ex2(m[r] - m_new);
+      m[r] = m_new;
+      neg_m[r] = -m_new;
+      l[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int r = (i / 2) % 2;
+      sc[i] = ex2(fmaf(sc[i], sl2, neg_m[r]));
+      l[r] += sc[i];
+    }
+#pragma unroll
+    for (int i = 0; i < DW / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+    // O += P V as (P in A fragments) (V^T, K-major): P rounded to TF32,
+    // each k8 block's columns in the order V^T's keys are written in
+    uint32_t pa[BK / 2];
+#pragma unroll
+    for (int t = 0; t < BK / 8; ++t) {
+      pa[4 * t] = tf32(sc[4 * t]);
+      pa[4 * t + 1] = tf32(sc[4 * t + 2]);
+      pa[4 * t + 2] = tf32(sc[4 * t + 1]);
+      pa[4 * t + 3] = tf32(sc[4 * t + 3]);
+    }
+    mbar_wait(&vt_full[vs], (j / VS) & 1);
+    const uint32_t vt_addr = smem_u32(smem + S::VT + vs * S::VT_TILE) +
+                             (SPLIT ? DW * wg * SLAB : 0);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk)
+      mma_rs_tf32(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                  pa[4 * kk + 3],
+                  desc_k(vt_addr + (kk / 4) * S::VT_SLAB + (kk % 4) * 32), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    if (tid == 0) {
+      mbar_arrive(&kv_empty[s]);
+      mbar_arrive(&vt_empty[vs]);
+    }
+  }
+
+  // epilogue: o / l in f32, lse = (m + log2 l) ln 2
+  int64_t q_rs;
+  const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int row = row_a + 8 * r;
+    if (row >= T) continue;
+    const float l_safe = l[r] == 0.f ? 1.f : l[r];
+    const float inv = 1.f / l_safe;
+    float* orow = o + q_base + (int64_t)row * q_rs + (SPLIT ? DW * wg : 0) +
+                  col;
+#pragma unroll
+    for (int c = 0; c < DW / 8; ++c)
+      *reinterpret_cast<float2*>(orow + 8 * c) =
+          make_float2(acc[4 * c + 2 * r] * inv, acc[4 * c + 2 * r + 1] * inv);
+    if (lane % 4 == 0 && (!SPLIT || wg == 0))
+      lse[(int64_t)bh * T + row] = (m[r] + __log2f(l_safe)) * LN2;
+  }
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v, void* o,
+                float* lse, int B, int H, int Hk, int T, int bh_layout,
+                float scale, int causal, cudaStream_t stream) {
+  using S = FwdTf32Smem<D>;
+  CUtensorMap mq, mk, mv;
+  int e = make_head_map<float>(&mq, q, D, H, T, B, bh_layout, S::BQ);
+  if (!e) e = make_head_map<float>(&mk, k, D, Hk, T, B, bh_layout, S::BK);
+  if (!e) e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
+  if (e) return e;
+  const int tiles = (T + S::BQ - 1) / S::BQ;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  e = ptt::allow_smem(flash_fwd_sm90_tf32_kernel<D>, S::BYTES);
+  if (e) return e;
+  flash_fwd_sm90_tf32_kernel<D><<<tiles * B * H, THREADS, S::BYTES, stream>>>(
+      mq, mk, mv, static_cast<float*>(o), lse, H, Hk, T, bh_layout, scale,
+      causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename E, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hk, int T, int bh_layout, float scale,
@@ -276,6 +560,20 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_dim_tf32(const void* q, const void* k, const void* v, void* o,
+                    float* lse, int B, int H, int Hk, int T, int D,
+                    int bh_layout, float scale, int causal, cudaStream_t s) {
+  switch (D) {
+    case 64: return launch_tf32<64>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
+                                    scale, causal, s);
+    case 128: return launch_tf32<128>(q, k, v, o, lse, B, H, Hk, T,
+                                      bh_layout, scale, causal, s);
+    case 256: return launch_tf32<256>(q, k, v, o, lse, B, H, Hk, T,
+                                      bh_layout, scale, causal, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename E>
 int launch_dim(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int Hk, int T, int D, int bh_layout,
@@ -293,8 +591,8 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// As flash_fwd (flash_fwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
-// in {64, 128, 256}; any other dtype or head dim is
+// As flash_fwd (flash_fwd.cu) for f32 (dtype 0), bf16 (dtype 1) and fp16
+// (dtype 2) at D in {64, 128, 256}; any other dtype or head dim is
 // cudaErrorInvalidValue.  q, k, v, o 16-byte aligned.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int Hk,
@@ -303,6 +601,9 @@ extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
   if (B * H == 0 || T == 0) return 0;
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == ptt::F32)
+    return launch_dim_tf32(q, k, v, o, lse, B, H, Hk, T, D, bh_layout, scale,
+                           causal, s);
   if (dtype == ptt::BF16)
     return launch_dim<__nv_bfloat16>(q, k, v, o, lse, B, H, Hk, T, D,
                                      bh_layout, scale, causal, s);

@@ -4,15 +4,22 @@
 //
 // Every piece takes the element type E of the kernel's inputs: bf16
 // (__nv_bfloat16) or fp16 (__half), both 2 bytes, both multiplied by the
-// same wgmma shapes into f32 accumulators.
+// same m64nNk16 shapes into f32 accumulators; or float, multiplied as TF32
+// by m64nNk8 shapes (the same 32 bytes of K a step: mma_ss_tf32,
+// mma_rs_tf32), where wgmma takes no transpose bit: both shared-memory
+// operands are K-major, an A fragment in registers holds one value a
+// register (tf32() rounds it), TMA rounds f32 to TF32 as it loads it
+// (make_map), and the f32 kernels write the transposed copies they need
+// themselves (transpose_tf32).
 //
-// The one layout every piece agrees on: a 64-column slab of a tile in
-// shared memory, 128 bytes per row, 128-byte swizzled (16-byte chunk c of
-// row r sits at chunk c ^ (r % 8)), slabs 1024-byte aligned.  TMA writes it
-// (CU_TENSOR_MAP_SWIZZLE_128B with a 64-column box), the wgmma descriptors
-// read it (layout type 1, 8-row groups 1024 bytes apart), and the
-// backward's register-to-shared stores of dS^T write it by hand
-// (swizzle_128b below).  A (rows, D) tile with D = 128 is two such slabs.
+// The one layout every piece agrees on: a slab of a tile in shared
+// memory, 128 bytes per row (64 columns of a 2-byte E, 32 of f32),
+// 128-byte swizzled (16-byte chunk c of row r sits at chunk c ^ (r % 8)),
+// slabs 1024-byte aligned.  TMA writes it (CU_TENSOR_MAP_SWIZZLE_128B with
+// a 128-byte box), the wgmma descriptors read it (layout type 1, 8-row
+// groups 1024 bytes apart), and the register-to-shared stores write it by
+// hand (swizzle_128b, swizzle_128b_f32, transpose_tf32).  A (rows, D) tile
+// with D = 128 is two such slabs of bf16, four of f32.
 #pragma once
 
 #include <cuda.h>
@@ -38,6 +45,11 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 // 2-byte elements.
 __device__ __forceinline__ uint32_t swizzle_128b(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// The same for element (r, c) (c < 32) of a slab of f32.
+__device__ __forceinline__ uint32_t swizzle_128b_f32(int r, int c) {
+  return r * 128 + ((((c >> 2) ^ r) & 7) << 4) + (c & 3) * 4;
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -185,10 +197,196 @@ __device__ __forceinline__ uint32_t pack(float lo, float hi) {
   }
 }
 
+// f32 -> TF32 rounded to nearest (ties away), as the WMMA kernels'
+// __float_to_tf32: the bits of an f32 whose low 13 mantissa bits are 0.
+// One such register is one element of a TF32 A fragment.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// m64nNk8, TF32 in (f32 registers or shared memory read as TF32: wgmma
+// ignores the low 13 mantissa bits), f32 accumulate.  The accumulator is
+// laid out as at k16 (below).  An A fragment in registers (k8) gives
+// thread t (warp w, lane l) a0..a3 at
+//   rows 16 w + l / 4 + 8 {0, 1, 0, 1},  columns l % 4 + 4 {0, 0, 1, 1}
+// of the 8 columns, where an accumulator holds columns 2 (l % 4) + {0, 1}:
+// columns 8 kk .. 8 kk + 7 of a 64 x N accumulator are the A fragment
+// {d[4 kk], d[4 kk + 2], d[4 kk + 1], d[4 kk + 3]} of those columns
+// taken in the order [0, 2, 4, 6, 1, 3, 5, 7], so the B operand's K rows
+// must come in that order too (transpose_tf32 with PERM).  No transpose
+// bit: both shared-memory operands are K-major.
+
+// d (64 x 16, f32) (+)= A (64 x 8) B (8 x 16), TF32, both K-major from
+// shared memory (descriptors a, b).
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[8], Desc a, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %11, 0;\n"
+      "mov.b64 da, {%8, %10};\nmov.b64 db, {%9, %10};\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "da, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+}
+
+// d (64 x 32, f32) (+)= A (64 x 8) B (8 x 32), TF32, both K-major from
+// shared memory (descriptors a, b).
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[16], Desc a, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %19, 0;\n"
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "da, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 8) B (8 x 64), TF32, both K-major from
+// shared memory (descriptors a, b).
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[32], Desc a, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %35, 0;\n"
+      "mov.b64 da, {%32, %34};\nmov.b64 db, {%33, %34};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "da, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 8) B (8 x 128), TF32, both K-major from
+// shared memory (descriptors a, b).
+__device__ __forceinline__ void mma_ss_tf32(float (&d)[64], Desc a, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"
+      "setp.ne.b32 p, %67, 0;\n"
+      "mov.b64 da, {%64, %66};\nmov.b64 db, {%65, %66};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "da, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+}
+
+// d (64 x 64, f32) (+)= A (64 x 8, TF32 in registers: tf32()) B (8 x 64,
+// K-major in shared memory, descriptor b).
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[32], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %38, 0;\n"
+      "mov.b64 db, {%36, %37};\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),
+        "r"(accumulate));
+}
+
+// d (64 x 128, f32) (+)= A (64 x 8, TF32 in registers: tf32()) B (8 x 128,
+// K-major in shared memory, descriptor b).
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[64], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %70, 0;\n"
+      "mov.b64 db, {%68, %69};\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),
+        "r"(accumulate));
 }
 
 // m64nNk16, E (bf16 or fp16) in, f32 accumulate.  The accumulator of a
@@ -384,6 +582,78 @@ __device__ __forceinline__ void mma_rs(float (&d)[64], uint32_t a0,
 #undef PTT_MMA_RS_N128
 
 // ---------------------------------------------------------------------------
+// TF32 transposed copies
+// ---------------------------------------------------------------------------
+
+// The f32 kernels' three warpgroups: two consumers and a producer whose
+// warp 0 issues the TMA loads and whose warps 1-3 (TF32_TRANSPOSERS
+// threads) write the transposed copies.  The registers a thread of each
+// holds: 128 x 56 + 256 x 224 = 64,512, the block's 384 x 168 at launch,
+// which setmaxnreg only moves between warpgroups (asking for more than
+// that waits forever).  At 40 for the producer transpose_tf32 spilled.
+constexpr int TF32_TRANSPOSERS = 96, TF32_PRODUCER_REGS = 56,
+              TF32_CONSUMER_REGS = 224;
+
+// Row of an (R, .) tile that position p of a transposed row holds: with
+// PERM, within each group of 8 positions the rows [0, 2, 4, 6, 1, 3, 5, 7]
+// (the order in which a k8 A fragment taken from an accumulator holds its
+// columns, above); without it, row p.
+template <bool PERM> __device__ __forceinline__ int tf32_src_row(int p) {
+  return PERM ? (p & ~7) + 2 * (p & 3) + ((p >> 2) & 1) : p;
+}
+
+// Write the (C, R) transpose of an (R, C) f32 tile.  `src` is the tile as
+// TMA writes it (its values TF32 already: make_map): C / 32 slabs of R
+// rows (R * 128 bytes each); `dst` gets R / 32 slabs of C rows (C * 128
+// bytes each), so that a K-major wgmma operand over R reads it.  The work
+// is (C / 32) x (R / 32) units of 32 source columns by 32 source rows;
+// warp `w` of WARPS takes units w, w + WARPS, ... from unit `first` on.
+// In a unit lane l owns source column 32 s + l, the destination row of
+// that index, so its swizzle terms are fixed: with the rows and positions
+// known at compile time, every address is a register, an XOR with a
+// constant and an immediate.  An item is four 4-byte loads from one source
+// column and
+// one 16-byte store of four positions; a warp's loads read one 128-byte
+// row and its stores spread over all banks in each quarter warp.  Two
+// items' loads are in flight at a time.
+template <int R, int C, bool PERM, int WARPS>
+__device__ __forceinline__ void transpose_tf32(const unsigned char* src,
+                                               unsigned char* dst, int w,
+                                               int lane, int first = 0) {
+  static_assert(R % 32 == 0 && C % 32 == 0, "whole slabs");
+  constexpr int UNITS = (C / 32) * (R / 32);
+  const uint32_t s0 = smem_u32(src), d0 = smem_u32(dst);
+  // a row or position of residue k mod 8 takes load chunk (l / 4) ^ k and
+  // store chunk l ^ k: chunk offsets lc ^ (k << 4) and dc ^ (k << 4)
+  const uint32_t lc = ((lane >> 2) & 7) << 4, dc = (lane & 7) << 4;
+  for (int u = (w - first % WARPS + WARPS) % WARPS; u < UNITS; u += WARPS) {
+    const int sl = u % (C / 32), rb = u / (C / 32);  // slab, 32-row block
+    const uint32_t sb =
+        s0 + sl * (R * 128) + rb * (32 * 128) + (lane & 3) * 4;
+    const uint32_t db = d0 + rb * (C * 128) + (32 * sl + lane) * 128;
+#pragma unroll
+    for (int p2 = 0; p2 < 8; p2 += 2) {
+      uint32_t v[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int r = tf32_src_row<PERM>(4 * (p2 + h) + j);  // < 32
+          asm volatile("ld.shared.b32 %0, [%1];\n"
+                       : "=r"(v[h][j])
+                       : "r"(sb + r * 128 + (lc ^ ((r & 7) << 4))));
+        }
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         db + (dc ^ ((p2 + h) << 4))),
+                     "r"(v[h][0]), "r"(v[h][1]), "r"(v[h][2]), "r"(v[h][3])
+                     : "memory");
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host: tensor maps
 // ---------------------------------------------------------------------------
 
@@ -415,23 +685,29 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tensor of E at `base` as a 4-D map (D, Hx, T, Bx), innermost first,
-// read in boxes of (64, 1, rows, 1), 128-byte swizzled.  The port's two
-// layouts: (B, T, Hx, D) is (D, Hx, T, B); (B*Hx, T, D) is (D, 1, T, B*Hx).
-// Rows at or past T read as zeros, so the host pads nothing.
+// read in boxes of (128 bytes of columns, 1, rows, 1), 128-byte swizzled:
+// 64 columns of bf16 / fp16, 32 of f32.  The port's two layouts: (B, T,
+// Hx, D) is (D, Hx, T, B); (B*Hx, T, D) is (D, 1, T, B*Hx).  Rows at or
+// past T read as zeros, so the host pads nothing.  f32 is mapped as
+// TFLOAT32, whose loads round each value to TF32 (to nearest, ties away:
+// cvt.rna's rounding, which chip_smoke.py phase 1 checks on the card);
+// wgmma would otherwise drop the low 13 mantissa bits of what it reads.
 template <typename E>
 int make_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
              int Bx, int rows) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  constexpr cuuint64_t ES = sizeof(E);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hx, (cuuint64_t)T,
                               (cuuint64_t)Bx};
-  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)Hx * D * 2,
-                                 (cuuint64_t)T * Hx * D * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * ES, (cuuint64_t)Hx * D * ES,
+                                 (cuuint64_t)T * Hx * D * ES};
+  const cuuint32_t box[4] = {(cuuint32_t)(128 / ES), 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  constexpr CUtensorMapDataType type = std::is_same_v<E, __half>
-                                           ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
-                                           : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  constexpr CUtensorMapDataType type =
+      std::is_same_v<E, float>    ? CU_TENSOR_MAP_DATA_TYPE_TFLOAT32
+      : std::is_same_v<E, __half> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                  : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUresult r = encode(map, type, 4,
                       const_cast<void*>(base), dims, strides, box, unit,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -21,14 +21,22 @@ The backward takes one of the JAX module's two routes, by the same rule
               atomics, dq bit-identical from run to run
 
 Each of the four kernels has two versions, picked by a fixed rule per
-kernel on dtype and (kernel) head dim (``_sm90``), not a fallback.  The
-Hopper versions are built on ``wgmma``, TMA and a warp-specialized
-mbarrier ring; the forward, the fused backward and the dk / dv kernel
-run them for bf16 and fp16 at D 64, 128 and 256, the dq kernel for bf16
-at D 64 and 128 (every model's attention but the tiny one's is bf16 at
-D 64 or 128).  Everything else, f32 and D 16/32, and the dq kernel at
-fp16 or D 256, runs the WMMA versions.  A build or launch failure of
-either raises.
+kernel, dtype and (kernel) head dim (``SM90_RULE``, ``_sm90``), not a
+fallback.  The Hopper versions are built on ``wgmma``, TMA and a
+warp-specialized mbarrier ring (f32 as TF32, with the transposed copies
+of V, Q, dO and K that TF32 ``wgmma`` needs written in shared memory):
+
+  forward       bf16, fp16, f32 at D 64, 128, 256
+  fused, dk/dv  bf16, fp16 at D 64, 128, 256; f32 at D 64, 128
+  dq            bf16 at D 64, 128
+
+Every model's attention but the tiny one's is bf16 at D 64 or 128.
+Everything else runs the WMMA versions: D 16/32 at every dtype, the
+fused and dk / dv kernels at f32 D 256 (the f32 walk's K and V alone
+would take 128 KB of shared memory at 64 keys), and the dq kernel at
+fp16, f32 or D 256.  So at f32 the two-kernel route runs the WMMA dq
+kernel, then the Hopper dk / dv kernel.  A build or launch failure of
+either version raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
 (T, D) f32 dq resident, so past ``_FUSED_DQ_BYTES`` (T > 8192 at
@@ -58,12 +66,12 @@ and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
 On CUDA every call, forward-only or not, goes through the kernels, which
 tile T by 64 or 128 and mask the tail themselves, and any B * H (the
 grid is one dimension of tiles times B * H).  The kernels take float32,
-bfloat16 or float16 at D in {16, 32, 64, 128, 256} (float32 at D 256 on
-32-row tiles: its 64-row tile set passes a block's shared memory).  A
-head dim between two of these runs at the next one: the wrappers pad
-q, k, v (and dO) with zero columns, which change neither the scores nor
-the true columns of out, dq, dk and dv, pass the scale of the true D and
-slice the outputs back.  Anything else on a CUDA tensor raises: D above
+bfloat16 or float16 at D in {16, 32, 64, 128, 256} (the WMMA backward at
+float32 D 256 on 32-row tiles: its 64-row tile set passes a block's
+shared memory).  A head dim between two of these runs at the next one:
+the wrappers pad q, k, v (and dO) with zero columns, which change
+neither the scores nor the true columns of out, dq, dk and dv, pass the
+scale of the true D and slice the outputs back.  Anything else on a CUDA tensor raises: D above
 256 too, which no model of either package has and at which the JAX
 kernel's block picker stops (``_auto_block``).
 """
@@ -99,25 +107,27 @@ BWD_DKV_SM90_KERNEL = kernels.CudaKernel("flash_bwd_dkv_sm90",
 _FUSED_DQ_BYTES = 4 * 1024 * 1024
 
 
-# Per flash kernel, the dtypes and kernel head dims its Hopper version
+# Per flash kernel and dtype, the kernel head dims its Hopper version
 # takes.  The dk / dv kernel is the fused kernel's walk without dq, so
 # the two take the same.
+_WALK = {torch.bfloat16: (64, 128, 256), torch.float16: (64, 128, 256),
+         torch.float32: (64, 128)}
 SM90_RULE = {
-    "fwd": ((torch.bfloat16, torch.float16), (64, 128, 256)),
-    "bwd": ((torch.bfloat16, torch.float16), (64, 128, 256)),
-    "dkv": ((torch.bfloat16, torch.float16), (64, 128, 256)),
-    "dq": ((torch.bfloat16,), (64, 128)),
+    "fwd": {torch.bfloat16: (64, 128, 256), torch.float16: (64, 128, 256),
+            torch.float32: (64, 128, 256)},
+    "bwd": _WALK,
+    "dkv": _WALK,
+    "dq": {torch.bfloat16: (64, 128)},
 }
 
 
 def _sm90(kernel: str, dtype: torch.dtype, D: int) -> bool:
     """True where flash kernel ``kernel`` ("fwd", "bwd", "dq" or "dkv")
-    runs its Hopper version at (kernel) head dim ``D``, by SM90_RULE;
-    elsewhere its WMMA version (``flash_fwd``, ``flash_bwd``,
-    ``flash_bwd_dq``, ``flash_bwd_dkv``) runs: f32, D 16/32, and the dq
-    kernel at fp16 or D 256."""
-    dtypes, dims = SM90_RULE[kernel]
-    return dtype in dtypes and D in dims
+    runs its Hopper version for ``dtype`` at (kernel) head dim ``D``, by
+    SM90_RULE; elsewhere its WMMA version (``flash_fwd``, ``flash_bwd``,
+    ``flash_bwd_dq``, ``flash_bwd_dkv``) runs: D 16/32, the fused and
+    dk / dv kernels at f32 D 256, the dq kernel but at bf16 D 64/128."""
+    return D in SM90_RULE[kernel].get(dtype, ())
 
 
 def _use_fused_bwd(T: int, D: int) -> bool:

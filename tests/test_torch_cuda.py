@@ -67,7 +67,7 @@ def test_flash_kernels_match_plain(cuda, B, T, H, Hk, D, causal):
     torch.cuda.synchronize()
     # bf16 at D 64/128: the Hopper kernels, never the WMMA ones
     assert {n: c - counts[n] for n, c in _launches().items()} == _want(
-        hopper=True, two=False)
+        torch.bfloat16, D, two=False)
 
     qf = [x.float().requires_grad_(True) for x in (q, k, v)]
     ref = fa._dense_path(*qf, D ** -0.5, causal)
@@ -116,12 +116,15 @@ def _launches():
 
 def _hopper(kernel, dtype, D):
     """The stated route at head dim ``D`` (padded to the kernels' next):
-    B1, B2 and B4 run Hopper for bf16 and fp16 at 64/128/256, B3 for bf16
-    at 64/128; everything else runs WMMA."""
+    B1 runs Hopper at 64/128/256, B2 and B4 at 64/128/256 for bf16 and
+    fp16 and at 64/128 for f32, B3 for bf16 at 64/128; everything else
+    runs WMMA."""
     D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
     if kernel == "dq":
         return dtype == torch.bfloat16 and D in (64, 128)
-    return dtype in (torch.bfloat16, torch.float16) and D in (64, 128, 256)
+    if dtype == torch.float32 and kernel != "fwd":
+        return D in (64, 128)
+    return D in (64, 128, 256)
 
 
 def _want(dtype, D, two):
@@ -180,7 +183,8 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
     through the f32 plain forward, with exact launch counts: the Hopper
-    kernels for bf16 at D 128 here, the WMMA ones for f32 and D 16/32."""
+    kernels for bf16 at D 128 and f32 at D 64/128 here (B3 on WMMA at
+    f32), the WMMA ones for D 16/32."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
@@ -207,7 +211,8 @@ def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype,
     the next, against autograd through the f32 plain forward at the true
     D, with exact launch counts by the route (GQA H4 / Hk2, ragged T):
     Hopper B1, B2 and B4 for bf16 and fp16 up to 256, B3 on WMMA at fp16
-    and D 256, and f32 (on 32-row tiles at D 256) on WMMA."""
+    and D 256, and f32 on the Hopper TF32 kernels (B1 at D 256 too; B2 and
+    B4 at D 256 on WMMA's 32-row tiles, B3 on WMMA)."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 2, 200, 4, 2, D, True, dtype,
@@ -281,9 +286,9 @@ def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
                                      (torch.float16, 256)])
 def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     """B3 sums dq without atomics: two runs give the same bits.  B4 is the
-    fused kernel's walk without dq: the Hopper B4 (bf16, fp16) gives the
-    Hopper B2's dk / dv bit for bit at each instantiation, the WMMA B4
-    (f32) the WMMA B2's (GQA H16 / Hk4, ragged T)."""
+    fused kernel's walk without dq: the Hopper B4 (bf16, fp16, and f32 on
+    the TF32 walk) gives the Hopper B2's dk / dv bit for bit at each
+    instantiation (GQA H16 / Hk4, ragged T)."""
     args = _bwd_args(cuda, 1, 1000, 16, 4, D, dtype, bh, causal)
     first = fa._flash_bwd_dq_cuda(*args)
     second = fa._flash_bwd_dq_cuda(*args)
@@ -356,6 +361,31 @@ def test_sm90_fp16_and_d256_match_plain(cuda, monkeypatch, dtype, D, causal,
     for a, b in zip(got, want):
         err = (a.float() - b.float()).abs().max().item()
         assert err <= TOL[dtype] * b.abs().max().item() + 1e-3, err
+
+
+@pytest.mark.parametrize("route", ["fused", "two_kernel"])
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("T", [2, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 128, 256])
+def test_sm90_f32_match_plain(cuda, monkeypatch, D, causal, T, bh, route):
+    """The Hopper TF32 instantiations (GQA H16 / Hk4): B1 at D 64/128/256,
+    with B2 or B3 (WMMA) + B4 at D 64/128 and the WMMA backward at D 256,
+    against autograd through the f32 plain forward at T = 2 (below every
+    tile), ragged T and T1000, in both layouts, with exact launch counts.
+    Not T = 1: there the plain grads are exactly 0 (one key), and every
+    TF32 kernel, the WMMA ones too, forms dP from dO rounded to TF32
+    against delta from the f32 dO, which leaves grads of about 1e-3 where
+    the bound's absolute term is 1e-3."""
+    if route == "two_kernel":
+        monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
+    got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
+                                      torch.float32, bh)
+    assert launched == _want(torch.float32, D, two=route == "two_kernel")
+    assert launched["flash_fwd_sm90"] == 1
+    for a, b in zip(got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        assert err <= TOL[torch.float32] * b.abs().max().item() + 1e-3, err
 
 
 def test_train_llama_tiny_on_cuda(cuda, capsys):

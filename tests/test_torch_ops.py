@@ -224,20 +224,23 @@ class TestTwoKernelRoute:
 
 
 def hopper_by_the_rule(kernel, dtype, D):
-    """The stated route, written out: the forward, the fused backward and
-    the dk / dv kernel run their Hopper versions for bf16 and fp16 at
-    kernel head dim 64, 128 or 256, the dq kernel for bf16 at 64 or 128;
+    """The stated route, written out: the forward runs its Hopper version
+    for bf16, fp16 and f32 at kernel head dim 64, 128 or 256; the fused
+    backward and the dk / dv kernel for bf16 and fp16 at 64, 128 or 256
+    and for f32 at 64 or 128; the dq kernel for bf16 at 64 or 128;
     everything else runs WMMA."""
     if kernel == "dq":
         return dtype == torch.bfloat16 and D in (64, 128)
-    return dtype in (torch.bfloat16, torch.float16) and D in (64, 128, 256)
+    if dtype == torch.float32 and kernel != "fwd":
+        return D in (64, 128)
+    return D in (64, 128, 256)
 
 
 class TestHopperDispatch:
     """Which version of each flash kernel a CUDA call launches, by the
-    per-kernel rule (``_sm90``): the Hopper ones for bf16 and fp16 at D
-    64/128/256 (the dq kernel: bf16 at D 64/128), the WMMA ones
-    elsewhere."""
+    per-kernel, per-dtype rule (``_sm90``): the Hopper ones at D
+    64/128/256 (f32's fused and dk / dv kernels at D 64/128, the dq
+    kernel for bf16 at D 64/128), the WMMA ones elsewhere."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
