@@ -21,15 +21,16 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             64/128/256, D 256 in fp16 and bf16 (the Hopper kernels, GQA
             at a ragged T, the bh layout), f32 on the Hopper TF32
             kernels (D 64 with GQA at a ragged T and in the bh layout,
-            D 128 at the main shape, the forward at D 256 beside the
-            WMMA backward's 32-row tiles) and B*H = 65,536), the
-            two-kernel route (dq, then dk/dv) at T4096 and on the same
-            variety with the route forced (at fp16, f32 and D 256 B3 on
-            WMMA beside the Hopper B4); the Hopper B4's dk/dv bit for bit
-            B2's at every bf16, fp16 and f32 instantiation; the WMMA
-            forward and fused backward, which bf16, fp16 and f32 at D
-            64/128 no longer reach, at the main path's shape in bf16 and
-            f32; at the long path's full
+            D 128 at the main shape, D 256 with the backward on
+            clusters of two CTAs) and B*H = 65,536), the two-kernel
+            route (dq, then dk/dv) at T4096 and on the same variety with
+            the route forced (the Hopper B3 at fp16, D 256 and f32 D
+            64/128; at f32 D 256 B3 on WMMA beside the Hopper B4); the
+            Hopper B4's dk/dv bit for bit B2's and the Hopper B3's dq
+            bit for bit over two runs at every bf16, fp16 and f32
+            instantiation; the WMMA forward and fused backward,
+            which bf16, fp16 and f32 no longer reach, at the main path's
+            shape in bf16 and f32; at the long path's full
             shape B1 and the Hopper and WMMA B3 and B4 against their
             plain versions on two of the heads (the Hopper B4's dk error
             beside the WMMA B4's: both form dS from the f32 P), the
@@ -46,10 +47,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             at T16384, B3 and B4 at T16384; the fused backward against
             B3 + B4 at T8192 and T16384; at T2048 fp16 and bf16 at D 256,
             fp16 at D 128 and f32 at D 64, 128 and 256 (the Hopper B1 and
-            B2, each in turns with the WMMA kernel it replaced; f32's B2
-            at D 256 on WMMA), bf16 at D 96 (padded), and B3 + B4 on the
-            two-kernel route at fp16 D 256 and f32 D 128 (B3 on WMMA,
-            B4 Hopper), the forward beside SDPA and the backward beside
+            B2, each in turns with the WMMA kernel it replaced), bf16 at
+            D 96 (padded), and B3 + B4 on the two-kernel route at each of
+            those but D 96 (the Hopper B3 in turns with the WMMA one; at
+            f32 D 256 B3 on WMMA), the forward beside SDPA and the
+            backward beside
             aten's flash backward (bf16, fp16) or SDPA's memory-efficient
             backward (f32, which aten's refuses); B1 and B2 at
             the MoE's and the pipeline's length, B1 x T4096 with 32 q
@@ -331,17 +333,27 @@ def ptxas_by_kernel(log: str) -> dict:
     return by_entry
 
 
+# The Hopper kernels' instantiations: B1, B2 and B4 at bf16, fp16 and
+# f32 (TF32) at D 64/128/256 (9 each), B3 at bf16 and fp16 at D
+# 64/128/256 and f32 at D 64/128 (8)
+SM90_INSTANTIATIONS = 35
+
+
 def check_sm90_ptxas(log: str) -> dict:
     """Phase 1's check of the Hopper kernels' build: every instantiation
-    of a ``_sm90`` kernel spills no byte.  Returns their ptxas counts."""
+    of a ``_sm90`` kernel (SM90_INSTANTIATIONS of them) spills no byte.
+    Returns their ptxas counts."""
     sm90 = {name: c for name, c in ptxas_by_kernel(log).items()
             if "_sm90" in name}
     spilled = {name: c for name, c in sm90.items()
                if c["spill_stores"] or c["spill_loads"]}
     emit({"check": "sm90_ptxas", "kernels": sm90,
-          "tolerance": "0 spill bytes in every _sm90 instantiation",
-          "ok": bool(sm90) and not spilled})
-    require(bool(sm90), "ptxas reported no _sm90 kernel")
+          "tolerance": "0 spill bytes in every _sm90 instantiation, "
+                       f"{SM90_INSTANTIATIONS} of them",
+          "ok": len(sm90) == SM90_INSTANTIATIONS and not spilled})
+    require(len(sm90) == SM90_INSTANTIATIONS,
+            f"ptxas reported {len(sm90)} _sm90 instantiations, not "
+            f"{SM90_INSTANTIATIONS}: {sorted(sm90)}")
     require(not spilled, f"ptxas spilled in a Hopper kernel: {spilled}")
     return sm90
 
@@ -573,8 +585,8 @@ FLASH_CASES = {
     "d48_padded_non_causal": (2, 333, 8, 2, 48, False, False, BF16),
     "d200_padded_bh": (1, 500, 8, 4, 200, True, True, BF16),
     "bh65536": (4096, 65, 16, 8, 64, True, False, BF16),
-    # f32 at D 256 on the WMMA kernels' 32-row tiles (C3), and D 160
-    # padded to it
+    # f32 at D 256 on the Hopper TF32 kernels (B2 on clusters of two CTAs,
+    # C3), and D 160 padded to it
     "f32_d256_gqa": (2, 1000, 8, 4, 256, True, False, F32),
     "f32_d160_padded_bh": (1, 333, 8, 8, 160, False, True, F32),
     # f32 on the Hopper kernels (TF32 wgmma): D 64 with GQA at a ragged T
@@ -603,13 +615,14 @@ TWO_KERNEL_CASES = {
     "fp16_d128": (2, 1000, 16, 4, 128, True, False, F16),
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
     "d256_bf16": (1, 1000, 8, 8, 256, True, False, BF16),
-    # B3 on WMMA beside the Hopper B4 (the route at fp16 and D 256)
+    # the Hopper B3 and B4 at fp16 and D 256; at f32 D 256 B3 on WMMA
+    # beside the Hopper B4 (clusters of two CTAs)
     "fp16_d256": (1, 1000, 8, 8, 256, True, False, F16),
     "fp16_d256_gqa_bh": (1, 500, 8, 2, 256, False, True, F16),
     "bh65536_fp16": (4096, 65, 16, 8, 64, True, False, F16),
     "f32_d256": (1, 1000, 8, 8, 256, True, False, F32),
     "f32_d256_gqa_ragged": (2, 333, 8, 2, 256, True, False, F32),
-    # B3 on WMMA beside the Hopper B4 at f32 D 64 and 128
+    # the Hopper TF32 B3 and B4 at f32 D 64 and 128
     "f32_d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, F32),
     "f32_d64_bh": (1, 1000, 16, 4, 64, False, True, F32),
     "f32_d128_main": (2, 2048, 16, 16, 128, True, False, F32),
@@ -661,10 +674,10 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
-    WMMA version by the route (ops/flash_attention.py _sm90: B1 Hopper
-    for bf16, fp16 and f32 at D 64/128/256, B2 and B4 for bf16 and fp16
-    at D 64/128/256 and f32 at D 64/128, B3 for bf16 at D 64/128); the
-    fused backward, or B3 + B4 on the two-kernel route."""
+    WMMA version by the route (ops/flash_attention.py _sm90: B1, B2 and
+    B4 Hopper for bf16, fp16 and f32 at D 64/128/256, B3 for bf16 and
+    fp16 at D 64/128/256 and f32 at D 64/128); the fused backward, or
+    B3 + B4 on the two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -776,7 +789,7 @@ def check_two_kernel_route(torch, gen) -> dict:
 
 # Every instantiation of the Hopper B2 / B4 walk (dtype, D)
 SM90_WALKS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
-              (F16, 256), (F32, 64), (F32, 128))
+              (F16, 256), (F32, 64), (F32, 128), (F32, 256))
 
 
 def check_dkv_bitwise(torch, gen) -> dict:
@@ -810,9 +823,42 @@ def check_dkv_bitwise(torch, gen) -> dict:
     return res
 
 
+# Every instantiation of the Hopper B3 (dtype, D)
+SM90_DQS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
+            (F16, 256), (F32, 64), (F32, 128))
+
+
+def check_dq_bitwise(torch, gen) -> dict:
+    """The Hopper B3 sums each dq element in one thread and writes it
+    once: at every instantiation two runs on the same inputs give the
+    same bits (GQA H16 / Hk4, ragged T1000, causal in the (B, T, H, D)
+    layout and not in the bh one)."""
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_DQ_SM90_KERNEL,
+        _flash_bwd_dq_cuda,
+    )
+
+    res = {}
+    for dtype, D in SM90_DQS:
+        for causal, bh in ((True, False), (False, True)):
+            args = _bwd_args(torch, gen, 1, 1000, 16, D, dtype=dtype, Hk=4,
+                             causal=causal, bh=bh)
+            first = _flash_bwd_dq_cuda(*args, kernel=BWD_DQ_SM90_KERNEL)
+            second = _flash_bwd_dq_cuda(*args, kernel=BWD_DQ_SM90_KERNEL)
+            torch.cuda.synchronize()
+            res[f"{dtype}_d{D}_{'causal' if causal else 'bh'}"] = bool(
+                torch.equal(first, second))
+            del args, first, second
+    ok = all(res.values())
+    emit({"check": "sm90_dq_bitwise_stable", "cases": res,
+          "tolerance": "B3's dq bit for bit equal over two runs", "ok": ok})
+    require(ok, f"the Hopper B3's dq differs between two runs: {res}")
+    return res
+
+
 def check_wmma_at_main(torch, gen) -> dict:
     """The WMMA forward and fused backward (flash_fwd.cu, flash_bwd.cu),
-    which bf16, fp16 and (at D 64/128) f32 no longer reach, at the main
+    which bf16, fp16 and f32 at D 64/128/256 no longer reach, at the main
     path's shape in bf16 and in f32 against their plain versions, so
     that the yardstick phase 3 times beside the Hopper kernels computes
     the same function.  Returns the bf16 max abs errors."""
@@ -1323,17 +1369,19 @@ def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
 
 # C3's cases at the main path's length: fp16 and bf16 at D 256 and fp16
 # at D 128 (the Hopper kernels, each beside its WMMA predecessor), f32 at
-# D 64, 128 (the Hopper TF32 kernels, each beside its WMMA predecessor)
-# and 256 (the Hopper TF32 forward; the WMMA backward on 32-row tiles),
-# and bf16 at D 96, zero-padded to the Hopper kernels' 128: (dtype, D,
-# heads)
+# D 64, 128 and 256 (the Hopper TF32 kernels, each beside its WMMA
+# predecessor; the backward at D 256 on clusters of two CTAs), and bf16
+# at D 96, zero-padded to the Hopper kernels' 128: (dtype, D, heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
             "bf16_d96_padded": (BF16, 96, 16)}
-# the cases whose two-kernel route (B3 then B4) phase 3 also times: B3 on
-# WMMA at fp16 D 256, and at f32 D 128 beside the Hopper TF32 B4
-C3_TWO_KERNEL = ("fp16_d256", "f32_d128")
+# the cases whose two-kernel route (B3 then B4) phase 3 also times: the
+# Hopper B3 at fp16 D 128 and 256, bf16 D 256 and f32 D 64 and 128 (each
+# beside the WMMA B3 it replaced), and at f32 D 256 the WMMA B3 beside the
+# Hopper B4
+C3_TWO_KERNEL = ("fp16_d256", "bf16_d256", "fp16_d128", "f32_d256",
+                 "f32_d128", "f32_d64")
 
 
 def time_c3_kernels(torch, gen) -> dict:
@@ -1749,7 +1797,8 @@ KERNEL_CLASSES = (("rms_norm", ("rms_norm_kernel",)),
                                       "flash_fwd_sm90_tf32_kernel")),
                   ("flash_bwd_sm90", ("flash_bwd_sm90_kernel",
                                       "flash_bwd_sm90_tf32_kernel")),
-                  ("flash_bwd_dq_sm90", ("flash_bwd_dq_sm90_kernel",)),
+                  ("flash_bwd_dq_sm90", ("flash_bwd_dq_sm90_kernel",
+                                         "flash_bwd_dq_sm90_tf32_kernel")),
                   ("flash_bwd_dkv_sm90", ("flash_bwd_dkv_sm90_kernel",
                                           "flash_bwd_dkv_sm90_tf32_kernel")),
                   ("flash_fwd", ("flash_fwd_kernel",)),
@@ -4285,11 +4334,12 @@ KERNEL_INFO = {
 def run_f32_phases(torch) -> dict:
     """Phases 1-3 for f32 alone, about two minutes (not a phase of
     ``run``): the build with its ptxas check and the TMA probe, every f32
-    case of FLASH_CASES and TWO_KERNEL_CASES, B4 bitwise B2 at f32, the
-    WMMA kernels at the main shape, and the f32 C3 rows.  On the card:
+    case of FLASH_CASES and TWO_KERNEL_CASES, B4 bitwise B2 and B3
+    bitwise stable at f32, the WMMA kernels at the main shape, and the
+    f32 C3 rows.  On the card:
     ``python3 -c "import torch, chip_smoke as c; c.run_f32_phases(torch)"``.
     Returns the C3 rows."""
-    global FLASH_CASES, TWO_KERNEL_CASES, SM90_WALKS, C3_CASES
+    global FLASH_CASES, TWO_KERNEL_CASES, SM90_WALKS, SM90_DQS, C3_CASES
     from pytorch_operator_tpu_torch import kernels
 
     sys.path.insert(0, REPO)
@@ -4303,10 +4353,12 @@ def run_f32_phases(torch) -> dict:
     TWO_KERNEL_CASES = {k: v for k, v in TWO_KERNEL_CASES.items()
                         if v[-1] == F32}
     SM90_WALKS = tuple(w for w in SM90_WALKS if w[0] == F32)
+    SM90_DQS = tuple(w for w in SM90_DQS if w[0] == F32)
     C3_CASES = {k: v for k, v in C3_CASES.items() if v[0] == F32}
     check_flash(torch, gen, FLASH_CASES, "fused")
     check_two_kernel_route(torch, gen)
     check_dkv_bitwise(torch, gen)
+    check_dq_bitwise(torch, gen)
     check_wmma_at_main(torch, gen)
     return time_c3_kernels(torch, gen)
 
@@ -4354,6 +4406,7 @@ def run() -> tuple[str, list[dict]]:
     fused = check_flash(torch, gen, FLASH_CASES, "fused")
     check_two_kernel_route(torch, gen)
     check_dkv_bitwise(torch, gen)
+    check_dq_bitwise(torch, gen)
     wmma = check_wmma_at_main(torch, gen)
     # B3 and B4 run on the long path only: their errors at its shape
     long = check_long_routes(torch, gen)
@@ -4444,10 +4497,9 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("D 16/32 only, and the backward at f32 D 256, "
-                           "B3 but at bf16 D 64/128; timed beside its "
-                           "Hopper successor at its shape as the "
-                           "yardstick")
+            row["path"] = ("D 16/32 only, and B3 at f32 D 256; timed "
+                           "beside its Hopper successor at its shape as "
+                           "the yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
                   for part in ("fwd", "bwd", "dq", "dkv")

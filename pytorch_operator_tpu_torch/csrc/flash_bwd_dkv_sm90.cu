@@ -1,11 +1,10 @@
 // dk / dv kernel of the two-kernel flash-attention backward for Hopper:
-// bf16 or fp16 in at head dim 64, 128 or 256, or f32 (as TF32) at 64 or
-// 128, f32 accumulate, causal or not, GQA, either layout.
+// bf16, fp16 or f32 (as TF32) in at head dim 64, 128 or 256, f32
+// accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) for bf16 and fp16
-// at D in {64, 128, 256} and f32 at D in {64, 128}; the WMMA kernel
-// flash_bwd_dkv.cu keeps D 16/32 and f32 at D 256.  Its
+// _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) at D in {64,
+// 128, 256}; the WMMA kernel flash_bwd_dkv.cu keeps D 16/32.  Its
 // contract is flash_bwd_dkv's: per (key tile, q head) it accumulates
 //   dk[j] = sum_i dS[i, j]^T Q[i],   dv[j] = sum_i P[i, j]^T dO[i]
 // (four products per tile) and writes them once per q head as f32
@@ -23,8 +22,8 @@
 // and dV in wgmma accumulators.  Being the same walk, its dk and dv are
 // bitwise those of flash_bwd_sm90.  Like it, and like the JAX kernel, it
 // forms dS from the f32 P.  f32 runs walk_tf32<D, false>
-// (flash_bwd_dkv_sm90_tf32_kernel), bitwise flash_bwd_sm90's f32 dk / dv
-// in the same way.
+// (flash_bwd_dkv_sm90_tf32_kernel; at D 256 on clusters of two CTAs),
+// bitwise flash_bwd_sm90's f32 dk / dv in the same way.
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -87,20 +86,13 @@ int launch_tf32(const void* q, const void* k, const void* v,
                 float* dkp, float* dvp, int B, int H, int Hk, int T,
                 int bh_layout, float scale, int causal,
                 cudaStream_t stream) {
-  using S = BwdTf32Smem<D, false>;
   Maps m;
   int e = make_maps<float, D>(&m, q, k, v, dout, B, H, Hk, T, bh_layout);
   if (e) return e;
-  const int tiles = (T + S::BK - 1) / S::BK;
-  if (!ptt::grid_fits(tiles, B * H))
-    return static_cast<int>(cudaErrorInvalidValue);
-  e = ptt::allow_smem(flash_bwd_dkv_sm90_tf32_kernel<D>, S::BYTES);
-  if (e) return e;
-  flash_bwd_dkv_sm90_tf32_kernel<D>
-      <<<tiles * B * H, THREADS, S::BYTES, stream>>>(
-          m.q, m.k, m.v, m.dout, lse, delta, dkp, dvp, H, Hk, T, bh_layout,
-          scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  return launch_walk_tf32<D, false>(flash_bwd_dkv_sm90_tf32_kernel<D>, B, H,
+                                    T, stream, m.q, m.k, m.v, m.dout, lse,
+                                    delta, dkp, dvp, H, Hk, T, bh_layout,
+                                    scale, causal);
 }
 
 template <typename E>
@@ -121,9 +113,9 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// As flash_bwd_dkv (flash_bwd_dkv.cu) for bf16 (dtype 1) and fp16 (dtype
-// 2) at D in {64, 128, 256} and f32 (dtype 0) at D in {64, 128}; any
-// other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout
+// As flash_bwd_dkv (flash_bwd_dkv.cu) for f32 (dtype 0), bf16 (dtype 1)
+// and fp16 (dtype 2) at D in {64, 128, 256}; any other dtype or head dim
+// is cudaErrorInvalidValue.  q, k, v, dout
 // 16-byte aligned.
 extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                                   const void* v, const void* dout,
@@ -141,6 +133,9 @@ extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                              T, bh_layout, scale, causal, s);
     if (D == 128)
       return launch_tf32<128>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
+                              T, bh_layout, scale, causal, s);
+    if (D == 256)
+      return launch_tf32<256>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
                               T, bh_layout, scale, causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }

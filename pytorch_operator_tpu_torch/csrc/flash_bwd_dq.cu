@@ -1,5 +1,5 @@
-// dq kernel of the two-kernel flash-attention backward, bf16 or f32 in,
-// f32 accumulate, dq in the inputs' type.
+// dq kernel of the two-kernel flash-attention backward, bf16, fp16 or f32
+// in, f32 accumulate, dq in the inputs' type.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
 // _bwd_dq_kernel (the first pallas_call of _flash_bwd), which the JAX

@@ -1,16 +1,18 @@
 // dq kernel of the two-kernel flash-attention backward for Hopper: bf16
-// in, f32 accumulate, dq in bf16, head dim 64 or 128, causal or not, GQA,
-// either layout.
+// or fp16 in at head dim 64, 128 or 256, or f32 (as TF32) at 64 or 128,
+// f32 accumulate, dq in the inputs' type, causal or not, GQA, either
+// layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dq_kernel (the first pallas_call of _flash_bwd) for bf16 at D in
-// {64, 128}; the WMMA kernel flash_bwd_dq.cu keeps f32 and D 16/32.  Per
-// (q tile, q head) it recomputes, for each key tile up to the diagonal,
+// _bwd_dq_kernel (the first pallas_call of _flash_bwd) for bf16 and fp16
+// at D in {64, 128, 256} and f32 at D in {64, 128}; the WMMA kernel
+// flash_bwd_dq.cu keeps D 16/32 and f32 at D 256.  Per (q tile, q head)
+// it recomputes, for each key tile up to the diagonal,
 //   S = Q K^T,  P = exp(S scale - lse),  dP = dO V^T,
 //   dS = P (dP - delta) scale,
 // and accumulates dq = sum_j dS K_j: three products per tile.  P stays in
-// f32 until dS is formed, as in the JAX kernel; dS is rounded to bf16 for
-// its product.
+// f32 until dS is formed, as in the JAX kernel; dS is rounded to the
+// input type (TF32 for f32) for its product.
 //
 // Deterministic: each dq element is summed in one thread's accumulator in
 // a fixed order (key tile by key tile) and written once.  There are no
@@ -33,26 +35,50 @@
 //    (m64n64k16, shared memory, K-major) back to back and waits once,
 //    forms P = exp2(S scale log2 e - lse log2 e) and dS in the
 //    accumulator registers (the mask only on the two diagonal tiles and
-//    the ragged tail), and packs dS to bf16 pairs: the register A operand
+//    the ragged tail), and packs dS to E pairs: the register A operand
 //    of dq += dS K, with K read MN-major from the same ring slot.
 //  - dq (64 x D f32 per warpgroup) stays in wgmma accumulator registers
 //    for the whole walk: at D = 128 the peak is dq 64 + S 32 + dP 32 f32
 //    a thread, within the 240 registers setmaxnreg gives.  It is written
-//    once in bf16, rows at or past T skipped; TMA zero-fills the tiles
-//    past T, so the host pads nothing.
+//    once in E, rows at or past T skipped; TMA zero-fills the tiles past
+//    T, so the host pads nothing.
+//  - D 256 (DqSmem::SPLIT): a 128-row Q and dO would take 128 KB and dq
+//    over 256 columns 128 f32 a thread beside S and dP.  So 64-row q tiles:
+//    both consumer warpgroups form all of S and dP for those 64 rows
+//    (the two products repeated) and each owns 128 columns of dq (64 + 32
+//    + 32 f32 a thread), dq += dS K[:, its columns] as one m64n128k16
+//    product a k step; Q 32 KB + dO 32 KB + two stages of K and V 128 KB.
+//  - f32 (flash_bwd_dq_sm90_tf32_kernel, D 64 and 128) multiplies in
+//    TF32, whose wgmma takes both shared-memory operands K-major.  S =
+//    Q K^T and dP = dO V^T are K-major already; dq += dS K takes K^T (D
+//    rows of the tile's keys), written for each ring slot by the producer
+//    warpgroup's warps 1-3 into KT_STAGES buffers, keys in the order [0,
+//    2, 4, 6, 1, 3, 5, 7] of each 8 so that dS's accumulator registers,
+//    rounded (cvt.rna), are the k8 A fragments as they are (sm90.cuh
+//    transpose_tf32).  TMA rounds Q, K, V and dO to TF32 as it loads them
+//    (sm90.cuh make_map).  128-row Q and dO take 128 KB at D 128, so the
+//    key tiles are 32 rows there (64 at D 64), two stages, two K^T
+//    buffers (225 KB at D 128).
 #include "common.cuh"
 #include "sm90.cuh"
 
 namespace {
 
 using namespace ptt::sm90;
-using E = __nv_bfloat16;  // bf16 only (see flash_attention.py _sm90)
 
-constexpr int BQ = 128, BK = 64, SLAB = 128;  // rows; bytes per slab row
-constexpr int THREADS = 384, STAGES = 4;
+constexpr int SLAB = 128;  // bytes per slab row
+constexpr int THREADS = 384;
 constexpr float LOG2E = 1.4426950408889634f;
 
+// The 16-bit kernel's tiles by head dim (see the header): 128 q rows, 64
+// a consumer warpgroup, and four stages of 64 keys; at D 256 (SPLIT) 64
+// q rows for both warpgroups, each owning DW = 128 columns of dq, and two
+// stages.
 template <int D> struct DqSmem {
+  static constexpr bool SPLIT = D == 256;
+  static constexpr int BQ = SPLIT ? 64 : 128, BK = 64;
+  static constexpr int STAGES = SPLIT ? 2 : 4;
+  static constexpr int DW = SPLIT ? D / 2 : D;  // dq columns a warpgroup
   static constexpr int SLABS = D / 64;
   static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
   static constexpr int KV_TILE = SLABS * KV_SLAB;
@@ -64,9 +90,10 @@ template <int D> struct DqSmem {
   // q_full, kv_full[STAGES], kv_empty[STAGES]; 1024 bytes of slack to
   // align the dynamic shared memory to the swizzle's 1024-byte period
   static constexpr int BYTES = BAR + 8 * (1 + 2 * STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-template <int D>
+template <typename E, int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mk,
@@ -74,10 +101,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mdo,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
-                         __nv_bfloat16* __restrict__ dq, int H, int Hk,
-                         int T, int bh_layout, float scale, int causal) {
+                         E* __restrict__ dq, int H, int Hk, int T,
+                         int bh_layout, float scale, int causal) {
   using S = DqSmem<D>;
-  constexpr int SLABS = S::SLABS;
+  constexpr int SLABS = S::SLABS, BQ = S::BQ, BK = S::BK;
+  constexpr int STAGES = S::STAGES, DW = S::DW;
+  constexpr bool SPLIT = S::SPLIT;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -134,10 +163,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     return;
   }
 
-  // ---- consumers: warpgroup wg owns q rows [q0w, q0w + 64)
+  // ---- consumers: warpgroup wg owns q rows [q0w, q0w + 64) and dq's
+  // columns [cw, cw + DW) (SPLIT: both the same rows, half of D each)
   setmaxnreg_inc<240>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int q0w = q0 + 64 * wg;
+  const int rw = SPLIT ? 0 : 64 * wg, cw = SPLIT ? DW * wg : 0;
+  const int q0w = q0 + rw;
   const int row_a = q0w + 16 * warp + lane / 4;  // row_b = +8
   const int col = 2 * (lane % 4);
   const float sl2 = scale * LOG2E;
@@ -152,12 +183,12 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     dl[r] = in ? delta[(int64_t)bh * T + row] : 0.f;
   }
 
-  float acc[D / 2];  // dq
+  float acc[DW / 2];  // dq
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
 
-  const uint32_t q_addr = smem_u32(smem + S::Q) + 64 * wg * SLAB;
-  const uint32_t do_addr = smem_u32(smem + S::DO) + 64 * wg * SLAB;
+  const uint32_t q_addr = smem_u32(smem + S::Q) + rw * SLAB;
+  const uint32_t do_addr = smem_u32(smem + S::DO) + rw * SLAB;
   mbar_wait(q_full, 0);
 
   for (int j = 0; j < n_kt; ++j) {
@@ -193,7 +224,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       fence_regs(dp);
 
       // dS = P (dP - delta) scale with P in f32, masked past T and, on
-      // the diagonal tiles, after the row; bf16 pairs: the A fragments
+      // the diagonal tiles, after the row; E pairs: the A fragments
       const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
       uint32_t da[BK / 4];
 #pragma unroll
@@ -211,13 +242,14 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                         p1 * (dp[e + 1] - dl[r]) * scale);
       }
 
-      // dq += dS K: K (64 keys, D) MN-major
+      // dq += dS K: K (64 keys, this warpgroup's DW columns) MN-major
+      const uint32_t kc_addr = k_addr + (cw / 64) * S::KV_SLAB;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk)
         mma_rs<E, 1>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
                      da[4 * kk + 3],
-                     desc(k_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
+                     desc(kc_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
@@ -225,48 +257,320 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (tid == 0) mbar_arrive(&kv_empty[s]);
   }
 
-  // dq in bf16, rows at or past T skipped
+  // dq in E, rows at or past T skipped
   int64_t q_rs;
   const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     if (row >= T) continue;
-    __nv_bfloat16* out = dq + q_base + (int64_t)row * q_rs + col;
+    E* out = dq + q_base + (int64_t)row * q_rs + cw + col;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DW / 8; ++c)
       *reinterpret_cast<uint32_t*>(out + 8 * c) =
           pack<E>(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
   }
 }
 
-template <int D>
+template <typename E, int D>
 int launch(const void* q, const void* k, const void* v, const void* dout,
            const float* lse, const float* delta, void* dq, int B, int H,
            int Hk, int T, int bh_layout, float scale, int causal,
            cudaStream_t stream) {
+  using S = DqSmem<D>;
   CUtensorMap mq, mk, mv, mdo;
-  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map<E>(&mdo, dout, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, BK);
-  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, BK);
+  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, S::BQ);
+  if (!e) e = make_head_map<E>(&mdo, dout, D, H, T, B, bh_layout, S::BQ);
+  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, S::BK);
+  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
   if (e) return e;
-  const int bytes = DqSmem<D>::BYTES, tiles = (T + BQ - 1) / BQ;
+  const int bytes = S::BYTES, tiles = (T + S::BQ - 1) / S::BQ;
   if (!ptt::grid_fits(tiles, B * H))
     return static_cast<int>(cudaErrorInvalidValue);
-  e = ptt::allow_smem(flash_bwd_dq_sm90_kernel<D>, bytes);
+  e = ptt::allow_smem(flash_bwd_dq_sm90_kernel<E, D>, bytes);
   if (e) return e;
-  flash_bwd_dq_sm90_kernel<D><<<tiles * B * H, THREADS, bytes, stream>>>(
-      mq, mk, mv, mdo, lse, delta, static_cast<__nv_bfloat16*>(dq), H, Hk,
-      T, bh_layout, scale, causal);
+  flash_bwd_dq_sm90_kernel<E, D><<<tiles * B * H, THREADS, bytes, stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<E*>(dq), H, Hk, T, bh_layout,
+      scale, causal);
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---- f32: TF32 wgmma (see the header) ----
+
+template <int D> struct DqTf32Smem {
+  static_assert(D == 64 || D == 128, "the f32 dq kernel takes D 64 and 128");
+  static constexpr int BQ = 128, BK = D == 128 ? 32 : 64;
+  static constexpr int STAGES = 2, KT_STAGES = 2;
+  static constexpr int SLABS = D / 32;  // 32 f32 columns a slab
+  static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
+  static constexpr int KV_TILE = SLABS * KV_SLAB;
+  // K^T: D rows (of 128 bytes: 32 keys), BK / 32 slabs
+  static constexpr int KT_SLAB = D * SLAB, KT_TILE = (BK / 32) * KT_SLAB;
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + SLABS * Q_SLAB;
+  static constexpr int K = DO + SLABS * Q_SLAB;  // slot s at K + s * KV_TILE
+  static constexpr int V = K + STAGES * KV_TILE;
+  static constexpr int KT = V + STAGES * KV_TILE;
+  static constexpr int BAR = KT + KT_STAGES * KT_TILE;
+  // q_full, kv_full[STAGES], kv_empty[STAGES], kt_full[KT_STAGES],
+  // kt_empty[KT_STAGES]
+  static constexpr int BYTES =
+      BAR + 8 * (1 + 2 * STAGES + 2 * KT_STAGES) + 1024;
+  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
+                              const __grid_constant__ CUtensorMap mk,
+                              const __grid_constant__ CUtensorMap mv,
+                              const __grid_constant__ CUtensorMap mdo,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ delta,
+                              float* __restrict__ dq, int H, int Hk, int T,
+                              int bh_layout, float scale, int causal) {
+  using S = DqTf32Smem<D>;
+  constexpr int STAGES = S::STAGES, KTS = S::KT_STAGES, SLABS = S::SLABS;
+  constexpr int BQ = S::BQ, BK = S::BK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + S::BAR);
+  uint64_t* kv_full = q_full + 1;
+  uint64_t* kv_empty = kv_full + STAGES;
+  uint64_t* kt_full = kv_empty + STAGES;
+  uint64_t* kt_empty = kt_full + KTS;
+
+  const int n_qt = (T + BQ - 1) / BQ;
+  const int qt = n_qt - 1 - ptt::grid_tile(n_qt);  // longest causal rows first
+  const int bh = ptt::grid_bh(n_qt);
+  const int b = bh / H, h = bh % H, hk = h / (H / Hk);
+  const int q0 = qt * BQ;
+  int n_kt = (T + BK - 1) / BK;
+  if (causal) n_kt = min(n_kt, (q0 + BQ) / BK);
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], 2);  // one arrival per consumer warpgroup
+    }
+    for (int s = 0; s < KTS; ++s) {
+      mbar_init(&kt_full[s], TF32_TRANSPOSERS);
+      mbar_init(&kt_empty[s], 2);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer: thread 256 issues the TMA loads; warps 1-3 write
+    // each K tile's transpose K^T, keys in the A fragments' order ----
+    setmaxnreg_dec<TF32_PRODUCER_REGS>();
+    const int pt = threadIdx.x - 256;
+    if (pt == 0) {
+      prefetch_map(&mk);
+      prefetch_map(&mv);
+      const int2 cq = head_coords(b, h, H, bh_layout);
+      const int2 ck = head_coords(b, hk, Hk, bh_layout);
+      mbar_expect_tx(q_full, 2 * SLABS * S::Q_SLAB);
+      for (int r = 0; r < SLABS; ++r) {
+        tma_load_4d(smem + S::Q + r * S::Q_SLAB, &mq, q_full, 32 * r, cq.x,
+                    q0, cq.y);
+        tma_load_4d(smem + S::DO + r * S::Q_SLAB, &mdo, q_full, 32 * r,
+                    cq.x, q0, cq.y);
+      }
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES;
+        mbar_wait(&kv_empty[s], ((j / STAGES) & 1) ^ 1);
+        mbar_expect_tx(&kv_full[s], 2 * S::KV_TILE);
+        for (int r = 0; r < SLABS; ++r) {
+          tma_load_4d(smem + S::K + s * S::KV_TILE + r * S::KV_SLAB, &mk,
+                      &kv_full[s], 32 * r, ck.x, j * BK, ck.y);
+          tma_load_4d(smem + S::V + s * S::KV_TILE + r * S::KV_SLAB, &mv,
+                      &kv_full[s], 32 * r, ck.x, j * BK, ck.y);
+        }
+      }
+    } else if (pt >= 32) {
+      for (int j = 0; j < n_kt; ++j) {
+        const int s = j % STAGES, ks = j % KTS;
+        mbar_wait(&kv_full[s], (j / STAGES) & 1);
+        mbar_wait(&kt_empty[ks], ((j / KTS) & 1) ^ 1);
+        transpose_tf32<BK, D, true, TF32_TRANSPOSERS / 32>(
+            smem + S::K + s * S::KV_TILE, smem + S::KT + ks * S::KT_TILE,
+            pt / 32 - 1, pt % 32);
+        fence_proxy_async();
+        mbar_arrive(&kt_full[ks]);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup wg owns q rows [q0w, q0w + 64) and all of D
+  setmaxnreg_inc<TF32_CONSUMER_REGS>();
+  const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
+  const int q0w = q0 + 64 * wg;
+  const int row_a = q0w + 16 * warp + lane / 4;  // row_b = +8
+  const int col = 2 * (lane % 4);
+  const float sl2 = scale * LOG2E;
+
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    const bool in = row < T;
+    lse2[r] = in ? lse[(int64_t)bh * T + row] * LOG2E : 0.f;
+    dl[r] = in ? delta[(int64_t)bh * T + row] : 0.f;
+  }
+
+  float acc[D / 2];  // dq
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  const uint32_t q_addr = smem_u32(smem + S::Q) + 64 * wg * SLAB;
+  const uint32_t do_addr = smem_u32(smem + S::DO) + 64 * wg * SLAB;
+  mbar_wait(q_full, 0);
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % STAGES, ks = j % KTS, k0 = j * BK;
+    mbar_wait(&kv_full[s], (j / STAGES) & 1);
+    if (!((causal && k0 > q0w + 63) || q0w >= T)) {
+      const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
+      const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
+
+      // S = Q_wg K^T and dP = dO_wg V^T: (64 q, BK keys) f32 each,
+      // m64nBKk8 from shared memory
+      float st[BK / 2], dp[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+        mma_ss_tf32(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
+                    kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+        mma_ss_tf32(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
+                    kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dp);
+
+      // dS = P (dP - delta) scale with P in f32, in place
+      const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
+#pragma unroll
+      for (int e = 0; e < BK / 2; ++e) {
+        const int r = (e / 2) % 2;
+        const int key = k0 + 8 * (e / 4) + col + (e % 2);
+        float p = ex2(fmaf(st[e], sl2, -lse2[r]));
+        if (mask) {
+          const int row = row_a + 8 * r;
+          if (key >= T || (causal && key > row)) p = 0.f;
+        }
+        dp[e] = p * (dp[e] - dl[r]) * scale;
+      }
+      // its TF32 A fragments: each k8 block of keys in the order K^T is
+      // written in
+      uint32_t da[BK / 2];
+#pragma unroll
+      for (int t = 0; t < BK / 8; ++t) {
+        da[4 * t] = tf32(dp[4 * t]);
+        da[4 * t + 1] = tf32(dp[4 * t + 2]);
+        da[4 * t + 2] = tf32(dp[4 * t + 1]);
+        da[4 * t + 3] = tf32(dp[4 * t + 3]);
+      }
+
+      // dq += dS K as (dS in A fragments) (K^T, K-major), m64nDk8
+      mbar_wait(&kt_full[ks], (j / KTS) & 1);
+      const uint32_t kt_addr = smem_u32(smem + S::KT + ks * S::KT_TILE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk)
+        mma_rs_tf32(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                    da[4 * kk + 3],
+                    desc_k(kt_addr + (kk / 4) * S::KT_SLAB + (kk % 4) * 32),
+                    1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+    } else {
+      // the slot and its K^T buffer are released only once the K^T is
+      // written: an early arrival could count in the buffer's last use
+      mbar_wait(&kt_full[ks], (j / KTS) & 1);
+    }
+    if (tid == 0) {
+      mbar_arrive(&kv_empty[s]);
+      mbar_arrive(&kt_empty[ks]);
+    }
+  }
+
+  // dq in f32, rows at or past T skipped
+  int64_t q_rs;
+  const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_a + 8 * r;
+    if (row >= T) continue;
+    float* out = dq + q_base + (int64_t)row * q_rs + col;
+#pragma unroll
+    for (int c = 0; c < D / 8; ++c)
+      *reinterpret_cast<float2*>(out + 8 * c) =
+          make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
+  }
+}
+
+template <int D>
+int launch_tf32(const void* q, const void* k, const void* v,
+                const void* dout, const float* lse, const float* delta,
+                void* dq, int B, int H, int Hk, int T, int bh_layout,
+                float scale, int causal, cudaStream_t stream) {
+  using S = DqTf32Smem<D>;
+  CUtensorMap mq, mk, mv, mdo;
+  int e = make_head_map<float>(&mq, q, D, H, T, B, bh_layout, S::BQ);
+  if (!e) e = make_head_map<float>(&mdo, dout, D, H, T, B, bh_layout, S::BQ);
+  if (!e) e = make_head_map<float>(&mk, k, D, Hk, T, B, bh_layout, S::BK);
+  if (!e) e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
+  if (e) return e;
+  const int tiles = (T + S::BQ - 1) / S::BQ;
+  if (!ptt::grid_fits(tiles, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  e = ptt::allow_smem(flash_bwd_dq_sm90_tf32_kernel<D>, S::BYTES);
+  if (e) return e;
+  flash_bwd_dq_sm90_tf32_kernel<D>
+      <<<tiles * B * H, THREADS, S::BYTES, stream>>>(
+          mq, mk, mv, mdo, lse, delta, static_cast<float*>(dq), H, Hk, T,
+          bh_layout, scale, causal);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_dim(const void* q, const void* k, const void* v, const void* dout,
+               const float* lse, const float* delta, void* dq, int B, int H,
+               int Hk, int T, int D, int bh_layout, float scale, int causal,
+               cudaStream_t s) {
+  switch (D) {
+    case 64: return launch<E, 64>(q, k, v, dout, lse, delta, dq, B, H, Hk,
+                                  T, bh_layout, scale, causal, s);
+    case 128: return launch<E, 128>(q, k, v, dout, lse, delta, dq, B, H, Hk,
+                                    T, bh_layout, scale, causal, s);
+    case 256: return launch<E, 256>(q, k, v, dout, lse, delta, dq, B, H, Hk,
+                                    T, bh_layout, scale, causal, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1) at D in {64, 128};
-// any other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout,
-// dq 16-byte aligned.
+// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1) and fp16 (dtype 2)
+// at D in {64, 128, 256} and f32 (dtype 0) at D in {64, 128}; any other
+// dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout, dq 16-byte
+// aligned.
 extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,
@@ -274,14 +578,22 @@ extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                  float scale, int causal, int dtype,
                                  void* stream) {
   if (B * H == 0 || T == 0) return 0;
-  if (Hk <= 0 || H % Hk || dtype != ptt::BF16)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 64: return launch<64>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
-                               bh_layout, scale, causal, s);
-    case 128: return launch<128>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
-                                 bh_layout, scale, causal, s);
+  if (dtype == ptt::F32) {
+    if (D == 64)
+      return launch_tf32<64>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
+                             bh_layout, scale, causal, s);
+    if (D == 128)
+      return launch_tf32<128>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
+                              bh_layout, scale, causal, s);
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (dtype == ptt::BF16)
+    return launch_dim<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, B, H, Hk,
+                                     T, D, bh_layout, scale, causal, s);
+  if (dtype == ptt::F16)
+    return launch_dim<__half>(q, k, v, dout, lse, delta, dq, B, H, Hk, T, D,
+                              bh_layout, scale, causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

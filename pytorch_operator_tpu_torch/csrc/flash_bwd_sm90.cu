@@ -1,11 +1,10 @@
-// Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16
-// or fp16 in at head dim 64, 128 or 256, or f32 (as TF32) at 64 or 128,
-// f32 accumulate, causal or not, GQA, either layout.
+// Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16,
+// fp16 or f32 (as TF32) in at head dim 64, 128 or 256, f32 accumulate,
+// causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_fused_kernel (pallas_call in _flash_bwd_fused) for bf16 and fp16 at
-// D in {64, 128, 256} and f32 at D in {64, 128}; the WMMA kernel
-// flash_bwd.cu keeps D 16/32 and f32 at D 256.  Its
+// _bwd_fused_kernel (pallas_call in _flash_bwd_fused) at D in {64, 128,
+// 256}; the WMMA kernel flash_bwd.cu keeps D 16/32.  Its
 // contract is flash_bwd's: dq f32, zeroed by the caller and added to here;
 // dk / dv as per-q-head f32 partials that the wrapper sums over each GQA
 // group.
@@ -40,7 +39,9 @@
 // flash_bwd_dkv_sm90.cu runs it without.  f32 runs walk_tf32<D, DQ>
 // (flash_bwd_sm90_tf32_kernel): the same walk on TF32 wgmma with Q^T,
 // dO^T and K^T written in shared memory, 32-row q tiles, and dq formed
-// as dq^T = K^T dS^T (flash_bwd_sm90.cuh).
+// as dq^T = K^T dS^T (flash_bwd_sm90.cuh); at D 256 on clusters of two
+// CTAs, each owning half of D, that exchange their partial S^T and dP^T
+// through shared memory (launch_walk_tf32).
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -103,19 +104,13 @@ int launch_tf32(const void* q, const void* k, const void* v,
                 float* dq, float* dkp, float* dvp, int B, int H, int Hk,
                 int T, int bh_layout, float scale, int causal,
                 cudaStream_t stream) {
-  using S = BwdTf32Smem<D, true>;
   Maps m;
   int e = make_maps<float, D>(&m, q, k, v, dout, B, H, Hk, T, bh_layout);
   if (e) return e;
-  const int tiles = (T + S::BK - 1) / S::BK;
-  if (!ptt::grid_fits(tiles, B * H))
-    return static_cast<int>(cudaErrorInvalidValue);
-  e = ptt::allow_smem(flash_bwd_sm90_tf32_kernel<D>, S::BYTES);
-  if (e) return e;
-  flash_bwd_sm90_tf32_kernel<D><<<tiles * B * H, THREADS, S::BYTES, stream>>>(
-      m.q, m.k, m.v, m.dout, lse, delta, dq, dkp, dvp, H, Hk, T, bh_layout,
-      scale, causal);
-  return static_cast<int>(cudaGetLastError());
+  return launch_walk_tf32<D, true>(flash_bwd_sm90_tf32_kernel<D>, B, H, T,
+                                   stream, m.q, m.k, m.v, m.dout, lse, delta,
+                                   dq, dkp, dvp, H, Hk, T, bh_layout, scale,
+                                   causal);
 }
 
 template <typename E>
@@ -136,9 +131,9 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// As flash_bwd (flash_bwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
-// in {64, 128, 256} and f32 (dtype 0) at D in {64, 128}; any other dtype
-// or head dim is cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
+// As flash_bwd (flash_bwd.cu) for f32 (dtype 0), bf16 (dtype 1) and fp16
+// (dtype 2) at D in {64, 128, 256}; any other dtype or head dim is
+// cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
 // dq zeroed by the caller.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
@@ -155,6 +150,9 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                              Hk, T, bh_layout, scale, causal, s);
     if (D == 128)
       return launch_tf32<128>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
+                              Hk, T, bh_layout, scale, causal, s);
+    if (D == 256)
+      return launch_tf32<256>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
                               Hk, T, bh_layout, scale, causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -25,7 +25,7 @@
 //    thread holds at most dK, dV and 32 (S^T, dP^T) or 32 (dq_tile) f32
 //    beside them; each writes half of dS^T's q columns.
 //
-// f32 (walk_tf32, D 64 and 128) multiplies in TF32, whose wgmma takes
+// f32 (walk_tf32, D 64, 128 and 256) multiplies in TF32, whose wgmma takes
 // both shared-memory operands K-major.  S^T = K Q^T and dP^T = V dO^T
 // are K-major already; the other three products read an MN-major
 // operand at 16 bits, so the f32 walk writes transposed copies:
@@ -42,9 +42,21 @@
 // Shared memory doubles at f32: 32-row q tiles, and at D 128 64-key
 // tiles split by D's columns as at D 256 above (K + V 64 KB, K^T 32,
 // ring 66, Q^T + dO^T 32, two dS buffers 16: 210 KB); at D 64 128 keys
-// split by keys (194 KB, two Q^T / dO^T buffers).  D 256 does not fit:
-// K and V alone take 128 KB at 64 keys, K^T 64 more, so f32 D 256 stays
-// on the WMMA kernels.
+// split by keys (194 KB, two Q^T / dO^T buffers).  D 256 does not fit
+// one CTA (K and V alone take 128 KB at 64 keys, K^T 64 more: about 400
+// KB in all), so at f32 D 256 a cluster of two CTAs takes each (64-key
+// tile, q head), CTA r owning columns [128 r, 128 r + 128) of K, V, Q,
+// dO, dK, dV and dq: each is the D 128 walk over its 128 columns, but
+// that its S^T = K Q^T and dP^T = V dO^T are partial sums over its half
+// of D.  Per q tile each CTA's warpgroup 0 sends its partial S^T and
+// warpgroup 1 its partial dP^T (64 x 32 f32 each) into the peer's shared
+// memory (st.async, whose bytes complete the peer's x_full mbarrier),
+// each CTA adds the peer's partials to its own (own + peer in one CTA is
+// peer + own in the other, so both hold the same bits of S^T and dP^T,
+// hence of P^T and dS^T), and every consumer warp then arrives on the
+// peer's x_empty, which the peer waits on before it sends the next tile.
+// The room for the peer's partials (16 KB) comes from the ring: there
+// lse and delta leave the slots, whose rounding to 1 KB took 2 KB.
 #pragma once
 
 #include "common.cuh"
@@ -91,12 +103,13 @@ struct Maps {
 };
 
 // Rows of the walk's q tiles and key tiles over E at head dim D: the
-// f32 walk's (walk_tf32) are 32 q rows and 64 keys at D 128, 128 at D 64.
+// f32 walk's (walk_tf32) are 32 q rows and 64 keys at D 128 and 256, 128
+// at D 64.
 template <typename E, int D> struct WalkTiles {
   static constexpr int BQ = bwd_sm90::BQ, BK = key_tile<D>();
 };
 template <int D> struct WalkTiles<float, D> {
-  static constexpr int BQ = 32, BK = D == 128 ? 64 : 128;
+  static constexpr int BQ = 32, BK = D == 64 ? 128 : 64;
 };
 
 template <typename E, int D>
@@ -393,43 +406,86 @@ __device__ __forceinline__ void walk(
 // ---------------------------------------------------------------------------
 
 template <int D, bool DQ> struct BwdTf32Smem {
-  static_assert(D == 64 || D == 128, "the f32 walk takes D 64 and 128");
-  // D 128: both warpgroups own all BK keys and half of D's columns of dK
-  // and dV; D 64: each its own 64 keys and all of D
-  static constexpr bool SPLIT = D == 128;
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the f32 walk takes D 64, 128 and 256");
+  // D 256: a cluster of CTAS = 2 CTAs, each owning DC = 128 of D's
+  // columns (see the header)
+  static constexpr bool CLUSTER = D == 256;
+  static constexpr int CTAS = CLUSTER ? 2 : 1, DC = D / CTAS;
+  // DC 128: both warpgroups own all BK keys and half of the CTA's columns
+  // of dK and dV; D 64: each its own 64 keys and all of D
+  static constexpr bool SPLIT = DC == 128;
   static constexpr int BK = WalkTiles<float, D>::BK;
   static constexpr int BQ = WalkTiles<float, D>::BQ;
-  static constexpr int SLABS = D / 32;  // 32 f32 columns a slab
+  static constexpr int SLABS = DC / 32;  // 32 f32 columns a slab
   static constexpr int K_SLAB = BK * SLAB, Q_SLAB = BQ * SLAB;
   static constexpr int K = 0;
   static constexpr int V = K + SLABS * K_SLAB;
-  // with DQ: K^T, D rows of BK keys (BK / 32 slabs of D rows), written once
-  static constexpr int KT_SLAB = D * SLAB;
+  // with DQ: K^T, DC rows of BK keys (BK / 32 slabs of DC rows), written
+  // once
+  static constexpr int KT_SLAB = DC * SLAB;
   static constexpr int KT = V + SLABS * K_SLAB;
   static constexpr int RING = KT + (DQ ? (BK / 32) * KT_SLAB : 0);
-  // one ring slot: Q, dO (BQ rows each), then lse (times log2 e) and delta
+  // one ring slot: Q, dO (BQ rows each), then (not CLUSTER) lse (times
+  // log2 e) and delta, BQ f32 each
   static constexpr int DO_OFF = SLABS * Q_SLAB;
-  static constexpr int LSE_OFF = 2 * SLABS * Q_SLAB;
-  static constexpr int DELTA_OFF = LSE_OFF + BQ * 4;
-  static constexpr int SLOT = (DELTA_OFF + BQ * 4 + 1023) / 1024 * 1024;
-  // Q^T then dO^T of a slot's tile: D rows of BQ = 32 q each (one slab
+  static constexpr int QD = 2 * SLABS * Q_SLAB;
+  static constexpr int SLOT =
+      CLUSTER ? QD : (QD + 2 * BQ * 4 + 1023) / 1024 * 1024;
+  // Q^T then dO^T of a slot's tile: DC rows of BQ = 32 q each (one slab
   // each), q in the A fragments' order; QT_STAGES buffers
-  static constexpr int QT_SLAB = D * SLAB, QT_STAGES = SPLIT ? 1 : 2;
+  static constexpr int QT_SLAB = DC * SLAB, QT_STAGES = SPLIT ? 1 : 2;
   static constexpr int QT = RING + STAGES * SLOT;
   // with DQ: dS (BQ q rows of BK keys, BK / 32 slabs), two buffers
   static constexpr int DS_SLAB = BQ * SLAB, DS_BUF = (BK / 32) * DS_SLAB;
   static constexpr int DS = QT + QT_STAGES * 2 * QT_SLAB;
-  static constexpr int BAR = DS + (DQ ? 2 : 0) * DS_BUF;
+  // CLUSTER: the peer's partial S^T then dP^T (BK x BQ f32 each, in the
+  // order of the consumer threads' accumulator registers), then each
+  // slot's lse and delta
+  static constexpr int XS = DS + (DQ ? 2 : 0) * DS_BUF;
+  static constexpr int X_TILE = BK * BQ * 4, X_BYTES = CLUSTER ? 2 * X_TILE : 0;
+  static constexpr int ROWS = XS + X_BYTES;
+  static constexpr int BAR = ROWS + (CLUSTER ? STAGES * 2 * BQ * 4 : 0);
   // kv_full, kt_full, q_full[STAGES], q_empty[STAGES], qt_full[QT_STAGES],
-  // qt_empty[QT_STAGES]
+  // qt_empty[QT_STAGES], and with CLUSTER x_full, x_empty
   static constexpr int BYTES =
-      BAR + 8 * (2 + 2 * STAGES + 2 * QT_STAGES) + 1024;
+      BAR + 8 * (2 + 2 * STAGES + 2 * QT_STAGES + (CLUSTER ? 2 : 0)) + 1024;
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// As walk<E, D, DQ> for f32 inputs at D 64 and 128: the same contract,
-// grid (ceil(T / BK) * B * H blocks, BwdTf32Smem<D, DQ>::BYTES of dynamic
-// shared memory) and maps (make_maps<float, D>).
+// CLUSTER: a consumer thread's partial (16 f32 of S^T or dP^T) into the
+// peer's buffer at shared::cluster address `dst`, register 4 m + j of
+// thread t at float 4 (128 m + t) + j, completing its bytes on the
+// peer's x_full (`bar`).
+__device__ __forceinline__ void send_partial(const float (&a)[16],
+                                             uint32_t dst, int tid,
+                                             uint32_t bar) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    st_async_v4(dst + (128 * m + tid) * 16, a[4 * m], a[4 * m + 1],
+                a[4 * m + 2], a[4 * m + 3], bar);
+}
+
+// a += the peer's partial, laid out as send_partial writes it: own +
+// peer here is peer + own in the peer CTA, the same bits.
+__device__ __forceinline__ void add_partial(float (&a)[16],
+                                            const unsigned char* src,
+                                            int tid) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 p =
+        *reinterpret_cast<const float4*>(src + (128 * m + tid) * 16);
+    a[4 * m] = a[4 * m] + p.x;
+    a[4 * m + 1] = a[4 * m + 1] + p.y;
+    a[4 * m + 2] = a[4 * m + 2] + p.z;
+    a[4 * m + 3] = a[4 * m + 3] + p.w;
+  }
+}
+
+// As walk<E, D, DQ> for f32 inputs at D 64, 128 and 256: the same
+// contract, grid (ceil(T / BK) * B * H * CTAS blocks, clusters of CTAS
+// consecutive blocks: launch_walk_tf32, BwdTf32Smem<D, DQ>::BYTES of
+// dynamic shared memory) and maps (make_maps<float, D>).
 template <int D, bool DQ>
 __device__ __forceinline__ void walk_tf32(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
@@ -438,10 +494,10 @@ __device__ __forceinline__ void walk_tf32(
     float* __restrict__ dkp, float* __restrict__ dvp, int H, int Hk, int T,
     int bh_layout, float scale, int causal) {
   using S = BwdTf32Smem<D, DQ>;
-  constexpr int SLABS = S::SLABS, BK = S::BK, BQ = S::BQ;
+  constexpr int SLABS = S::SLABS, BK = S::BK, BQ = S::BQ, DC = S::DC;
   constexpr int QTS = S::QT_STAGES;
-  constexpr bool SPLIT = S::SPLIT;
-  constexpr int DW = SPLIT ? D / 2 : D;  // dK / dV columns a warpgroup
+  constexpr bool SPLIT = S::SPLIT, CLUSTER = S::CLUSTER;
+  constexpr int DW = SPLIT ? DC / 2 : DC;  // dK / dV columns a warpgroup
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -451,9 +507,16 @@ __device__ __forceinline__ void walk_tf32(
   uint64_t* q_empty = q_full + STAGES;
   uint64_t* qt_full = q_empty + STAGES;
   uint64_t* qt_empty = qt_full + QTS;
+  uint64_t* x_full = qt_empty + QTS;  // CLUSTER: the peer's partials landed
+  uint64_t* x_empty = x_full + 1;     // CLUSTER: the peer read ours
 
-  const int kt = grid_tile((T + BK - 1) / BK);  // tile 0 walks the most q tiles
-  const int bh = grid_bh((T + BK - 1) / BK);
+  // CLUSTER: blocks 2 c and 2 c + 1 are cluster c's two CTAs, this one
+  // owning D's columns [c0, c0 + DC)
+  const int n_kt = (T + BK - 1) / BK;
+  const int kt = CLUSTER ? (blockIdx.x / 2) % n_kt
+                         : grid_tile(n_kt);  // tile 0 walks the most q tiles
+  const int bh = CLUSTER ? blockIdx.x / 2 / n_kt : grid_bh(n_kt);
+  const int rank = CLUSTER ? cluster_ctarank() : 0, c0 = DC * rank;
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   const int k0 = kt * BK;
   const int n_qt = (T + BQ - 1) / BQ;
@@ -470,9 +533,19 @@ __device__ __forceinline__ void walk_tf32(
       mbar_init(&qt_full[s], TF32_TRANSPOSERS);
       mbar_init(&qt_empty[s], 2);
     }
+    if constexpr (CLUSTER) {
+      mbar_init(x_full, 1);   // its expect_tx; the bytes come from the peer
+      mbar_init(x_empty, 8);  // each of the peer's consumer warps
+      // the first tile's bytes, before the peer may send them (a later
+      // tile's is expected as the previous one is released)
+      mbar_expect_tx(x_full, S::X_BYTES);
+    }
     fence_barrier_init();
   }
-  __syncthreads();
+  if constexpr (CLUSTER)
+    cluster_sync();  // both CTAs' barriers exist before any remote use
+  else
+    __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -489,10 +562,10 @@ __device__ __forceinline__ void walk_tf32(
         const int2 ck = head_coords(b, hk, Hk, bh_layout);
         mbar_expect_tx(kv_full, 2 * SLABS * S::K_SLAB);
         for (int r = 0; r < SLABS; ++r) {
-          tma_load_4d(smem + S::K + r * S::K_SLAB, &mk, kv_full, 32 * r,
-                      ck.x, k0, ck.y);
-          tma_load_4d(smem + S::V + r * S::K_SLAB, &mv, kv_full, 32 * r,
-                      ck.x, k0, ck.y);
+          tma_load_4d(smem + S::K + r * S::K_SLAB, &mk, kv_full,
+                      c0 + 32 * r, ck.x, k0, ck.y);
+          tma_load_4d(smem + S::V + r * S::K_SLAB, &mv, kv_full,
+                      c0 + 32 * r, ck.x, k0, ck.y);
         }
       }
       const int2 cq = head_coords(b, h, H, bh_layout);
@@ -502,8 +575,10 @@ __device__ __forceinline__ void walk_tf32(
         const int it = i - i0, s = it % STAGES, q0 = i * BQ;
         mbar_wait(&q_empty[s], ((it / STAGES) & 1) ^ 1);
         unsigned char* slot = smem + S::RING + s * S::SLOT;
-        float* lse_s = reinterpret_cast<float*>(slot + S::LSE_OFF);
-        float* delta_s = reinterpret_cast<float*>(slot + S::DELTA_OFF);
+        unsigned char* rows =  // lse, then delta
+            CLUSTER ? smem + S::ROWS + s * 2 * BQ * 4 : slot + S::QD;
+        float* lse_s = reinterpret_cast<float*>(rows);
+        float* delta_s = reinterpret_cast<float*>(rows + BQ * 4);
         for (int t = lane; t < BQ; t += 32) {
           const bool in = q0 + t < T;
           lse_s[t] = in ? lse_row[q0 + t] * LOG2E : 0.f;
@@ -512,10 +587,10 @@ __device__ __forceinline__ void walk_tf32(
         if (lane == 0) {
           mbar_expect_tx(&q_full[s], 2 * SLABS * S::Q_SLAB);
           for (int r = 0; r < SLABS; ++r) {
-            tma_load_4d(slot + r * S::Q_SLAB, &mq, &q_full[s], 32 * r, cq.x,
-                        q0, cq.y);
+            tma_load_4d(slot + r * S::Q_SLAB, &mq, &q_full[s], c0 + 32 * r,
+                        cq.x, q0, cq.y);
             tma_load_4d(slot + S::DO_OFF + r * S::Q_SLAB, &mdo, &q_full[s],
-                        32 * r, cq.x, q0, cq.y);
+                        c0 + 32 * r, cq.x, q0, cq.y);
           }
         } else {
           mbar_arrive(&q_full[s]);
@@ -523,11 +598,12 @@ __device__ __forceinline__ void walk_tf32(
       }
     } else {
       constexpr int W = TF32_TRANSPOSERS / 32;
-      constexpr int Q_UNITS = (D / 32) * (BQ / 32);  // of Q^T; dO^T's next
+      constexpr int Q_UNITS = (DC / 32) * (BQ / 32);  // of Q^T; dO^T's next
       const int tw = pt / 32 - 1, lane = pt % 32;
       if constexpr (DQ) {
         mbar_wait(kv_full, 0);
-        transpose_tf32<BK, D, false, W>(smem + S::K, smem + S::KT, tw, lane);
+        transpose_tf32<BK, DC, false, W>(smem + S::K, smem + S::KT, tw,
+                                         lane);
         fence_proxy_async();
         mbar_arrive(kt_full);
       }
@@ -537,18 +613,19 @@ __device__ __forceinline__ void walk_tf32(
         mbar_wait(&qt_empty[qs], ((it / QTS) & 1) ^ 1);
         const unsigned char* slot = smem + S::RING + s * S::SLOT;
         unsigned char* qt = smem + S::QT + qs * 2 * S::QT_SLAB;
-        transpose_tf32<BQ, D, true, W>(slot, qt, tw, lane);
-        transpose_tf32<BQ, D, true, W>(slot + S::DO_OFF, qt + S::QT_SLAB, tw,
-                                       lane, Q_UNITS);
+        transpose_tf32<BQ, DC, true, W>(slot, qt, tw, lane);
+        transpose_tf32<BQ, DC, true, W>(slot + S::DO_OFF, qt + S::QT_SLAB,
+                                        tw, lane, Q_UNITS);
         fence_proxy_async();
         mbar_arrive(&qt_full[qs]);
       }
     }
+    if constexpr (CLUSTER) cluster_sync();  // the consumers' final one
     return;
   }
 
   // ---- consumers: warpgroup wg owns keys [k0 + kw, k0 + kw + 64) and
-  // columns [cw, cw + DW) of dK and dV
+  // columns [c0 + cw, c0 + cw + DW) of dK and dV
   setmaxnreg_inc<TF32_CONSUMER_REGS>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int kw = SPLIT ? 0 : 64 * wg, cw = SPLIT ? DW * wg : 0;
@@ -562,10 +639,19 @@ __device__ __forceinline__ void walk_tf32(
   const uint32_t k_addr = smem_u32(smem + S::K) + kw * SLAB;
   const uint32_t v_addr = smem_u32(smem + S::V) + kw * SLAB;
   // dq^T = K^T dS^T, this warpgroup's part: SPLIT, d rows [64 wg, 64 wg +
-  // 64) over all BQ q; else all 64 d rows over q [16 wg, 16 wg + 16)
+  // 64) of the CTA's over all BQ q; else all 64 d rows over q [16 wg, 16
+  // wg + 16)
   constexpr int DQN = SPLIT ? BQ : BQ / 2;  // q columns of the product
   const int dm = SPLIT ? 64 * wg : 0, qn = SPLIT ? 0 : DQN * wg;
   const uint32_t kt_addr = smem_u32(smem + S::KT) + dm * SLAB;
+  // CLUSTER: the peer's partials (this warpgroup sends S^T at 0 or dP^T at
+  // X_TILE of the peer's buffer) and barriers
+  uint32_t x_peer = 0, x_full_peer = 0, x_empty_peer = 0;
+  if constexpr (CLUSTER) {
+    x_peer = mapa(smem_u32(smem + S::XS), rank ^ 1) + wg * S::X_TILE;
+    x_full_peer = mapa(smem_u32(x_full), rank ^ 1);
+    x_empty_peer = mapa(smem_u32(x_empty), rank ^ 1);
+  }
   int64_t q_rs;
   const int64_t q_base = ptt::head_base(b, h, H, T, D, bh_layout, &q_rs);
   mbar_wait(kv_full, 0);
@@ -576,9 +662,10 @@ __device__ __forceinline__ void walk_tf32(
     unsigned char* slot = smem + S::RING + s * S::SLOT;
     const uint32_t q_addr = smem_u32(slot);
     const uint32_t do_addr = q_addr + S::DO_OFF;
-    const float* lse_s = reinterpret_cast<const float*>(slot + S::LSE_OFF);
-    const float* delta_s =
-        reinterpret_cast<const float*>(slot + S::DELTA_OFF);
+    const unsigned char* rows =  // lse, then delta
+        CLUSTER ? smem + S::ROWS + s * 2 * BQ * 4 : slot + S::QD;
+    const float* lse_s = reinterpret_cast<const float*>(rows);
+    const float* delta_s = reinterpret_cast<const float*>(rows + BQ * 4);
     const bool mask = (causal && q0 < k0 + BK) || q0 + BQ > T || k0 + BK > T;
 
     // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, BQ q), m64n32k8 from
@@ -586,13 +673,13 @@ __device__ __forceinline__ void walk_tf32(
     float st[BQ / 2], dpt[BQ / 2];
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
+    for (int kk = 0; kk < DC / 8; ++kk) {
       const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
       const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
       mma_ss_tf32(st, desc_k(k_addr + koff), desc_k(q_addr + qoff), kk > 0);
     }
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
+    for (int kk = 0; kk < DC / 8; ++kk) {
       const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
       const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
       mma_ss_tf32(dpt, desc_k(v_addr + koff), desc_k(do_addr + qoff),
@@ -602,6 +689,27 @@ __device__ __forceinline__ void walk_tf32(
     wgmma_wait<0>();
     fence_regs(st);
     fence_regs(dpt);
+
+    if constexpr (CLUSTER) {
+      // partial sums over this CTA's columns: send ours once the peer has
+      // read the last tile's, add the peer's once they have landed
+      mbar_wait_cluster(x_empty, (it & 1) ^ 1);
+      if (wg == 0)
+        send_partial(st, x_peer, tid, x_full_peer);
+      else
+        send_partial(dpt, x_peer, tid, x_full_peer);
+      mbar_wait_cluster(x_full, it & 1);
+      add_partial(st, smem + S::XS, tid);
+      add_partial(dpt, smem + S::XS + S::X_TILE, tid);
+      __syncwarp();
+      if (lane == 0) {
+        // the next tile's bytes are expected before the peer, released
+        // here, may send them
+        if (tid == 0 && wg == 0 && i + 1 < n_qt)
+          mbar_expect_tx(x_full, S::X_BYTES);
+        mbar_arrive_cluster(x_empty_peer);
+      }
+    }
 
     // P^T and dS^T in f32 (dS^T from the f32 P^T), in place
     const float sl2 = scale * LOG2E;
@@ -654,7 +762,7 @@ __device__ __forceinline__ void walk_tf32(
     }
 
     // dV += P^T dO and dK += dS^T Q: B = dO^T and Q^T (this warpgroup's
-    // DW rows of D, BQ q K-major), m64n64k8
+    // DW rows of the CTA's columns, BQ q K-major), m64n64k8
     mbar_wait(&qt_full[qs], (it / QTS) & 1);
     const uint32_t qt_addr =
         smem_u32(smem + S::QT + qs * 2 * S::QT_SLAB) + cw * SLAB;
@@ -694,7 +802,7 @@ __device__ __forceinline__ void walk_tf32(
       // dq^T's (d, q) element added to dq[q, d] (red.global.add.f32)
 #pragma unroll
       for (int e = 0; e < DQN / 2; ++e) {
-        const int d = dm + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+        const int d = c0 + dm + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
         const int q = q0 + qn + 8 * (e / 4) + col + (e % 2);
         if (q < T) atomicAdd(dq + q_base + (int64_t)q * q_rs + d, dqa[e]);
       }
@@ -706,7 +814,7 @@ __device__ __forceinline__ void walk_tf32(
   for (int r = 0; r < 2; ++r) {
     const int key = key_a + 8 * r;
     if (key >= T) continue;
-    const int64_t off = q_base + (int64_t)key * q_rs + cw + col;
+    const int64_t off = q_base + (int64_t)key * q_rs + c0 + cw + col;
 #pragma unroll
     for (int c = 0; c < DW / 8; ++c) {
       *reinterpret_cast<float2*>(dkp + off + 8 * c) =
@@ -715,6 +823,42 @@ __device__ __forceinline__ void walk_tf32(
           make_float2(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
     }
   }
+  if constexpr (CLUSTER) cluster_sync();  // the peer writes here no more
+}
+
+// Launch a walk_tf32<D, DQ> kernel on its grid: B * H * ceil(T / BK)
+// CTA tiles, at D 256 as clusters of two CTAs.  `args` are the kernel's
+// parameters, converted to their types.
+template <int D, bool DQ, typename... Params>
+int launch_walk_tf32(void (*kernel)(Params...), int B, int H, int T,
+                     cudaStream_t stream, std::remove_cv_t<Params>... args) {
+  using S = BwdTf32Smem<D, DQ>;
+  const int tiles = (T + S::BK - 1) / S::BK;
+  if (!ptt::grid_fits(tiles * S::CTAS, B * H))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int e = ptt::allow_smem(kernel, S::BYTES);
+  if (e) return e;
+  if constexpr (S::CLUSTER) {
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(tiles * S::CTAS * B * H);
+    cfg.blockDim = dim3(THREADS);
+    cfg.dynamicSmemBytes = S::BYTES;
+    cfg.stream = stream;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = S::CTAS;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    void* params[] = {&args...};
+    e = static_cast<int>(cudaLaunchKernelExC(
+        &cfg, reinterpret_cast<const void*>(kernel), params));
+    if (e) return e;
+  } else {
+    kernel<<<tiles * B * H, THREADS, S::BYTES, stream>>>(args...);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace bwd_sm90

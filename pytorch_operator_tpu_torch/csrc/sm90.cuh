@@ -97,6 +97,72 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       : "memory");
 }
 
+// ---- clusters: a CTA's rank, its peer's shared memory, cluster barriers.
+// Used by the f32 walk at D 256 (flash_bwd_sm90.cuh), two CTAs a cluster.
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// The shared::cluster address of CTA `rank`'s copy of this CTA's shared
+// address `addr` (a smem_u32 value).
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Every thread of every CTA of the cluster: the memory operations before
+// it (mbarrier initialisation, remote stores and arrivals) are visible to
+// every thread after it.  A CTA must not exit while a peer may still
+// write its shared memory: each ends with one.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release;\n"
+      "barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// One arrival on the mbarrier at shared::cluster address `bar` (mapa: a
+// peer's), releasing this thread's earlier memory operations to the
+// cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
+}
+
+// mbar_wait with acquire at cluster scope: for a barrier whose phase a
+// peer CTA completes (remote arrivals, st_async_v4's bytes), so that its
+// writes before the arrival are visible after the wait.
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar,
+                                                  uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%0], "
+      "%1;\n"
+      "@!p bra LAB_WAIT;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// Store four f32 at shared::cluster address `dst` (a peer's shared
+// memory) and complete 16 bytes of transactions on the mbarrier at
+// shared::cluster address `bar` in the same CTA as `dst`.
+__device__ __forceinline__ void st_async_v4(uint32_t dst, float a, float b,
+                                            float c, float d, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], "
+      "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
+      "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
+      : "memory");
+}
+
 // Order this thread's generic-proxy shared-memory writes before later
 // async-proxy (wgmma, TMA) reads of them.
 __device__ __forceinline__ void fence_proxy_async() {

@@ -116,13 +116,11 @@ def _launches():
 
 def _hopper(kernel, dtype, D):
     """The stated route at head dim ``D`` (padded to the kernels' next):
-    B1 runs Hopper at 64/128/256, B2 and B4 at 64/128/256 for bf16 and
-    fp16 and at 64/128 for f32, B3 for bf16 at 64/128; everything else
+    B1, B2 and B4 run Hopper at 64/128/256 for bf16, fp16 and f32, B3 at
+    64/128/256 for bf16 and fp16 and at 64/128 for f32; everything else
     runs WMMA."""
     D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
-    if kernel == "dq":
-        return dtype == torch.bfloat16 and D in (64, 128)
-    if dtype == torch.float32 and kernel != "fwd":
+    if kernel == "dq" and dtype == torch.float32:
         return D in (64, 128)
     return D in (64, 128, 256)
 
@@ -183,8 +181,8 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
     through the f32 plain forward, with exact launch counts: the Hopper
-    kernels for bf16 at D 128 and f32 at D 64/128 here (B3 on WMMA at
-    f32), the WMMA ones for D 16/32."""
+    kernels for bf16 at D 128 and f32 at D 64/128 here, the WMMA ones for
+    D 16/32."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
@@ -210,9 +208,9 @@ def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype,
     """fp16, D 256 and head dims between the kernels' ones zero-padded to
     the next, against autograd through the f32 plain forward at the true
     D, with exact launch counts by the route (GQA H4 / Hk2, ragged T):
-    Hopper B1, B2 and B4 for bf16 and fp16 up to 256, B3 on WMMA at fp16
-    and D 256, and f32 on the Hopper TF32 kernels (B1 at D 256 too; B2 and
-    B4 at D 256 on WMMA's 32-row tiles, B3 on WMMA)."""
+    Hopper B1-B4 for bf16 and fp16 up to 256, and f32 on the Hopper TF32
+    kernels (B2 and B4 at D 256 on clusters of two CTAs; B3 at D 256 on
+    WMMA's 32-row tiles)."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 2, 200, 4, 2, D, True, dtype,
@@ -281,14 +279,19 @@ def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
 @pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 64),
                                      (torch.bfloat16, 128),
                                      (torch.float32, 64),
+                                     (torch.float32, 128),
+                                     (torch.float32, 256),
+                                     (torch.float16, 64),
                                      (torch.float16, 128),
                                      (torch.bfloat16, 256),
                                      (torch.float16, 256)])
 def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
-    """B3 sums dq without atomics: two runs give the same bits.  B4 is the
-    fused kernel's walk without dq: the Hopper B4 (bf16, fp16, and f32 on
-    the TF32 walk) gives the Hopper B2's dk / dv bit for bit at each
-    instantiation (GQA H16 / Hk4, ragged T)."""
+    """B3 sums dq without atomics: two runs give the same bits (the
+    Hopper B3 at each of its instantiations here, the WMMA one at f32
+    D 256).  B4 is the fused kernel's walk without dq: the Hopper B4
+    (bf16, fp16, and f32 on the TF32 walk, at D 256 on clusters of two
+    CTAs) gives the Hopper B2's dk / dv bit for bit at each instantiation
+    (GQA H16 / Hk4, ragged T)."""
     args = _bwd_args(cuda, 1, 1000, 16, 4, D, dtype, bh, causal)
     first = fa._flash_bwd_dq_cuda(*args)
     second = fa._flash_bwd_dq_cuda(*args)
@@ -301,6 +304,34 @@ def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     torch.cuda.synchronize()
     for a, b in zip(dkv, fused[1:]):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [129, 1000])
+@pytest.mark.parametrize("dtype,D", [(torch.float16, 64),
+                                     (torch.float16, 128),
+                                     (torch.bfloat16, 256),
+                                     (torch.float16, 256),
+                                     (torch.float32, 64),
+                                     (torch.float32, 128)])
+def test_sm90_dq_matches_plain(cuda, dtype, D, T, causal, bh):
+    """The Hopper B3 at each instantiation beyond bf16 D 64/128 (fp16,
+    D 256, and f32 as TF32) against its plain version on the same inputs,
+    lse and delta: GQA H16 / Hk4, ragged T, both layouts, causal and not,
+    one launch of it."""
+    assert _hopper("dq", dtype, D)
+    args = _bwd_args(cuda, 1, T, 16, 4, D, dtype, bh, causal)
+    before = _launches()
+    got = fa._flash_bwd_dq_cuda(*args)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launches().items()}
+    assert launched == {n: int(n == "flash_bwd_dq_sm90")
+                        for n in FLASH_KERNELS}
+    ref = fa._flash_bwd_dq_reference(*args)
+    assert got.dtype == ref.dtype == dtype
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype] * ref.float().abs().max().item() + 1e-3, err
 
 
 @pytest.mark.parametrize("bh", [False, True])
@@ -349,7 +380,7 @@ def test_sm90_two_kernel_match_plain(cuda, monkeypatch, D, causal, T, bh):
 def test_sm90_fp16_and_d256_match_plain(cuda, monkeypatch, dtype, D, causal,
                                         T, bh, route):
     """The Hopper instantiations beyond bf16 at D 64/128 (GQA H16 / Hk4):
-    B1 with B2, or B1 with B3 (WMMA at fp16 and D 256) + B4, against
+    B1 with B2, or B1 with B3 + B4, against
     autograd through the f32 plain forward at T = 1, ragged T (not a
     multiple of the 64- and 128-row tiles) and T1000, in both layouts,
     with exact launch counts."""
@@ -369,10 +400,11 @@ def test_sm90_fp16_and_d256_match_plain(cuda, monkeypatch, dtype, D, causal,
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_sm90_f32_match_plain(cuda, monkeypatch, D, causal, T, bh, route):
-    """The Hopper TF32 instantiations (GQA H16 / Hk4): B1 at D 64/128/256,
-    with B2 or B3 (WMMA) + B4 at D 64/128 and the WMMA backward at D 256,
-    against autograd through the f32 plain forward at T = 2 (below every
-    tile), ragged T and T1000, in both layouts, with exact launch counts.
+    """The Hopper TF32 instantiations (GQA H16 / Hk4): B1 with B2, or B1
+    with B3 + B4, at D 64/128/256 (B2 and B4 at D 256 on clusters of two
+    CTAs, B3 there on WMMA), against autograd through the f32 plain
+    forward at T = 2 (below every tile), ragged T and T1000, in both
+    layouts, with exact launch counts.
     Not T = 1: there the plain grads are exactly 0 (one key), and every
     TF32 kernel, the WMMA ones too, forms dP from dO rounded to TF32
     against delta from the f32 dO, which leaves grads of about 1e-3 where

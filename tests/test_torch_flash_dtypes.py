@@ -1,7 +1,8 @@
 """Parity of the port's flash attention with the JAX package at the
 dtypes and head dims the Hopper kernels take beyond bf16 at D 64/128:
-fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64 and 128 (the
-TF32 kernels).
+fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64, 128 and 256
+(the TF32 kernels; at D 256 the fused and dk / dv kernels on clusters of
+two CTAs).
 
 On the CPU the port runs its kernels' plain versions (the forward, the
 fused backward, and the dq and dk / dv kernels on the two-kernel route),
@@ -50,7 +51,7 @@ REL, ABS = 1e-2, 1e-3
 
 # (dtype, D): the Hopper instantiations this parity covers
 INSTANCES = [("fp16", 64), ("fp16", 128), ("bf16", 256), ("fp16", 256),
-             ("f32", 64), ("f32", 128)]
+             ("f32", 64), ("f32", 128), ("f32", 256)]
 # (B, T, H, Hk, causal): one ragged T, causal and not, GQA
 SHAPES = [(1, 128, 2, 2, False), (1, 200, 4, 2, True),
           (1, 384, 2, 1, True)]
@@ -168,7 +169,7 @@ def port_tf32_truncated(q, k, v, g, causal):
 
 
 @pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 128, 256])
 def test_tf32_truncation_fits_the_f32_bounds(D, B, T, H, Hk, causal):
     q, k, v, g = inputs(D + T + 2, B, T, H, Hk, D, torch.float32)
     *got, lse = port_tf32_truncated(q, k, v, g, causal)
