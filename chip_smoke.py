@@ -25,7 +25,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             clusters of two CTAs) and B*H = 65,536), the two-kernel
             route (dq, then dk/dv) at T4096 and on the same variety with
             the route forced (the Hopper B3 at fp16, D 256 and f32 D
-            64/128; at f32 D 256 B3 on WMMA beside the Hopper B4); the
+            64/128/256, at f32 D 256 B3 and B4 on clusters); the
             Hopper B4's dk/dv bit for bit B2's and the Hopper B3's dq
             bit for bit over two runs at every bf16, fp16 and f32
             instantiation; the WMMA forward and fused backward,
@@ -49,14 +49,14 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             fp16 at D 128 and f32 at D 64, 128 and 256 (the Hopper B1 and
             B2, each in turns with the WMMA kernel it replaced), bf16 at
             D 96 (padded), and B3 + B4 on the two-kernel route at each of
-            those but D 96 (the Hopper B3 in turns with the WMMA one; at
-            f32 D 256 B3 on WMMA), the forward beside SDPA and the
-            backward beside
-            aten's flash backward (bf16, fp16) or SDPA's memory-efficient
-            backward (f32, which aten's refuses); B1 and B2 at
-            the MoE's and the pipeline's length, B1 x T4096 with 32 q
-            heads over 8 kv heads, D128, beside SDPA and aten's
-            backward on k and v expanded to 32 heads;
+            those but D 96 (the Hopper B3 in turns with the WMMA one),
+            and bf16 and f32 at D 32 (H64) and D 16 (H128), B1-B4 on
+            their WMMA kernels; the forward beside SDPA and the backward
+            beside aten's flash backward (bf16, fp16) or SDPA's
+            memory-efficient backward (f32, which aten's refuses); B1
+            and B2 at the MoE's and the pipeline's length, B1 x T4096
+            with 32 q heads over 8 kv heads, D128, beside SDPA and
+            aten's backward on k and v expanded to 32 heads;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -333,10 +333,9 @@ def ptxas_by_kernel(log: str) -> dict:
     return by_entry
 
 
-# The Hopper kernels' instantiations: B1, B2 and B4 at bf16, fp16 and
-# f32 (TF32) at D 64/128/256 (9 each), B3 at bf16 and fp16 at D
-# 64/128/256 and f32 at D 64/128 (8)
-SM90_INSTANTIATIONS = 35
+# The Hopper kernels' instantiations: B1, B2, B3 and B4 at bf16, fp16
+# and f32 (TF32) at D 64/128/256 (9 each)
+SM90_INSTANTIATIONS = 36
 
 
 def check_sm90_ptxas(log: str) -> dict:
@@ -443,12 +442,15 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
     ``reps`` of the mean of ``iters`` calls between two CUDA events, gaps
     included.  Every call launches the same kernels, so each kernel's
     profiled count must be a multiple of ``iters``.  The profiler has
-    dropped one record of a long kernel now and then; such a profile is
+    dropped records of a long kernel now and then (at times the last two
+    of ten 1 ms launches in each of three profiles); such a profile is
     taken again, up to ``profiles`` times in all, and the records it had
-    are printed.  If none is whole the phase fails.  ``profiles`` counts
-    the profiles taken; with ``profiles=0`` no profile is taken and
-    ``ms`` is ``event_ms``, for calls long enough that the host runs
-    ahead of the device."""
+    are printed.  If none is whole, ``ms`` is each kernel's mean record
+    times its launches a call, from the last profile's records, and a
+    line says so; if the profiler recorded no device time the phase
+    fails.  ``profiles`` counts the profiles taken; with ``profiles=0``
+    no profile is taken and ``ms`` is ``event_ms``, for calls long
+    enough that the host runs ahead of the device."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -481,8 +483,16 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
         emit({"profiler_lost_records": events and _lost_records(
             prof, events, iters)})
     else:
-        raise SmokeFailure(f"the profiler lost records in each of "
-                           f"{profiles} profiles")
+        if not events:
+            raise SmokeFailure(f"the profiler recorded no device time in "
+                               f"{profiles} profiles")
+        device = sum(e.device_time_total / e.count
+                     * max(1, round(e.count / iters)) for e in events) / 1e3
+        emit({"profiler_lost_records_in_every_profile": {
+            "profiles": profiles, "ms_from_kept_records": device,
+            "event_ms": statistics.median(times)}})
+        return {"ms": device, "event_ms": statistics.median(times),
+                "profiles": profiles}
     device = sum(e.device_time_total for e in events) / 1e3
     return {"ms": device / iters, "event_ms": statistics.median(times),
             "profiles": taken}
@@ -615,13 +625,14 @@ TWO_KERNEL_CASES = {
     "fp16_d128": (2, 1000, 16, 4, 128, True, False, F16),
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
     "d256_bf16": (1, 1000, 8, 8, 256, True, False, BF16),
-    # the Hopper B3 and B4 at fp16 and D 256; at f32 D 256 B3 on WMMA
-    # beside the Hopper B4 (clusters of two CTAs)
+    # the Hopper B3 and B4 at fp16 and D 256, and at f32 D 256 (both on
+    # clusters of two CTAs)
     "fp16_d256": (1, 1000, 8, 8, 256, True, False, F16),
     "fp16_d256_gqa_bh": (1, 500, 8, 2, 256, False, True, F16),
     "bh65536_fp16": (4096, 65, 16, 8, 64, True, False, F16),
     "f32_d256": (1, 1000, 8, 8, 256, True, False, F32),
     "f32_d256_gqa_ragged": (2, 333, 8, 2, 256, True, False, F32),
+    "f32_d256_gqa_bh": (1, 500, 8, 2, 256, False, True, F32),
     # the Hopper TF32 B3 and B4 at f32 D 64 and 128
     "f32_d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, F32),
     "f32_d64_bh": (1, 1000, 16, 4, 64, False, True, F32),
@@ -674,10 +685,9 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
-    WMMA version by the route (ops/flash_attention.py _sm90: B1, B2 and
-    B4 Hopper for bf16, fp16 and f32 at D 64/128/256, B3 for bf16 and
-    fp16 at D 64/128/256 and f32 at D 64/128); the fused backward, or
-    B3 + B4 on the two-kernel route."""
+    WMMA version by the route (ops/flash_attention.py _sm90: B1-B4 Hopper
+    for bf16, fp16 and f32 at D 64/128/256, WMMA at D 16/32); the fused
+    backward, or B3 + B4 on the two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -825,7 +835,7 @@ def check_dkv_bitwise(torch, gen) -> dict:
 
 # Every instantiation of the Hopper B3 (dtype, D)
 SM90_DQS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
-            (F16, 256), (F32, 64), (F32, 128))
+            (F16, 256), (F32, 64), (F32, 128), (F32, 256))
 
 
 def check_dq_bitwise(torch, gen) -> dict:
@@ -1370,18 +1380,23 @@ def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
 # C3's cases at the main path's length: fp16 and bf16 at D 256 and fp16
 # at D 128 (the Hopper kernels, each beside its WMMA predecessor), f32 at
 # D 64, 128 and 256 (the Hopper TF32 kernels, each beside its WMMA
-# predecessor; the backward at D 256 on clusters of two CTAs), and bf16
-# at D 96, zero-padded to the Hopper kernels' 128: (dtype, D, heads)
+# predecessor; the backward at D 256 on clusters of two CTAs), bf16 at D
+# 96, zero-padded to the Hopper kernels' 128, and bf16 and f32 at D 32
+# and 16 (the WMMA kernels, which those head dims still run), heads such
+# that H D = 2048 (1536 at D 96): (dtype, D, heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
-            "bf16_d96_padded": (BF16, 96, 16)}
+            "bf16_d96_padded": (BF16, 96, 16),
+            "bf16_d32": (BF16, 32, 64), "bf16_d16": (BF16, 16, 128),
+            "f32_d32": (F32, 32, 64), "f32_d16": (F32, 16, 128)}
 # the cases whose two-kernel route (B3 then B4) phase 3 also times: the
-# Hopper B3 at fp16 D 128 and 256, bf16 D 256 and f32 D 64 and 128 (each
-# beside the WMMA B3 it replaced), and at f32 D 256 the WMMA B3 beside the
-# Hopper B4
+# Hopper B3 and B4 at fp16 D 128 and 256, bf16 D 256 and f32 D 64, 128
+# and 256 (each beside the WMMA kernel it replaced; at f32 D 256 both on
+# clusters of two CTAs), and the WMMA B3 and B4 at D 32 and 16
 C3_TWO_KERNEL = ("fp16_d256", "bf16_d256", "fp16_d128", "f32_d256",
-                 "f32_d128", "f32_d64")
+                 "f32_d128", "f32_d64", "bf16_d32", "bf16_d16", "f32_d32",
+                 "f32_d16")
 
 
 def time_c3_kernels(torch, gen) -> dict:
@@ -4497,9 +4512,8 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("D 16/32 only, and B3 at f32 D 256; timed "
-                           "beside its Hopper successor at its shape as "
-                           "the yardstick")
+            row["path"] = ("D 16/32 only; timed beside its Hopper "
+                           "successor at its shape as the yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
                   for part in ("fwd", "bwd", "dq", "dkv")

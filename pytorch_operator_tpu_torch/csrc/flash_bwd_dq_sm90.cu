@@ -1,13 +1,12 @@
-// dq kernel of the two-kernel flash-attention backward for Hopper: bf16
-// or fp16 in at head dim 64, 128 or 256, or f32 (as TF32) at 64 or 128,
-// f32 accumulate, dq in the inputs' type, causal or not, GQA, either
-// layout.
+// dq kernel of the two-kernel flash-attention backward for Hopper: bf16,
+// fp16 or f32 (as TF32) in at head dim 64, 128 or 256, f32 accumulate, dq
+// in the inputs' type, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dq_kernel (the first pallas_call of _flash_bwd) for bf16 and fp16
-// at D in {64, 128, 256} and f32 at D in {64, 128}; the WMMA kernel
-// flash_bwd_dq.cu keeps D 16/32 and f32 at D 256.  Per (q tile, q head)
-// it recomputes, for each key tile up to the diagonal,
+// _bwd_dq_kernel (the first pallas_call of _flash_bwd) at D in {64, 128,
+// 256} for every dtype; the WMMA kernel flash_bwd_dq.cu keeps D 16/32.
+// Per (q tile, q head) it recomputes, for each key tile up to the
+// diagonal,
 //   S = Q K^T,  P = exp(S scale - lse),  dP = dO V^T,
 //   dS = P (dP - delta) scale,
 // and accumulates dq = sum_j dS K_j: three products per tile.  P stays in
@@ -48,10 +47,10 @@
 //    (the two products repeated) and each owns 128 columns of dq (64 + 32
 //    + 32 f32 a thread), dq += dS K[:, its columns] as one m64n128k16
 //    product a k step; Q 32 KB + dO 32 KB + two stages of K and V 128 KB.
-//  - f32 (flash_bwd_dq_sm90_tf32_kernel, D 64 and 128) multiplies in
-//    TF32, whose wgmma takes both shared-memory operands K-major.  S =
-//    Q K^T and dP = dO V^T are K-major already; dq += dS K takes K^T (D
-//    rows of the tile's keys), written for each ring slot by the producer
+//  - f32 (flash_bwd_dq_sm90_tf32_kernel<D>) multiplies in TF32, whose
+//    wgmma takes both shared-memory operands K-major.  S = Q K^T and dP =
+//    dO V^T are K-major already; dq += dS K takes K^T (D rows of the
+//    tile's keys), written for each ring slot by the producer
 //    warpgroup's warps 1-3 into KT_STAGES buffers, keys in the order [0,
 //    2, 4, 6, 1, 3, 5, 7] of each 8 so that dS's accumulator registers,
 //    rounded (cvt.rna), are the k8 A fragments as they are (sm90.cuh
@@ -59,6 +58,26 @@
 //    (sm90.cuh make_map).  128-row Q and dO take 128 KB at D 128, so the
 //    key tiles are 32 rows there (64 at D 64), two stages, two K^T
 //    buffers (225 KB at D 128).
+//  - f32 at D 256 (DqTf32Smem::CLUSTER): 128-row Q and dO take 256 KB;
+//    64-row ones 128 KB, beside 128 KB of two 32-key K and V stages and 64
+//    of K^T.  So a cluster of two CTAs takes each (64-row q tile, q head)
+//    (sm90.cuh launch_clusters, the cluster rank the grid's fastest index),
+//    CTA r owning columns [128 r, 128 r + 128) of Q, dO, K, V and dq (TMA
+//    loads only those): the D 128 design over half of D, on the same key
+//    tiles.  Only S and dP sum over D.  Per 32-key tile warpgroup 0 forms
+//    the CTA's partial S and warpgroup 1 its partial dP (64 x 32 f32 each),
+//    each sends its partial into the peer's shared memory (send_partial:
+//    st.async, whose bytes complete the peer's x_full mbarrier) and hands it
+//    to the other warpgroup through LX (one named barrier a tile), and both
+//    add the peer's two (own + peer in one CTA is peer + own in the other,
+//    so both CTAs and both warpgroups hold the same bits of P and dS) before
+//    every consumer warp arrives on the peer's x_empty: the f32 walk's
+//    exchange (flash_bwd_sm90.cuh).  Forming both products in both
+//    warpgroups instead, as at 16-bit D 256, gave the same bits more slowly
+//    on the H100 (PERF.md).  Each warpgroup then owns 64 of the CTA's dq columns:
+//    dq += dS K as m64n64k8 from its 64 rows of the CTA's K^T.  Q 32 KB +
+//    dO 32 + K and V 64 + K^T 32 + the peer's partials 16 + LX 32: 209 KB
+//    a CTA.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -69,6 +88,31 @@ using namespace ptt::sm90;
 constexpr int SLAB = 128;  // bytes per slab row
 constexpr int THREADS = 384;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// A consumer thread's 16 f32 of a partial score tile into (put_partial)
+// or out of (get_partial) this CTA's shared memory, laid out as
+// sm90.cuh send_partial lays them out in the peer's.
+__device__ __forceinline__ void put_partial(const float (&a)[16],
+                                            unsigned char* dst, int tid) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    *reinterpret_cast<float4*>(dst + (128 * m + tid) * 16) =
+        make_float4(a[4 * m], a[4 * m + 1], a[4 * m + 2], a[4 * m + 3]);
+}
+
+__device__ __forceinline__ void get_partial(float (&a)[16],
+                                            const unsigned char* src,
+                                            int tid) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 p =
+        *reinterpret_cast<const float4*>(src + (128 * m + tid) * 16);
+    a[4 * m] = p.x;
+    a[4 * m + 1] = p.y;
+    a[4 * m + 2] = p.z;
+    a[4 * m + 3] = p.w;
+  }
+}
 
 // The 16-bit kernel's tiles by head dim (see the header): 128 q rows, 64
 // a consumer warpgroup, and four stages of 64 keys; at D 256 (SPLIT) 64
@@ -298,24 +342,38 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // ---- f32: TF32 wgmma (see the header) ----
 
 template <int D> struct DqTf32Smem {
-  static_assert(D == 64 || D == 128, "the f32 dq kernel takes D 64 and 128");
-  static constexpr int BQ = 128, BK = D == 128 ? 32 : 64;
+  static_assert(D == 64 || D == 128 || D == 256,
+                "the f32 dq kernel takes D 64, 128 and 256");
+  // D 256: a cluster of CTAS = 2 CTAs, each owning DC = 128 of D's
+  // columns, both warpgroups the same BQ = 64 q rows and DW = 64 of the
+  // CTA's dq columns each; else each warpgroup its own 64 rows, all of D
+  static constexpr bool CLUSTER = D == 256;
+  static constexpr int CTAS = CLUSTER ? 2 : 1, DC = D / CTAS;
+  static constexpr int BQ = CLUSTER ? 64 : 128, BK = D == 64 ? 64 : 32;
+  static constexpr int DW = CLUSTER ? DC / 2 : D;  // dq columns a warpgroup
   static constexpr int STAGES = 2, KT_STAGES = 2;
-  static constexpr int SLABS = D / 32;  // 32 f32 columns a slab
+  static constexpr int SLABS = DC / 32;  // 32 f32 columns a slab
   static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
   static constexpr int KV_TILE = SLABS * KV_SLAB;
-  // K^T: D rows (of 128 bytes: 32 keys), BK / 32 slabs
-  static constexpr int KT_SLAB = D * SLAB, KT_TILE = (BK / 32) * KT_SLAB;
+  // K^T: DC rows (of 128 bytes: 32 keys), BK / 32 slabs
+  static constexpr int KT_SLAB = DC * SLAB, KT_TILE = (BK / 32) * KT_SLAB;
   static constexpr int Q = 0;
   static constexpr int DO = Q + SLABS * Q_SLAB;
   static constexpr int K = DO + SLABS * Q_SLAB;  // slot s at K + s * KV_TILE
   static constexpr int V = K + STAGES * KV_TILE;
   static constexpr int KT = V + STAGES * KV_TILE;
-  static constexpr int BAR = KT + KT_STAGES * KT_TILE;
+  // CLUSTER: the peer's partial S then dP (BQ x BK f32 each, as
+  // send_partial lays them out), then this CTA's own two for the other
+  // warpgroup, in two buffers (a warpgroup may write tile j + 1's while
+  // the other still reads tile j's)
+  static constexpr int XS = KT + KT_STAGES * KT_TILE;
+  static constexpr int X_TILE = BQ * BK * 4, X_BYTES = CLUSTER ? 2 * X_TILE : 0;
+  static constexpr int LX = XS + X_BYTES;
+  static constexpr int BAR = LX + 2 * X_BYTES;
   // q_full, kv_full[STAGES], kv_empty[STAGES], kt_full[KT_STAGES],
-  // kt_empty[KT_STAGES]
+  // kt_empty[KT_STAGES], and with CLUSTER x_full, x_empty
   static constexpr int BYTES =
-      BAR + 8 * (1 + 2 * STAGES + 2 * KT_STAGES) + 1024;
+      BAR + 8 * (1 + 2 * STAGES + 2 * KT_STAGES + (CLUSTER ? 2 : 0)) + 1024;
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
@@ -331,7 +389,8 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
                               int bh_layout, float scale, int causal) {
   using S = DqTf32Smem<D>;
   constexpr int STAGES = S::STAGES, KTS = S::KT_STAGES, SLABS = S::SLABS;
-  constexpr int BQ = S::BQ, BK = S::BK;
+  constexpr int BQ = S::BQ, BK = S::BK, DC = S::DC, DW = S::DW;
+  constexpr bool CLUSTER = S::CLUSTER;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -340,10 +399,16 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
   uint64_t* kv_empty = kv_full + STAGES;
   uint64_t* kt_full = kv_empty + STAGES;
   uint64_t* kt_empty = kt_full + KTS;
+  uint64_t* x_full = kt_empty + KTS;  // CLUSTER: the peer's partials landed
+  uint64_t* x_empty = x_full + 1;     // CLUSTER: the peer read ours
 
+  // CLUSTER: blocks 2 c and 2 c + 1 are cluster c's two CTAs, this one
+  // owning D's columns [c0, c0 + DC); both walk the same key tiles
   const int n_qt = (T + BQ - 1) / BQ;
-  const int qt = n_qt - 1 - ptt::grid_tile(n_qt);  // longest causal rows first
-  const int bh = ptt::grid_bh(n_qt);
+  const int tile = CLUSTER ? (blockIdx.x / 2) % n_qt : ptt::grid_tile(n_qt);
+  const int qt = n_qt - 1 - tile;  // longest causal rows first
+  const int bh = CLUSTER ? blockIdx.x / 2 / n_qt : ptt::grid_bh(n_qt);
+  const int rank = CLUSTER ? cluster_ctarank() : 0, c0 = DC * rank;
   const int b = bh / H, h = bh % H, hk = h / (H / Hk);
   const int q0 = qt * BQ;
   int n_kt = (T + BK - 1) / BK;
@@ -359,9 +424,19 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
       mbar_init(&kt_full[s], TF32_TRANSPOSERS);
       mbar_init(&kt_empty[s], 2);
     }
+    if constexpr (CLUSTER) {
+      mbar_init(x_full, 1);   // its expect_tx; the bytes come from the peer
+      mbar_init(x_empty, 8);  // each of the peer's consumer warps
+      // the first tile's bytes, before the peer may send them (a later
+      // tile's is expected as the previous one is released)
+      mbar_expect_tx(x_full, S::X_BYTES);
+    }
     fence_barrier_init();
   }
-  __syncthreads();
+  if constexpr (CLUSTER)
+    cluster_sync();  // both CTAs' barriers exist before any remote use
+  else
+    __syncthreads();
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -376,10 +451,10 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
       const int2 ck = head_coords(b, hk, Hk, bh_layout);
       mbar_expect_tx(q_full, 2 * SLABS * S::Q_SLAB);
       for (int r = 0; r < SLABS; ++r) {
-        tma_load_4d(smem + S::Q + r * S::Q_SLAB, &mq, q_full, 32 * r, cq.x,
-                    q0, cq.y);
-        tma_load_4d(smem + S::DO + r * S::Q_SLAB, &mdo, q_full, 32 * r,
+        tma_load_4d(smem + S::Q + r * S::Q_SLAB, &mq, q_full, c0 + 32 * r,
                     cq.x, q0, cq.y);
+        tma_load_4d(smem + S::DO + r * S::Q_SLAB, &mdo, q_full,
+                    c0 + 32 * r, cq.x, q0, cq.y);
       }
       for (int j = 0; j < n_kt; ++j) {
         const int s = j % STAGES;
@@ -387,9 +462,9 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
         mbar_expect_tx(&kv_full[s], 2 * S::KV_TILE);
         for (int r = 0; r < SLABS; ++r) {
           tma_load_4d(smem + S::K + s * S::KV_TILE + r * S::KV_SLAB, &mk,
-                      &kv_full[s], 32 * r, ck.x, j * BK, ck.y);
+                      &kv_full[s], c0 + 32 * r, ck.x, j * BK, ck.y);
           tma_load_4d(smem + S::V + s * S::KV_TILE + r * S::KV_SLAB, &mv,
-                      &kv_full[s], 32 * r, ck.x, j * BK, ck.y);
+                      &kv_full[s], c0 + 32 * r, ck.x, j * BK, ck.y);
         }
       }
     } else if (pt >= 32) {
@@ -397,20 +472,24 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
         const int s = j % STAGES, ks = j % KTS;
         mbar_wait(&kv_full[s], (j / STAGES) & 1);
         mbar_wait(&kt_empty[ks], ((j / KTS) & 1) ^ 1);
-        transpose_tf32<BK, D, true, TF32_TRANSPOSERS / 32>(
+        transpose_tf32<BK, DC, true, TF32_TRANSPOSERS / 32>(
             smem + S::K + s * S::KV_TILE, smem + S::KT + ks * S::KT_TILE,
             pt / 32 - 1, pt % 32);
         fence_proxy_async();
         mbar_arrive(&kt_full[ks]);
       }
     }
+    if constexpr (CLUSTER) cluster_sync();  // the consumers' final one
     return;
   }
 
-  // ---- consumers: warpgroup wg owns q rows [q0w, q0w + 64) and all of D
+  // ---- consumers: warpgroup wg owns q rows [q0w, q0w + 64) and dq's
+  // columns [c0 + cw, c0 + cw + DW) (CLUSTER: both the same rows, half of
+  // the CTA's columns each; else all of D)
   setmaxnreg_inc<TF32_CONSUMER_REGS>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
-  const int q0w = q0 + 64 * wg;
+  const int rw = CLUSTER ? 0 : 64 * wg, cw = CLUSTER ? DW * wg : 0;
+  const int q0w = q0 + rw;
   const int row_a = q0w + 16 * warp + lane / 4;  // row_b = +8
   const int col = 2 * (lane % 4);
   const float sl2 = scale * LOG2E;
@@ -424,43 +503,99 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
     dl[r] = in ? delta[(int64_t)bh * T + row] : 0.f;
   }
 
-  float acc[D / 2];  // dq
+  float acc[DW / 2];  // dq
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
 
-  const uint32_t q_addr = smem_u32(smem + S::Q) + 64 * wg * SLAB;
-  const uint32_t do_addr = smem_u32(smem + S::DO) + 64 * wg * SLAB;
+  const uint32_t q_addr = smem_u32(smem + S::Q) + rw * SLAB;
+  const uint32_t do_addr = smem_u32(smem + S::DO) + rw * SLAB;
+  // CLUSTER: the peer's partials (warpgroup 0 sends S at 0, warpgroup 1
+  // dP at X_TILE of the peer's buffer) and barriers
+  uint32_t x_peer = 0, x_full_peer = 0, x_empty_peer = 0;
+  if constexpr (CLUSTER) {
+    x_peer = mapa(smem_u32(smem + S::XS), rank ^ 1) + wg * S::X_TILE;
+    x_full_peer = mapa(smem_u32(x_full), rank ^ 1);
+    x_empty_peer = mapa(smem_u32(x_empty), rank ^ 1);
+  }
   mbar_wait(q_full, 0);
 
   for (int j = 0; j < n_kt; ++j) {
     const int s = j % STAGES, ks = j % KTS, k0 = j * BK;
     mbar_wait(&kv_full[s], (j / STAGES) & 1);
-    if (!((causal && k0 > q0w + 63) || q0w >= T)) {
+    // CLUSTER: no tile is skipped (the last causal one starts 32 keys
+    // before the q tile's last row), so both CTAs exchange every tile
+    if (CLUSTER || !((causal && k0 > q0w + 63) || q0w >= T)) {
       const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
       const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
 
       // S = Q_wg K^T and dP = dO_wg V^T: (64 q, BK keys) f32 each,
       // m64nBKk8 from shared memory
       float st[BK / 2], dp[BK / 2];
-      wgmma_fence();
+      if constexpr (CLUSTER) {
+        // partial sums over this CTA's DC columns: warpgroup 0 forms S,
+        // warpgroup 1 dP, and each sends its partial to the peer (once
+        // the peer has read the last tile's) and hands it to the other
+        // warpgroup through LX; then both add the peer's two partials
+        // once they have landed (one exchange a key tile, so j counts
+        // the phases)
+        float x[BK / 2];
+        const uint32_t a_addr = wg == 0 ? q_addr : do_addr;
+        const uint32_t b_addr = wg == 0 ? k_addr : v_addr;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-        mma_ss_tf32(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
-                    kk > 0);
-      }
+        for (int kk = 0; kk < DC / 8; ++kk) {
+          const uint32_t aoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          const uint32_t boff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+          mma_ss_tf32(x, desc_k(a_addr + aoff), desc_k(b_addr + boff),
+                      kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(x);
+        unsigned char* lx = smem + S::LX + (j & 1) * S::X_BYTES;
+        mbar_wait_cluster(x_empty, (j & 1) ^ 1);
+        send_partial(x, x_peer, tid, x_full_peer);
+        put_partial(x, lx + wg * S::X_TILE, tid);
+        named_barrier(1, 256);  // both warpgroups' partials are in LX
+        float y[BK / 2];
+        get_partial(y, lx + (wg ^ 1) * S::X_TILE, tid);
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-        mma_ss_tf32(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
-                    kk > 0);
+        for (int i = 0; i < BK / 2; ++i) {
+          st[i] = wg == 0 ? x[i] : y[i];
+          dp[i] = wg == 0 ? y[i] : x[i];
+        }
+        mbar_wait_cluster(x_full, j & 1);
+        add_partial(st, smem + S::XS, tid);
+        add_partial(dp, smem + S::XS + S::X_TILE, tid);
+        __syncwarp();
+        if (lane == 0) {
+          // the next tile's bytes are expected before the peer, released
+          // here, may send them
+          if (tid == 0 && wg == 0 && j + 1 < n_kt)
+            mbar_expect_tx(x_full, S::X_BYTES);
+          mbar_arrive_cluster(x_empty_peer);
+        }
+      } else {
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+          mma_ss_tf32(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
+                      kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+          mma_ss_tf32(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
+                      kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
       }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dp);
 
       // dS = P (dP - delta) scale with P in f32, in place
       const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
@@ -486,9 +621,11 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
         da[4 * t + 3] = tf32(dp[4 * t + 3]);
       }
 
-      // dq += dS K as (dS in A fragments) (K^T, K-major), m64nDk8
+      // dq += dS K as (dS in A fragments) (K^T's DW rows of this
+      // warpgroup's columns, K-major), m64nDWk8
       mbar_wait(&kt_full[ks], (j / KTS) & 1);
-      const uint32_t kt_addr = smem_u32(smem + S::KT + ks * S::KT_TILE);
+      const uint32_t kt_addr =
+          smem_u32(smem + S::KT + ks * S::KT_TILE) + cw * SLAB;
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 8; ++kk)
@@ -517,12 +654,13 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
   for (int r = 0; r < 2; ++r) {
     const int row = row_a + 8 * r;
     if (row >= T) continue;
-    float* out = dq + q_base + (int64_t)row * q_rs + col;
+    float* out = dq + q_base + (int64_t)row * q_rs + c0 + cw + col;
 #pragma unroll
-    for (int c = 0; c < D / 8; ++c)
+    for (int c = 0; c < DW / 8; ++c)
       *reinterpret_cast<float2*>(out + 8 * c) =
           make_float2(acc[4 * c + 2 * r], acc[4 * c + 2 * r + 1]);
   }
+  if constexpr (CLUSTER) cluster_sync();  // the peer writes here no more
 }
 
 template <int D>
@@ -538,10 +676,16 @@ int launch_tf32(const void* q, const void* k, const void* v,
   if (!e) e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
   if (e) return e;
   const int tiles = (T + S::BQ - 1) / S::BQ;
-  if (!ptt::grid_fits(tiles, B * H))
+  if (!ptt::grid_fits(tiles * S::CTAS, B * H))
     return static_cast<int>(cudaErrorInvalidValue);
   e = ptt::allow_smem(flash_bwd_dq_sm90_tf32_kernel<D>, S::BYTES);
   if (e) return e;
+  if constexpr (S::CLUSTER)
+    return launch_clusters(flash_bwd_dq_sm90_tf32_kernel<D>,
+                           tiles * S::CTAS * B * H, THREADS, S::BYTES,
+                           S::CTAS, stream, mq, mk, mv, mdo, lse, delta,
+                           static_cast<float*>(dq), H, Hk, T, bh_layout,
+                           scale, causal);
   flash_bwd_dq_sm90_tf32_kernel<D>
       <<<tiles * B * H, THREADS, S::BYTES, stream>>>(
           mq, mk, mv, mdo, lse, delta, static_cast<float*>(dq), H, Hk, T,
@@ -567,9 +711,9 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
-// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1) and fp16 (dtype 2)
-// at D in {64, 128, 256} and f32 (dtype 0) at D in {64, 128}; any other
-// dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout, dq 16-byte
+// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1), fp16 (dtype 2)
+// and f32 (dtype 0) at D in {64, 128, 256}; any other dtype or head dim
+// is cudaErrorInvalidValue.  q, k, v, dout, dq 16-byte
 // aligned.
 extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
@@ -586,6 +730,9 @@ extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                              bh_layout, scale, causal, s);
     if (D == 128)
       return launch_tf32<128>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
+                              bh_layout, scale, causal, s);
+    if (D == 256)
+      return launch_tf32<256>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
                               bh_layout, scale, causal, s);
     return static_cast<int>(cudaErrorInvalidValue);
   }

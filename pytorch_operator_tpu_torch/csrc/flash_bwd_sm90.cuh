@@ -50,11 +50,12 @@
 // that its S^T = K Q^T and dP^T = V dO^T are partial sums over its half
 // of D.  Per q tile each CTA's warpgroup 0 sends its partial S^T and
 // warpgroup 1 its partial dP^T (64 x 32 f32 each) into the peer's shared
-// memory (st.async, whose bytes complete the peer's x_full mbarrier),
-// each CTA adds the peer's partials to its own (own + peer in one CTA is
-// peer + own in the other, so both hold the same bits of S^T and dP^T,
-// hence of P^T and dS^T), and every consumer warp then arrives on the
-// peer's x_empty, which the peer waits on before it sends the next tile.
+// memory (sm90.cuh send_partial: st.async, whose bytes complete the
+// peer's x_full mbarrier), each CTA adds the peer's partials to its own
+// (own + peer in one CTA is peer + own in the other, so both hold the
+// same bits of S^T and dP^T, hence of P^T and dS^T), and every consumer
+// warp then arrives on the peer's x_empty, which the peer waits on
+// before it sends the next tile.
 // The room for the peer's partials (16 KB) comes from the ring: there
 // lse and delta leave the slots, whose rounding to 1 KB took 2 KB.
 #pragma once
@@ -453,35 +454,6 @@ template <int D, bool DQ> struct BwdTf32Smem {
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// CLUSTER: a consumer thread's partial (16 f32 of S^T or dP^T) into the
-// peer's buffer at shared::cluster address `dst`, register 4 m + j of
-// thread t at float 4 (128 m + t) + j, completing its bytes on the
-// peer's x_full (`bar`).
-__device__ __forceinline__ void send_partial(const float (&a)[16],
-                                             uint32_t dst, int tid,
-                                             uint32_t bar) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m)
-    st_async_v4(dst + (128 * m + tid) * 16, a[4 * m], a[4 * m + 1],
-                a[4 * m + 2], a[4 * m + 3], bar);
-}
-
-// a += the peer's partial, laid out as send_partial writes it: own +
-// peer here is peer + own in the peer CTA, the same bits.
-__device__ __forceinline__ void add_partial(float (&a)[16],
-                                            const unsigned char* src,
-                                            int tid) {
-#pragma unroll
-  for (int m = 0; m < 4; ++m) {
-    const float4 p =
-        *reinterpret_cast<const float4*>(src + (128 * m + tid) * 16);
-    a[4 * m] = a[4 * m] + p.x;
-    a[4 * m + 1] = a[4 * m + 1] + p.y;
-    a[4 * m + 2] = a[4 * m + 2] + p.z;
-    a[4 * m + 3] = a[4 * m + 3] + p.w;
-  }
-}
-
 // As walk<E, D, DQ> for f32 inputs at D 64, 128 and 256: the same
 // contract, grid (ceil(T / BK) * B * H * CTAS blocks, clusters of CTAS
 // consecutive blocks: launch_walk_tf32, BwdTf32Smem<D, DQ>::BYTES of
@@ -838,26 +810,10 @@ int launch_walk_tf32(void (*kernel)(Params...), int B, int H, int T,
     return static_cast<int>(cudaErrorInvalidValue);
   int e = ptt::allow_smem(kernel, S::BYTES);
   if (e) return e;
-  if constexpr (S::CLUSTER) {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(tiles * S::CTAS * B * H);
-    cfg.blockDim = dim3(THREADS);
-    cfg.dynamicSmemBytes = S::BYTES;
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = S::CTAS;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    void* params[] = {&args...};
-    e = static_cast<int>(cudaLaunchKernelExC(
-        &cfg, reinterpret_cast<const void*>(kernel), params));
-    if (e) return e;
-  } else {
-    kernel<<<tiles * B * H, THREADS, S::BYTES, stream>>>(args...);
-  }
+  if constexpr (S::CLUSTER)
+    return launch_clusters(kernel, tiles * S::CTAS * B * H, THREADS,
+                           S::BYTES, S::CTAS, stream, args...);
+  kernel<<<tiles * B * H, THREADS, S::BYTES, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 

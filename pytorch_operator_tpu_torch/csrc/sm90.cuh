@@ -98,7 +98,8 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---- clusters: a CTA's rank, its peer's shared memory, cluster barriers.
-// Used by the f32 walk at D 256 (flash_bwd_sm90.cuh), two CTAs a cluster.
+// Used by the f32 walk (flash_bwd_sm90.cuh) and the f32 dq kernel
+// (flash_bwd_dq_sm90.cu) at D 256, two CTAs a cluster.
 
 __device__ __forceinline__ uint32_t cluster_ctarank() {
   uint32_t r;
@@ -161,6 +162,62 @@ __device__ __forceinline__ void st_async_v4(uint32_t dst, float a, float b,
       "{%1, %2, %3, %4}, [%5];\n" ::"r"(dst),
       "f"(a), "f"(b), "f"(c), "f"(d), "r"(bar)
       : "memory");
+}
+
+// The two-CTA kernels' exchange of a partial score tile (64 rows x 32
+// f32 of a wgmma accumulator, summed over one CTA's half of D).
+// send_partial: a consumer thread's 16 f32 into the peer's buffer at
+// shared::cluster address `dst`, register 4 m + j of thread t at float
+// 4 (128 m + t) + j, completing its bytes on the peer's mbarrier `bar`.
+__device__ __forceinline__ void send_partial(const float (&a)[16],
+                                             uint32_t dst, int tid,
+                                             uint32_t bar) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m)
+    st_async_v4(dst + (128 * m + tid) * 16, a[4 * m], a[4 * m + 1],
+                a[4 * m + 2], a[4 * m + 3], bar);
+}
+
+// a += the peer's partial, laid out as send_partial writes it: own +
+// peer here is peer + own in the peer CTA, the same bits.
+__device__ __forceinline__ void add_partial(float (&a)[16],
+                                            const unsigned char* src,
+                                            int tid) {
+#pragma unroll
+  for (int m = 0; m < 4; ++m) {
+    const float4 p =
+        *reinterpret_cast<const float4*>(src + (128 * m + tid) * 16);
+    a[4 * m] = a[4 * m] + p.x;
+    a[4 * m + 1] = a[4 * m + 1] + p.y;
+    a[4 * m + 2] = a[4 * m + 2] + p.z;
+    a[4 * m + 3] = a[4 * m + 3] + p.w;
+  }
+}
+
+// Launch `kernel` on `blocks` blocks of `threads` threads with `smem`
+// bytes of dynamic shared memory, in clusters of `ctas` consecutive
+// blocks (the block index's fastest part is the cluster rank).  `args`
+// are the kernel's parameters, converted to their types.
+template <typename... Params>
+int launch_clusters(void (*kernel)(Params...), int blocks, int threads,
+                    int smem, int ctas, cudaStream_t stream,
+                    std::remove_cv_t<Params>... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  void* params[] = {&args...};
+  const int e = static_cast<int>(cudaLaunchKernelExC(
+      &cfg, reinterpret_cast<const void*>(kernel), params));
+  return e ? e : static_cast<int>(cudaGetLastError());
 }
 
 // Order this thread's generic-proxy shared-memory writes before later

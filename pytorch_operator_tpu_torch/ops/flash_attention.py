@@ -25,18 +25,14 @@ kernel, dtype and (kernel) head dim (``SM90_RULE``, ``_sm90``), not a
 fallback.  The Hopper versions are built on ``wgmma``, TMA and a
 warp-specialized mbarrier ring (f32 as TF32, with the transposed copies
 of V, Q, dO and K that TF32 ``wgmma`` needs written in shared memory;
-the fused and dk / dv kernels at f32 D 256 on clusters of two CTAs that
-split D and exchange their partial scores through shared memory):
+the backward kernels at f32 D 256 on clusters of two CTAs that split D
+and exchange their partial scores through shared memory):
 
-  forward, fused, dk/dv  bf16, fp16, f32 at D 64, 128, 256
-  dq                     bf16, fp16 at D 64, 128, 256; f32 at D 64, 128
+  forward, fused, dq, dk/dv  bf16, fp16, f32 at D 64, 128, 256
 
 Every model's attention but the tiny one's is bf16 at D 64 or 128.
-Everything else runs the WMMA versions: D 16/32 at every dtype, and
-the dq kernel at f32 D 256 (its Hopper version would need the f32
-walk's cluster exchange).  So at f32 D 256 the two-kernel route runs the
-WMMA dq kernel, then the Hopper dk / dv kernel.  A build or launch
-failure of either version raises.
+Everything else, D 16/32 at every dtype, runs the WMMA versions.  A
+build or launch failure of either version raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
 (T, D) f32 dq resident, so past ``_FUSED_DQ_BYTES`` (T > 8192 at
@@ -64,16 +60,15 @@ checkpoint policy can name it (``models/llama.py``'s ``save_attn``).
 The rest of the TPU-tuned dispatch is not carried over: ``_auto_block``
 and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
 On CUDA every call, forward-only or not, goes through the kernels, which
-tile T by 32, 64 or 128 and mask the tail themselves, and any B * H
-(the grid is one dimension of tiles times B * H).  The kernels take
-float32, bfloat16 or float16 at D in {16, 32, 64, 128, 256} (the WMMA dq
-kernel at float32 D 256 on 32-row tiles: its 64-row tile set passes a
-block's shared memory).  A head dim between two of these runs at the next one:
-the wrappers pad q, k, v (and dO) with zero columns, which change
-neither the scores nor the true columns of out, dq, dk and dv, pass the
-scale of the true D and slice the outputs back.  Anything else on a CUDA tensor raises: D above
-256 too, which no model of either package has and at which the JAX
-kernel's block picker stops (``_auto_block``).
+tile T by 32, 64 or 128 and mask the tail themselves, and any B * H (the
+grid is one dimension of tiles times B * H).  The kernels take float32,
+bfloat16 or float16 at D in {16, 32, 64, 128, 256}.  A head dim between
+two of these runs at the next one: the wrappers pad q, k, v (and dO)
+with zero columns, which change neither the scores nor the true columns
+of out, dq, dk and dv, pass the scale of the true D and slice the
+outputs back.  Anything else on a CUDA tensor raises: D above 256 too,
+which no model of either package has and at which the JAX kernel's block
+picker stops (``_auto_block``).
 """
 
 from __future__ import annotations
@@ -108,25 +103,18 @@ _FUSED_DQ_BYTES = 4 * 1024 * 1024
 
 
 # Per flash kernel and dtype, the kernel head dims its Hopper version
-# takes.  The dk / dv kernel is the fused kernel's walk without dq, so
-# the two take the same.
+# takes: each kernel at every dtype at D 64/128/256 (the dk / dv kernel
+# is the fused kernel's walk without dq, so the two take the same).
 _ALL = {torch.bfloat16: (64, 128, 256), torch.float16: (64, 128, 256),
         torch.float32: (64, 128, 256)}
-SM90_RULE = {
-    "fwd": _ALL,
-    "bwd": _ALL,
-    "dkv": _ALL,
-    "dq": {torch.bfloat16: (64, 128, 256), torch.float16: (64, 128, 256),
-           torch.float32: (64, 128)},
-}
+SM90_RULE = {"fwd": _ALL, "bwd": _ALL, "dq": _ALL, "dkv": _ALL}
 
 
 def _sm90(kernel: str, dtype: torch.dtype, D: int) -> bool:
     """True where flash kernel ``kernel`` ("fwd", "bwd", "dq" or "dkv")
     runs its Hopper version for ``dtype`` at (kernel) head dim ``D``, by
-    SM90_RULE; elsewhere its WMMA version (``flash_fwd``, ``flash_bwd``,
-    ``flash_bwd_dq``, ``flash_bwd_dkv``) runs: D 16/32, and the dq
-    kernel at f32 D 256."""
+    SM90_RULE; elsewhere, at D 16/32, its WMMA version (``flash_fwd``,
+    ``flash_bwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``) runs."""
     return D in SM90_RULE[kernel].get(dtype, ())
 
 

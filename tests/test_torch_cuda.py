@@ -116,12 +116,9 @@ def _launches():
 
 def _hopper(kernel, dtype, D):
     """The stated route at head dim ``D`` (padded to the kernels' next):
-    B1, B2 and B4 run Hopper at 64/128/256 for bf16, fp16 and f32, B3 at
-    64/128/256 for bf16 and fp16 and at 64/128 for f32; everything else
-    runs WMMA."""
+    B1-B4 run Hopper at 64/128/256 for bf16, fp16 and f32; D 16/32 runs
+    WMMA."""
     D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
-    if kernel == "dq" and dtype == torch.float32:
-        return D in (64, 128)
     return D in (64, 128, 256)
 
 
@@ -209,8 +206,7 @@ def test_flash_fp16_and_padded_head_dims(cuda, monkeypatch, route, dtype,
     the next, against autograd through the f32 plain forward at the true
     D, with exact launch counts by the route (GQA H4 / Hk2, ragged T):
     Hopper B1-B4 for bf16 and fp16 up to 256, and f32 on the Hopper TF32
-    kernels (B2 and B4 at D 256 on clusters of two CTAs; B3 at D 256 on
-    WMMA's 32-row tiles)."""
+    kernels (B2, B3 and B4 at D 256 on clusters of two CTAs)."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 2, 200, 4, 2, D, True, dtype,
@@ -287,11 +283,11 @@ def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
                                      (torch.float16, 256)])
 def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     """B3 sums dq without atomics: two runs give the same bits (the
-    Hopper B3 at each of its instantiations here, the WMMA one at f32
-    D 256).  B4 is the fused kernel's walk without dq: the Hopper B4
-    (bf16, fp16, and f32 on the TF32 walk, at D 256 on clusters of two
-    CTAs) gives the Hopper B2's dk / dv bit for bit at each instantiation
-    (GQA H16 / Hk4, ragged T)."""
+    Hopper B3 at each of its instantiations here, at f32 D 256 on
+    clusters of two CTAs).  B4 is the fused kernel's walk without dq: the
+    Hopper B4 (bf16, fp16, and f32 on the TF32 walk, at D 256 on clusters
+    of two CTAs) gives the Hopper B2's dk / dv bit for bit at each
+    instantiation (GQA H16 / Hk4, ragged T)."""
     args = _bwd_args(cuda, 1, 1000, 16, 4, D, dtype, bh, causal)
     first = fa._flash_bwd_dq_cuda(*args)
     second = fa._flash_bwd_dq_cuda(*args)
@@ -314,12 +310,13 @@ def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
                                      (torch.bfloat16, 256),
                                      (torch.float16, 256),
                                      (torch.float32, 64),
-                                     (torch.float32, 128)])
+                                     (torch.float32, 128),
+                                     (torch.float32, 256)])
 def test_sm90_dq_matches_plain(cuda, dtype, D, T, causal, bh):
     """The Hopper B3 at each instantiation beyond bf16 D 64/128 (fp16,
-    D 256, and f32 as TF32) against its plain version on the same inputs,
-    lse and delta: GQA H16 / Hk4, ragged T, both layouts, causal and not,
-    one launch of it."""
+    D 256, and f32 as TF32, at D 256 on clusters of two CTAs) against
+    its plain version on the same inputs, lse and delta: GQA H16 / Hk4,
+    ragged T, both layouts, causal and not, one launch of it."""
     assert _hopper("dq", dtype, D)
     args = _bwd_args(cuda, 1, T, 16, 4, D, dtype, bh, causal)
     before = _launches()
@@ -401,8 +398,8 @@ def test_sm90_fp16_and_d256_match_plain(cuda, monkeypatch, dtype, D, causal,
 @pytest.mark.parametrize("D", [64, 128, 256])
 def test_sm90_f32_match_plain(cuda, monkeypatch, D, causal, T, bh, route):
     """The Hopper TF32 instantiations (GQA H16 / Hk4): B1 with B2, or B1
-    with B3 + B4, at D 64/128/256 (B2 and B4 at D 256 on clusters of two
-    CTAs, B3 there on WMMA), against autograd through the f32 plain
+    with B3 + B4, at D 64/128/256 (B2, B3 and B4 at D 256 on clusters of
+    two CTAs), against autograd through the f32 plain
     forward at T = 2 (below every tile), ragged T and T1000, in both
     layouts, with exact launch counts.
     Not T = 1: there the plain grads are exactly 0 (one key), and every

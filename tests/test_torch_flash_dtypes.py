@@ -1,8 +1,8 @@
 """Parity of the port's flash attention with the JAX package at the
 dtypes and head dims the Hopper kernels take beyond bf16 at D 64/128:
 fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64, 128 and 256
-(the TF32 kernels; at D 256 the fused and dk / dv kernels on clusters of
-two CTAs).
+(the TF32 kernels; at D 256 the fused, dq and dk / dv kernels on
+clusters of two CTAs).
 
 On the CPU the port runs its kernels' plain versions (the forward, the
 fused backward, and the dq and dk / dv kernels on the two-kernel route),
@@ -26,7 +26,9 @@ pieces with q, k, v, dO and p so truncated and holds the result to the
 JAX f32 reference within the card's f32 bounds (``chip_smoke.py`` phase
 2): out max|err| <= 2e-2 and relative Frobenius error <= 1e-2, grads
 max|err| <= 1e-2 * max|ref| and relative <= 1e-2, lse within 1e-2 of the
-plain version's.
+plain version's.  ``test_split_d_dq_fits_the_f32_bounds`` replays the
+f32 dq kernel at D 256, whose two CTAs each hold half of D and exchange
+their partial scores, and holds its dq to the same bounds.
 """
 
 import importlib
@@ -183,3 +185,50 @@ def test_tf32_truncation_fits_the_f32_bounds(D, B, T, H, Hk, causal):
         *(torch.tensor(x) for x in (q, k, v)), D ** -0.5, causal, False)
     assert float(np.abs(lse - plain_lse.reshape(lse.shape).numpy()).max()) \
         <= 1e-2
+
+
+def port_split_d_dq(q, k, v, g, causal):
+    """The f32 dq kernel at D 256 (``csrc/flash_bwd_dq_sm90.cu``, a
+    cluster of two CTAs) replayed in plain f32 torch on (B, T, H, D)
+    numpy inputs: CTA r holds columns [128 r, 128 r + 128) of q, k, v,
+    dO and dq, forms the partial S = Q_r K_r^T and dP = dO_r V_r^T over
+    them on TF32-truncated operands, and adds the peer's partials to its
+    own; P and dS come from those sums in f32, and dq is the two halves'
+    dS K_r side by side, dS truncated to TF32 as its product reads it.
+    lse and delta are what the route gives the kernel (the forward and
+    rowsum(dO * out)).  Returns dq as numpy."""
+    B, T, H, D = q.shape
+    group = H // k.shape[2]
+    scale = D ** -0.5
+    q, k, v, g = (tf32_trunc(torch.tensor(x)) for x in (q, k, v, g))
+    _, lse = fa._flash_fwd_reference(q, k, v, scale, causal, False)
+    q4, g4 = (fa._heads_first(x, False) for x in (q, g))
+    k4, v4 = (fa._heads_first(x, False).repeat_interleave(group, dim=1)
+              for x in (k, v))
+    halves = (slice(0, D // 2), slice(D // 2, D))
+    s_part = [q4[..., c] @ k4[..., c].transpose(-1, -2) for c in halves]
+    dp_part = [g4[..., c] @ v4[..., c].transpose(-1, -2) for c in halves]
+    # CTA r: its own partial plus the peer's; the two orders give the
+    # same bits, so both CTAs hold the same P and dS
+    st = [s_part[r] + s_part[1 - r] for r in (0, 1)]
+    dp = [dp_part[r] + dp_part[1 - r] for r in (0, 1)]
+    assert torch.equal(st[0], st[1]) and torch.equal(dp[0], dp[1])
+    p = torch.exp(st[0] * scale - lse.reshape(B, H, T, 1))
+    if causal:
+        p = p.masked_fill(~fa._causal_mask(T, p.device), 0.0)
+    out = tf32_trunc(p) @ v4
+    delta = (g4 * out).sum(-1, keepdim=True)
+    ds = tf32_trunc(p * (dp[0] - delta) * scale)
+    dq = torch.cat([ds @ k4[..., c] for c in halves], dim=-1)
+    return fa._from_heads_first(dq, False).numpy()
+
+
+@pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
+def test_split_d_dq_fits_the_f32_bounds(B, T, H, Hk, causal):
+    q, k, v, g = inputs(T + 3, B, T, H, Hk, 256, torch.float32)
+    got = port_split_d_dq(q, k, v, g, causal)
+    want = jax_run(q, k, v, g, causal, jnp.float32)[1]
+    err = float(np.abs(got - want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert err <= 1e-2 * float(np.abs(want).max()) and rel <= 1e-2, \
+        (err, rel)

@@ -224,20 +224,16 @@ class TestTwoKernelRoute:
 
 
 def hopper_by_the_rule(kernel, dtype, D):
-    """The stated route, written out: the forward, the fused backward and
-    the dk / dv kernel run their Hopper versions for bf16, fp16 and f32 at
-    kernel head dim 64, 128 or 256; the dq kernel for bf16 and fp16 at 64,
-    128 or 256 and for f32 at 64 or 128; everything else runs WMMA."""
-    if kernel == "dq" and dtype == torch.float32:
-        return D in (64, 128)
+    """The stated route, written out: the forward, the fused backward, the
+    dq and the dk / dv kernel run their Hopper versions for bf16, fp16
+    and f32 at kernel head dim 64, 128 or 256; D 16/32 runs WMMA."""
     return D in (64, 128, 256)
 
 
 class TestHopperDispatch:
     """Which version of each flash kernel a CUDA call launches, by the
     per-kernel, per-dtype rule (``_sm90``): the Hopper ones at D
-    64/128/256 (the dq kernel's at f32 only at D 64/128), the WMMA ones
-    elsewhere."""
+    64/128/256 for every dtype, the WMMA ones at D 16/32."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
@@ -290,8 +286,8 @@ class TestHopperDispatch:
 class TestTwoKernelDispatch:
     """Which kernel each wrapper launches (the forward, the fused backward,
     the dq and the dk / dv kernel): its Hopper version where the
-    per-kernel rule takes it (every dtype at D 64/128/256; the dq kernel
-    at f32 only at D 64/128), else its WMMA version."""
+    per-kernel rule takes it (every dtype at D 64/128/256), else (D
+    16/32) its WMMA version."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
