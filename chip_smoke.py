@@ -10,7 +10,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
 1. card     nvidia-smi's name and power limit, the device name, and the
             nvcc build of every kernel from pytorch_operator_tpu_torch/
             csrc (timed, with ptxas' register and spill counts by kernel
-            and instantiation; any spill byte in a _sm90 kernel fails),
+            and instantiation; any spill byte in a _sm90 kernel fails;
+            the CTAs per multiprocessor of the 16-bit walk, B2 and B4,
+            by the occupancy API),
             and what a TMA load of f32 gives back through a FLOAT32 and
             a TFLOAT32 tensor map (copied, rounded or truncated);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
@@ -22,10 +24,13 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             at a ragged T, the bh layout), f32 on the Hopper TF32
             kernels (D 64 with GQA at a ragged T and in the bh layout,
             D 128 at the main shape, D 256 with the backward on
-            clusters of two CTAs) and B*H = 65,536), the two-kernel
+            clusters of two CTAs), the Hopper B2 on narrow slabs at bf16
+            and fp16 D 16/32 (GQA at a ragged T, T = 1 and 129, non-causal
+            in the bh layout) and B*H = 65,536), the two-kernel
             route (dq, then dk/dv) at T4096 and on the same variety with
             the route forced (the Hopper B3 at fp16, D 256 and f32 D
-            64/128/256, at f32 D 256 B3 and B4 on clusters); the
+            64/128/256, at f32 D 256 B3 and B4 on clusters, the Hopper
+            B4 at bf16 and fp16 D 16/32); the
             Hopper B4's dk/dv bit for bit B2's and the Hopper B3's dq
             bit for bit over two runs at every bf16, fp16 and f32
             instantiation; the WMMA forward and fused backward,
@@ -50,8 +55,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             B2, each in turns with the WMMA kernel it replaced), bf16 at
             D 96 (padded), and B3 + B4 on the two-kernel route at each of
             those but D 96 (the Hopper B3 in turns with the WMMA one),
-            and bf16 and f32 at D 32 (H64) and D 16 (H128), B1-B4 on
-            their WMMA kernels; the forward beside SDPA and the backward
+            bf16 and fp16 at D 32 (H64) and D 16 (H128), B2 and B4 on
+            the Hopper walk in turns with their WMMA kernels and B1 and
+            B3 on WMMA, and f32 there, B1-B4 on WMMA; the bounds count
+            the tensor products and one exponential a score element
+            (PEAK_EXP); the forward beside SDPA and the backward
             beside aten's flash backward (bf16, fp16) or SDPA's
             memory-efficient backward (f32, which aten's refuses); B1
             and B2 at the MoE's and the pipeline's length, B1 x T4096
@@ -71,7 +79,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             of train_llama at that shape with --remat-policy auto;
 7. tiers    the tiny model in bf16 through the kernels at every ported
             remat tier: grads against no remat and the flash forward's
-            launches per step (L under save_attn*, 2L under full remat);
+            launches per step (L under save_attn*, 2L under full remat),
+            and L of the fused backward's Hopper walk (head dim 16);
 8. sharded  the T2048 path of phase 4 through the sharded code path at
             world size 1 over NCCL: make_mesh(1, 1, 1), sharded_init
             (at one rank the plain model: no FSDP2, no DTensor),
@@ -231,6 +240,12 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # against these, beside the card's own power limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
+# the special-function units' rate (ex2 results a second): the
+# FlashAttention-3 paper's figure for the H100 SXM5 (Shah et al. 2024,
+# section 1: 3.9 TFLOPS of special functions), 132 SMs x 16 a clock x
+# about 1.83 GHz.  Each flash kernel takes one ex2 a score element, which
+# sets its bound at D 16/32.
+PEAK_EXP = 3.9e12
 
 MAIN = dict(B=2, T=2048, H=16, D=128)
 STEPS = 6
@@ -334,8 +349,9 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 # The Hopper kernels' instantiations: B1, B2, B3 and B4 at bf16, fp16
-# and f32 (TF32) at D 64/128/256 (9 each)
-SM90_INSTANTIATIONS = 36
+# and f32 (TF32) at D 64/128/256 (9 each), and B2 and B4 at bf16 and fp16
+# at D 16/32 (the narrow-slab walk, 4 each)
+SM90_INSTANTIATIONS = 44
 
 
 def check_sm90_ptxas(log: str) -> dict:
@@ -355,6 +371,38 @@ def check_sm90_ptxas(log: str) -> dict:
             f"{SM90_INSTANTIATIONS}: {sorted(sm90)}")
     require(not spilled, f"ptxas spilled in a Hopper kernel: {spilled}")
     return sm90
+
+
+def walk_ctas_per_sm() -> dict:
+    """CTAs per multiprocessor of every 16-bit instantiation of the Hopper
+    walk (B2 and B4), by the occupancy API (the C entries
+    ``flash_bwd_sm90_ctas_per_sm`` and ``flash_bwd_dkv_sm90_ctas_per_sm``:
+    THREADS threads and the kernel's shared memory).  Fails on one that
+    fits no multiprocessor."""
+    import ctypes
+
+    from pytorch_operator_tpu_torch import kernels
+
+    lib = kernels.load()
+    res = {}
+    for kernel in ("flash_bwd_sm90", "flash_bwd_dkv_sm90"):
+        fn = getattr(lib, kernel + "_ctas_per_sm")
+        fn.argtypes = [ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        for dtype, code in ((BF16, 1), (F16, 2)):
+            for D in (16, 32, 64, 128, 256):
+                ctas = ctypes.c_int(0)
+                rc = fn(D, code, ctypes.byref(ctas))
+                require(rc == 0, f"{kernel}_ctas_per_sm({D}, {dtype}) "
+                                 f"returned CUDA error {rc}")
+                res[f"{kernel}<{dtype}, {D}>"] = ctas.value
+    ok = all(v >= 1 for v in res.values())
+    emit({"check": "walk_ctas_per_sm", "ctas": res,
+          "tolerance": "every instantiation fits a multiprocessor",
+          "ok": ok})
+    require(ok, f"a walk instantiation fits no multiprocessor: {res}")
+    return res
 
 
 def probe_tma_tfloat32(torch) -> dict:
@@ -515,9 +563,15 @@ def timing_row(kernel: dict, plain: dict, library: dict | None) -> dict:
 
 
 def bound(bytes_moved: float, flops: float,
-          peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+          peak_flops: float = PEAK_BF16_FLOPS,
+          exps: float = 0) -> tuple[float, str]:
+    """The least time (ms) the card takes to move ``bytes_moved`` and do
+    the operations: ``flops`` on the tensor cores at ``peak_flops`` and
+    ``exps`` exponentials on the special-function units at PEAK_EXP,
+    which run beside the tensor cores (the larger of the two counts);
+    and which of bytes and operations sets it."""
     t_bytes = bytes_moved / PEAK_BYTES * 1e3
-    t_ops = flops / peak_flops * 1e3
+    t_ops = max(flops / peak_flops, exps / PEAK_EXP) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -575,6 +629,15 @@ FLASH_CASES = {
     "d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, BF16),
     "d64_non_causal_bh": (1, 1000, 16, 4, 64, False, True, BF16),
     "d16_gqa": (2, 333, 8, 4, 16, True, False, BF16),
+    # the Hopper walk (B2) on narrow slabs at 16-bit D 16/32, beside the
+    # WMMA B1: GQA at a ragged T, fp16, T = 1, T = 129 (one 128-row q tile
+    # and a row), non-causal in the bh layout
+    "d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, BF16),
+    "fp16_d16_gqa_ragged": (2, 333, 8, 4, 16, True, False, F16),
+    "fp16_d32_gqa": (2, 1000, 16, 4, 32, True, False, F16),
+    "d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, BF16),
+    "d32_t1_gqa": (2, 1, 16, 4, 32, True, False, BF16),
+    "d32_t129": (2, 129, 8, 8, 32, True, False, BF16),
     "f32": (2, 1000, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
@@ -619,6 +682,14 @@ TWO_KERNEL_CASES = {
     "d64_non_causal_bh": (1, 1000, 16, 4, 64, False, True, BF16),
     "d32": (2, 500, 8, 8, 32, True, False, BF16),
     "d16_gqa": (2, 500, 8, 4, 16, True, False, BF16),
+    # the Hopper B4 on narrow slabs at 16-bit D 16/32 (beside the WMMA B1
+    # and B3), as in FLASH_CASES
+    "d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, BF16),
+    "fp16_d16_gqa_ragged": (2, 333, 8, 4, 16, True, False, F16),
+    "fp16_d32_gqa": (2, 1000, 16, 4, 32, True, False, F16),
+    "d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, BF16),
+    "d32_t1_gqa": (2, 1, 16, 4, 32, True, False, BF16),
+    "d32_t129": (2, 129, 8, 8, 32, True, False, BF16),
     "f32": (1, 2048, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
@@ -686,8 +757,9 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
     WMMA version by the route (ops/flash_attention.py _sm90: B1-B4 Hopper
-    for bf16, fp16 and f32 at D 64/128/256, WMMA at D 16/32); the fused
-    backward, or B3 + B4 on the two-kernel route."""
+    for bf16, fp16 and f32 at D 64/128/256, and B2 and B4 for bf16 and
+    fp16 at D 16/32 too; WMMA elsewhere); the fused backward, or B3 + B4
+    on the two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -798,8 +870,9 @@ def check_two_kernel_route(torch, gen) -> dict:
 
 
 # Every instantiation of the Hopper B2 / B4 walk (dtype, D)
-SM90_WALKS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
-              (F16, 256), (F32, 64), (F32, 128), (F32, 256))
+SM90_WALKS = ((BF16, 16), (BF16, 32), (BF16, 64), (BF16, 128), (BF16, 256),
+              (F16, 16), (F16, 32), (F16, 64), (F16, 128), (F16, 256),
+              (F32, 64), (F32, 128), (F32, 256))
 
 
 def check_dkv_bitwise(torch, gen) -> dict:
@@ -1145,7 +1218,8 @@ def time_kernels(torch, gen) -> dict:
     fwd = {"library": "torch.nn.functional.scaled_dot_product_attention",
            "shape": [B, T, H, H, Dh],
            **dict(zip(("bound_ms", "bound_by"),
-                      bound(4 * io + B * H * T * 4, 4 * Dh * pairs)))}
+                      bound(4 * io + B * H * T * 4, 4 * Dh * pairs,
+                            exps=pairs)))}
     new, old = in_turns(
         lambda: _flash_fwd_cuda(q, k, v, scale, True, False),
         lambda: _flash_fwd_cuda(q, k, v, scale, True, False,
@@ -1165,7 +1239,8 @@ def time_kernels(torch, gen) -> dict:
     bwd = {"library": "aten._scaled_dot_product_flash_attention_backward",
            "shape": [B, T, H, H, Dh],
            **dict(zip(("bound_ms", "bound_by"),
-                      bound(7 * io + 2 * B * H * T * 4, 10 * Dh * pairs)))}
+                      bound(7 * io + 2 * B * H * T * 4, 10 * Dh * pairs,
+                            exps=pairs)))}
 
     def sdpa_fwd_bwd():
         a = [x.detach().requires_grad_(True) for x in (qt, kt, vt)]
@@ -1241,7 +1316,8 @@ def time_long_kernels(torch, gen) -> dict:
     fwd = {"library": "torch.nn.functional.scaled_dot_product_attention",
            "shape": [B, T, H, H, D], "plain_shape": [B, PLAIN_T, H, H, D],
            **dict(zip(("bound_ms", "bound_by"),
-                      bound(4 * io + B * H * T * 4, 4 * D * pairs)))}
+                      bound(4 * io + B * H * T * 4, 4 * D * pairs,
+                            exps=pairs)))}
     res["flash_fwd_sm90_long"] = {**timing_row(new, plain, sdpa), **fwd,
                                   **previous(new, old)}
     res["flash_fwd_long"] = {**timing_row(old, plain, sdpa), **fwd}
@@ -1255,7 +1331,7 @@ def time_long_kernels(torch, gen) -> dict:
              BWD_DQ_KERNEL, 5 * io + rows, 6 * D * pairs),
             ("flash_bwd_dkv", _flash_bwd_dkv_cuda, _flash_bwd_dkv_reference,
              BWD_DKV_KERNEL, 4 * io + rows + 2 * f32, 8 * D * pairs)):
-        b_ms, b_by = bound(nbytes, flops)
+        b_ms, b_by = bound(nbytes, flops, exps=pairs)
         new, old = in_turns(lambda fn=fn: fn(*args),
                             lambda fn=fn, kn=wmma: fn(*args, kernel=kn),
                             **few)
@@ -1288,8 +1364,9 @@ def time_long_kernels(torch, gen) -> dict:
             "ms": ms,
             "event_ms": {name: tm["event_ms"] for name, tm in times.items()},
             "profiles": {name: tm["profiles"] for name, tm in times.items()},
-            "fused_bound_ms": bound(0, 10 * D * pairs_t)[0],
-            "two_kernel_bound_ms": bound(0, 14 * D * pairs_t)[0]}
+            "fused_bound_ms": bound(0, 10 * D * pairs_t, exps=pairs_t)[0],
+            "two_kernel_bound_ms": bound(0, 14 * D * pairs_t,
+                                         exps=2 * pairs_t)[0]}
     emit({"timing": "fused_vs_two_kernel", **routes})
     res["routes"] = routes
     return res
@@ -1340,12 +1417,12 @@ def time_gqa_kernels(torch, gen) -> dict:
                                      "v expanded to 32 heads",
                    **dict(zip(("bound_ms", "bound_by"),
                               bound(2 * ioq + 2 * iok + rows,
-                                    4 * D * pairs)))},
+                                    4 * D * pairs, exps=pairs)))},
            "bwd": {**bwd, "library": "aten._scaled_dot_product_flash_"
                                      "attention_backward, k and v expanded",
                    **dict(zip(("bound_ms", "bound_by"),
                               bound(3 * ioq + 4 * iok + 2 * rows,
-                                    10 * D * pairs)))}}
+                                    10 * D * pairs, exps=pairs)))}}
     emit({"timing": "gqa_t4096", **res})
     return res
 
@@ -1381,22 +1458,25 @@ def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
 # at D 128 (the Hopper kernels, each beside its WMMA predecessor), f32 at
 # D 64, 128 and 256 (the Hopper TF32 kernels, each beside its WMMA
 # predecessor; the backward at D 256 on clusters of two CTAs), bf16 at D
-# 96, zero-padded to the Hopper kernels' 128, and bf16 and f32 at D 32
-# and 16 (the WMMA kernels, which those head dims still run), heads such
-# that H D = 2048 (1536 at D 96): (dtype, D, heads)
+# 96, zero-padded to the Hopper kernels' 128, bf16 and fp16 at D 32 and
+# 16 (the Hopper B2 and B4 on narrow slabs, each beside its WMMA
+# predecessor; B1 and B3 there WMMA) and f32 at D 32 and 16 (the WMMA
+# kernels), heads such that H D = 2048 (1536 at D 96): (dtype, D, heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
             "bf16_d96_padded": (BF16, 96, 16),
             "bf16_d32": (BF16, 32, 64), "bf16_d16": (BF16, 16, 128),
+            "fp16_d32": (F16, 32, 64), "fp16_d16": (F16, 16, 128),
             "f32_d32": (F32, 32, 64), "f32_d16": (F32, 16, 128)}
 # the cases whose two-kernel route (B3 then B4) phase 3 also times: the
 # Hopper B3 and B4 at fp16 D 128 and 256, bf16 D 256 and f32 D 64, 128
 # and 256 (each beside the WMMA kernel it replaced; at f32 D 256 both on
-# clusters of two CTAs), and the WMMA B3 and B4 at D 32 and 16
+# clusters of two CTAs), at 16-bit D 32 and 16 the WMMA B3 and the Hopper
+# B4 (beside the WMMA one), and the WMMA B3 and B4 at f32 D 32 and 16
 C3_TWO_KERNEL = ("fp16_d256", "bf16_d256", "fp16_d128", "f32_d256",
-                 "f32_d128", "f32_d64", "bf16_d32", "bf16_d16", "f32_d32",
-                 "f32_d16")
+                 "f32_d128", "f32_d64", "bf16_d32", "bf16_d16", "fp16_d32",
+                 "fp16_d16", "f32_d32", "f32_d16")
 
 
 def time_c3_kernels(torch, gen) -> dict:
@@ -1404,7 +1484,8 @@ def time_c3_kernels(torch, gen) -> dict:
     backward through their wrappers (the padding and slicing included),
     and for C3_TWO_KERNEL the dq and dk / dv kernels of the two-kernel
     route, each beside its plain version, its bound (at the true D; f32
-    against the TF32 peak, in which its products run), the library call
+    against the TF32 peak, in which its products run; one exponential a
+    score element against PEAK_EXP), the library call
     on the same inputs (SDPA's forward; aten's flash backward for bf16
     and fp16, SDPA's memory-efficient backward for f32, which aten's
     refuses) and, where the route takes a Hopper kernel, the WMMA kernel
@@ -1493,7 +1574,7 @@ def time_c3_kernels(torch, gen) -> dict:
                 "library": (lib_name if library
                             else f"refused: {refused[0]}"),
                 **dict(zip(("bound_ms", "bound_by"),
-                           bound(nbytes, flops, peak)))}
+                           bound(nbytes, flops, peak, exps=pairs)))}
             if hopper:
                 row[part].update(previous(new, old))
         res[name] = row
@@ -1828,7 +1909,20 @@ def profile_step(torch, label, step, expect) -> dict:
     the matmul class's time and launches by the operator that launched
     them (aten::mm, aten::bmm, ...).  The port's kernels' profiled counts
     are held against the launches per step (``expect``): a shortfall
-    means the profiler lost records, and ``complete`` says so."""
+    means the profiler lost records (ROADMAP B14), and ``complete`` says
+    so.  A profile that lost records is taken again, on one more step,
+    up to three times in all; each lost one is printed."""
+    for taken in range(1, 4):
+        out = _profile_one_step(torch, label, step, expect)
+        if out["complete"]:
+            break
+        emit({"profile_lost_records": out})
+    out["profiles"] = taken
+    emit({"profile": out})
+    return out
+
+
+def _profile_one_step(torch, label, step, expect) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1868,7 +1962,6 @@ def profile_step(torch, label, step, expect) -> dict:
            "complete": launched == expect,
            "top": [{"ms": ms, "count": n, "kernel": k}
                    for ms, n, k in top[:20]]}
-    emit({"profile": out})
     return out
 
 
@@ -1982,7 +2075,8 @@ REMAT_TIERS = (None, "save_attn", "save_attn+qkv", "save_attn+gateup",
 def check_remat_tiers(torch) -> dict:
     """The tiny model (bf16, head dim 16, GQA 8:4) through the kernels at
     every ported remat_policy: grads against no remat, and the forward
-    kernels' launches in one forward + backward."""
+    kernels' and the fused backward's (the Hopper walk on narrow slabs)
+    launches in one forward + backward."""
     import numpy as np
 
     from pytorch_operator_tpu_torch import kernels
@@ -2007,15 +2101,17 @@ def check_remat_tiers(torch) -> dict:
                 kernels.launch_counts())
 
     ref, ref_counts = grads(base)
-    res = {"no_remat": {"flash_fwd": ref_counts["flash_fwd"],
-                        "rms_norm_fwd": ref_counts["rms_norm_fwd"]}}
+    res = {"no_remat": {k: ref_counts[k] for k in (
+        "flash_fwd", "flash_bwd_sm90", "flash_bwd", "rms_norm_fwd")}}
     for policy in REMAT_TIERS:
         got, counts = grads(dataclasses.replace(base, remat=True,
                                                 remat_policy=policy))
         err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                   for a, b in zip(got, ref))
         save_attn = (policy or "").startswith("save_attn")
+        # head dim 16 in bf16: the WMMA forward, the Hopper walk (B2)
         want = {"flash_fwd": L if save_attn else 2 * L,
+                "flash_bwd_sm90": L, "flash_bwd": 0,
                 "rms_norm_fwd": 2 * L + 1 + (
                     0 if "normed" in (policy or "") else 2 * L)}
         launched = {k: counts[k] for k in want}
@@ -4412,6 +4508,7 @@ def run() -> tuple[str, list[dict]]:
              or ln.startswith("==")]
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
     check_sm90_ptxas(log.read_text() if log.exists() else "")
+    walk_ctas_per_sm()
     probe_tma_tfloat32(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -10,8 +10,8 @@
 // five products per tile (the walk is flash_bwd_kv.cuh's, with DQ).  dk
 // and dv are per q head (f32 partials); the wrapper sums them over each
 // GQA group.  Which calls reach it (ops/flash_attention.py SM90_RULE):
-// D 16 and 32 at every dtype; the Hopper kernel flash_bwd_sm90.cu takes
-// bf16, fp16 and f32 at D 64, 128 and 256.
+// f32 at D 16 and 32; the Hopper kernel flash_bwd_sm90.cu takes bf16 and
+// fp16 at every D and f32 at D 64, 128 and 256.
 //
 // Bound on the H100: tensor-core operations.  At B2 T2048 H16 D128 causal
 // the five products are 10 * B*H * T(T+1)/2 * D = 86 GFLOP, about 87 us

@@ -1,10 +1,11 @@
 // dk / dv kernel of the two-kernel flash-attention backward for Hopper:
-// bf16, fp16 or f32 (as TF32) in at head dim 64, 128 or 256, f32
-// accumulate, causal or not, GQA, either layout.
+// bf16 or fp16 in at head dim 16, 32, 64, 128 or 256, or f32 (as TF32) at
+// 64, 128 or 256, f32 accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) at D in {64,
-// 128, 256}; the WMMA kernel flash_bwd_dkv.cu keeps D 16/32.  Its
+// _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) at every 16-bit
+// D and at f32 D in {64, 128, 256}; the WMMA kernel flash_bwd_dkv.cu
+// keeps f32 at D 16/32.  Its
 // contract is flash_bwd_dkv's: per (key tile, q head) it accumulates
 //   dk[j] = sum_i dS[i, j]^T Q[i],   dv[j] = sum_i P[i, j]^T dO[i]
 // (four products per tile) and writes them once per q head as f32
@@ -18,8 +19,10 @@
 // fused Hopper kernel's key-tile walk (flash_bwd_sm90.cuh, walk<E, D,
 // DQ>) without the dq product and its reductions: one CTA per (128-key
 // tile, 64-key at D 256; q head), a producer warp streaming the (Q, dO)
-// tiles by TMA through an mbarrier ring, two consumer warpgroups with dK
-// and dV in wgmma accumulators.  Being the same walk, its dk and dv are
+// tiles (128-row at D 16/32, of narrow slabs) by TMA through an mbarrier
+// ring, two consumer warpgroups with dK and dV in wgmma accumulators.
+// At D 16/32 the exponentials (one a score element) set the bound, as
+// in flash_bwd_sm90.cu.  Being the same walk, its dk and dv are
 // bitwise those of flash_bwd_sm90.  Like it, and like the JAX kernel, it
 // forms dS from the f32 P.  f32 runs walk_tf32<D, false>
 // (flash_bwd_dkv_sm90_tf32_kernel; at D 256 on clusters of two CTAs),
@@ -101,6 +104,10 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                int B, int H, int Hk, int T, int D, int bh_layout, float scale,
                int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch<E, 16>(q, k, v, dout, lse, delta, dkp, dvp, B, H,
+                                  Hk, T, bh_layout, scale, causal, s);
+    case 32: return launch<E, 32>(q, k, v, dout, lse, delta, dkp, dvp, B, H,
+                                  Hk, T, bh_layout, scale, causal, s);
     case 64: return launch<E, 64>(q, k, v, dout, lse, delta, dkp, dvp, B, H,
                                   Hk, T, bh_layout, scale, causal, s);
     case 128: return launch<E, 128>(q, k, v, dout, lse, delta, dkp, dvp, B, H,
@@ -111,11 +118,36 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename E>
+int ctas_dim(int D, int* ctas) {
+  switch (D) {
+    case 16: return walk_ctas_per_sm(flash_bwd_dkv_sm90_kernel<E, 16>,
+                                     BwdSmem<16, false>::BYTES, ctas);
+    case 32: return walk_ctas_per_sm(flash_bwd_dkv_sm90_kernel<E, 32>,
+                                     BwdSmem<32, false>::BYTES, ctas);
+    case 64: return walk_ctas_per_sm(flash_bwd_dkv_sm90_kernel<E, 64>,
+                                     BwdSmem<64, false>::BYTES, ctas);
+    case 128: return walk_ctas_per_sm(flash_bwd_dkv_sm90_kernel<E, 128>,
+                                      BwdSmem<128, false>::BYTES, ctas);
+    case 256: return walk_ctas_per_sm(flash_bwd_dkv_sm90_kernel<E, 256>,
+                                      BwdSmem<256, false>::BYTES, ctas);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// As flash_bwd_dkv (flash_bwd_dkv.cu) for f32 (dtype 0), bf16 (dtype 1)
-// and fp16 (dtype 2) at D in {64, 128, 256}; any other dtype or head dim
-// is cudaErrorInvalidValue.  q, k, v, dout
+// CTAs a multiprocessor holds of the bf16 (dtype 1) or fp16 (dtype 2)
+// kernel at D (chip_smoke.py phase 1 records them).
+extern "C" int flash_bwd_dkv_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
+  if (dtype == ptt::BF16) return ctas_dim<__nv_bfloat16>(D, ctas);
+  if (dtype == ptt::F16) return ctas_dim<__half>(D, ctas);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As flash_bwd_dkv (flash_bwd_dkv.cu) for bf16 (dtype 1) and fp16 (dtype
+// 2) at D in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128,
+// 256}; any other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout
 // 16-byte aligned.
 extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                                   const void* v, const void* dout,

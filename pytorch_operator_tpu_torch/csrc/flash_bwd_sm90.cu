@@ -1,23 +1,28 @@
-// Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16,
-// fp16 or f32 (as TF32) in at head dim 64, 128 or 256, f32 accumulate,
-// causal or not, GQA, either layout.
+// Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16
+// or fp16 in at head dim 16, 32, 64, 128 or 256, or f32 (as TF32) at 64,
+// 128 or 256, f32 accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_fused_kernel (pallas_call in _flash_bwd_fused) at D in {64, 128,
-// 256}; the WMMA kernel flash_bwd.cu keeps D 16/32.  Its
+// _bwd_fused_kernel (pallas_call in _flash_bwd_fused) at every 16-bit D
+// and at f32 D in {64, 128, 256}; the WMMA kernel flash_bwd.cu keeps f32
+// at D 16/32.  Its
 // contract is flash_bwd's: dq f32, zeroed by the caller and added to here;
 // dk / dv as per-q-head f32 partials that the wrapper sums over each GQA
 // group.
 //
 // Bound on the H100: tensor-core operations (five products: at B2 T2048
-// H16 D128 causal 86 GFLOP).  Design, FlashAttention-3 style:
+// H16 D128 causal 86 GFLOP); at D 32 and 16 the exponentials, one a
+// score element (at B2 T2048 H64 D32 causal 268.6 M, 0.069 ms at the
+// card's 3.9 T special-function results a second, against 0.087 ms of
+// products; at H128 D16 0.138 ms).  Design, FlashAttention-3 style:
 //  - one CTA per (128-key tile, q head; 64-key at D 256), key tile 0 (the
 //    longest causal walk) first; three warpgroups.  Warp 0 of the last
 //    one is the producer: K and V come in once by TMA, then the 64-row
 //    (Q, dO) tiles and their lse / delta rows stream through a ring of
 //    STAGES slots, each guarded by a "full" and an "empty" mbarrier.
 //    The two consumer warpgroups own 64 keys each (at D 256 all 64 keys
-//    and half of D each, flash_bwd_sm90.cuh) and keep dK and dV in wgmma
+//    and half of D each; at D 16/32 128-row q tiles of narrow slabs,
+//    flash_bwd_sm90.cuh) and keep dK and dV in wgmma
 //    accumulator registers for the whole walk; setmaxnreg moves
 //    registers from the producer to them.
 //  - per q tile each consumer warpgroup runs
@@ -119,6 +124,10 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                float* dvp, int B, int H, int Hk, int T, int D, int bh_layout,
                float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch<E, 16>(q, k, v, dout, lse, delta, dq, dkp, dvp, B,
+                                  H, Hk, T, bh_layout, scale, causal, s);
+    case 32: return launch<E, 32>(q, k, v, dout, lse, delta, dq, dkp, dvp, B,
+                                  H, Hk, T, bh_layout, scale, causal, s);
     case 64: return launch<E, 64>(q, k, v, dout, lse, delta, dq, dkp, dvp, B,
                                   H, Hk, T, bh_layout, scale, causal, s);
     case 128: return launch<E, 128>(q, k, v, dout, lse, delta, dq, dkp, dvp,
@@ -129,11 +138,36 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename E>
+int ctas_dim(int D, int* ctas) {
+  switch (D) {
+    case 16: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 16>,
+                                     BwdSmem<16, true>::BYTES, ctas);
+    case 32: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 32>,
+                                     BwdSmem<32, true>::BYTES, ctas);
+    case 64: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 64>,
+                                     BwdSmem<64, true>::BYTES, ctas);
+    case 128: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 128>,
+                                      BwdSmem<128, true>::BYTES, ctas);
+    case 256: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 256>,
+                                      BwdSmem<256, true>::BYTES, ctas);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// As flash_bwd (flash_bwd.cu) for f32 (dtype 0), bf16 (dtype 1) and fp16
-// (dtype 2) at D in {64, 128, 256}; any other dtype or head dim is
-// cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
+// CTAs a multiprocessor holds of the bf16 (dtype 1) or fp16 (dtype 2)
+// kernel at D (chip_smoke.py phase 1 records them).
+extern "C" int flash_bwd_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
+  if (dtype == ptt::BF16) return ctas_dim<__nv_bfloat16>(D, ctas);
+  if (dtype == ptt::F16) return ctas_dim<__half>(D, ctas);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As flash_bwd (flash_bwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
+// in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128, 256}; any
+// other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
 // dq zeroed by the caller.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,

@@ -24,6 +24,28 @@
 //    its 128 columns of dq_tile as two 64-column products, so that a
 //    thread holds at most dK, dV and 32 (S^T, dP^T) or 32 (dq_tile) f32
 //    beside them; each writes half of dS^T's q columns.
+//  - D 32 and 16 (NARROW): a 16-bit row of Q, dO, K and V is 64 or 32
+//    bytes, one narrow slab each (sm90.cuh: TMA and the descriptors
+//    swizzle at the row's width; the walk writes none of them by hand).
+//    The products are a quarter or an eighth of D 128's per score
+//    element while the exponentials and the per-tile handshakes stay, so
+//    the q tiles are 128 rows (half the tiles, barriers and waits a
+//    score element): BK = 128 keys, warpgroup wg owning keys [64 wg,
+//    64 wg + 64) and all of D as at D 128, S^T and dP^T 64 keys x 128 q
+//    (64 f32 each), dK / dV m64nDk16.  dS^T keeps its 128-byte slabs
+//    (keys as rows, two slabs of 64 q), and dq_tile = dS K is split by q
+//    rows: warpgroup wg forms rows [64 wg, 64 wg + 64) over all D
+//    columns (A = dS^T's slab wg, B = K at N = D: one narrow block, so no
+//    product starts inside one).  A tile's products are committed one
+//    group each, so that P^T's exponentials run while dP^T is formed and
+//    dS^T's elementwise while dV += P^T dO runs (3-9 % faster than
+//    waiting for S^T and dP^T together).  The slot is released as soon
+//    as dK / dV have read it.  Timed in turns on the H100 (PERF.md §6),
+//    this beat 64-row q tiles, and 128-row ones whose warpgroups each
+//    add the part of dq over their own keys (no barrier, twice the
+//    atomics), by 5-18 % in the fused kernel (64-row tiles were 3-4 %
+//    faster in the dk/dv kernel, which runs this same walk); a 4-slot
+//    ring, or dq issued behind dK, gave nothing.
 //
 // f32 (walk_tf32, D 64, 128 and 256) multiplies in TF32, whose wgmma takes
 // both shared-memory operands K-major.  S^T = K Q^T and dP^T = V dO^T
@@ -72,12 +94,17 @@ constexpr int BQ = 64, SLAB = 128;  // rows; bytes per slab row
 constexpr int THREADS = 384, STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Key rows of a CTA's tile (see above).
+// Key rows and q rows of a CTA's tiles (see above).
 template <int D> constexpr int key_tile() { return D == 256 ? 64 : 128; }
+template <int D> constexpr int q_tile() { return D < 64 ? 128 : BQ; }
 
 template <int D, bool DQ> struct BwdSmem {
-  static constexpr int SLABS = D / 64, BK = key_tile<D>();
-  static constexpr int K_SLAB = BK * SLAB, Q_SLAB = BQ * SLAB;
+  // NARROW (D 16 / 32): one slab of 2 D bytes a row (see above)
+  static constexpr bool NARROW = D < 64;
+  static constexpr int RB = NARROW ? 2 * D : SLAB;  // bytes a slab row
+  static constexpr int SLABS = NARROW ? 1 : D / 64, BK = key_tile<D>();
+  static constexpr int BQ = q_tile<D>();
+  static constexpr int K_SLAB = BK * RB, Q_SLAB = BQ * RB;
   static constexpr int K = 0;
   static constexpr int V = K + SLABS * K_SLAB;
   // one ring slot: Q, dO, then lse (times log2 e) and delta, BQ f32 each
@@ -86,11 +113,11 @@ template <int D, bool DQ> struct BwdSmem {
   static constexpr int DELTA_OFF = LSE_OFF + BQ * 4;
   static constexpr int SLOT = (DELTA_OFF + BQ * 4 + 1023) / 1024 * 1024;
   static constexpr int RING = V + SLABS * K_SLAB;
-  // with DQ: dS^T (BK keys, BQ q) in E, one 128-byte-swizzled slab, in
-  // two buffers (a warpgroup may write tile i + 1's while the other still
-  // reads tile i's)
+  // with DQ: dS^T (BK keys, BQ q) in E, BQ / 64 128-byte-swizzled slabs
+  // of 64 q, in two buffers (a warpgroup may write tile i + 1's while the
+  // other still reads tile i's)
   static constexpr int DS = RING + STAGES * SLOT;
-  static constexpr int DS_BUF = BK * SLAB;
+  static constexpr int DS_SLAB = BK * SLAB, DS_BUF = (BQ / 64) * DS_SLAB;
   static constexpr int BAR = DS + (DQ ? 2 : 0) * DS_BUF;
   // kv_full, q_full[STAGES], q_empty[STAGES]; 1024 bytes of slack to
   // align the dynamic shared memory to the swizzle's 1024-byte period
@@ -103,24 +130,29 @@ struct Maps {
   CUtensorMap q, k, v, dout;
 };
 
-// Rows of the walk's q tiles and key tiles over E at head dim D: the
-// f32 walk's (walk_tf32) are 32 q rows and 64 keys at D 128 and 256, 128
-// at D 64.
+// Rows of the walk's q tiles and key tiles over E at head dim D, and the
+// bytes of a slab row: the f32 walk's (walk_tf32) are 32 q rows and 64
+// keys at D 128 and 256, 128 at D 64; a 16-bit D 16 / 32 has narrow slabs.
 template <typename E, int D> struct WalkTiles {
-  static constexpr int BQ = bwd_sm90::BQ, BK = key_tile<D>();
+  static constexpr int BQ = q_tile<D>(), BK = key_tile<D>();
+  static constexpr int RB = BwdSmem<D, false>::RB;
 };
 template <int D> struct WalkTiles<float, D> {
-  static constexpr int BQ = 32, BK = D == 64 ? 128 : 64;
+  static constexpr int BQ = 32, BK = D == 64 ? 128 : 64, RB = SLAB;
 };
 
 template <typename E, int D>
 int make_maps(Maps* m, const void* q, const void* k, const void* v,
               const void* dout, int B, int H, int Hk, int T, int bh_layout) {
-  constexpr int BQ = WalkTiles<E, D>::BQ, BK = WalkTiles<E, D>::BK;
-  int e = make_head_map<E>(&m->q, q, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map<E>(&m->dout, dout, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map<E>(&m->k, k, D, Hk, T, B, bh_layout, BK);
-  if (!e) e = make_head_map<E>(&m->v, v, D, Hk, T, B, bh_layout, BK);
+  using W = WalkTiles<E, D>;
+  int e = make_head_map<E>(&m->q, q, D, H, T, B, bh_layout, W::BQ, W::RB);
+  if (!e)
+    e = make_head_map<E>(&m->dout, dout, D, H, T, B, bh_layout, W::BQ,
+                         W::RB);
+  if (!e)
+    e = make_head_map<E>(&m->k, k, D, Hk, T, B, bh_layout, W::BK, W::RB);
+  if (!e)
+    e = make_head_map<E>(&m->v, v, D, Hk, T, B, bh_layout, W::BK, W::RB);
   return e;
 }
 
@@ -135,7 +167,8 @@ int make_maps(Maps* m, const void* q, const void* k, const void* v,
 // from them, dS^T from the f32 P^T as the TPU kernel forms ds from the
 // f32 p; dV / dK complete before dq_tile is issued.  At D 128 the peak
 // is 128 + 64 f32 (dK, dV, S^T, dP^T) and the E pairs that replace them;
-// at D 256 128 + 32 (S^T and dP^T in two passes of 32 q columns).
+// at D 256 128 + 32 (S^T and dP^T in two passes of 32 q columns); at D
+// 32 32 + 128 (S^T and dP^T over 128 q).
 template <typename E, int D, bool DQ>
 __device__ __forceinline__ void walk(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
@@ -144,7 +177,8 @@ __device__ __forceinline__ void walk(
     float* __restrict__ dkp, float* __restrict__ dvp, int H, int Hk, int T,
     int bh_layout, float scale, int causal) {
   using S = BwdSmem<D, DQ>;
-  constexpr int SLABS = S::SLABS, BK = S::BK;
+  constexpr int SLABS = S::SLABS, BK = S::BK, BQ = S::BQ, RB = S::RB;
+  constexpr uint32_t HI = desc_hi(RB);  // DESC_HI but NARROW
   // D 256 splits D between the consumers, the others the keys
   constexpr bool SPLIT = D == 256;
   constexpr int DW = SPLIT ? D / 2 : D;  // dK / dV columns a warpgroup
@@ -233,10 +267,10 @@ __device__ __forceinline__ void walk(
 #pragma unroll
   for (int i = 0; i < DW / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  const uint32_t k_addr = smem_u32(smem + S::K) + kw * SLAB;
-  const uint32_t v_addr = smem_u32(smem + S::V) + kw * SLAB;
-  // this warpgroup's half of D of K, for dq = dS K: half of the one
-  // slab's row at D = 64, a slab at D = 128, two slabs at D = 256
+  const uint32_t k_addr = smem_u32(smem + S::K) + kw * RB;
+  const uint32_t v_addr = smem_u32(smem + S::V) + kw * RB;
+  // this warpgroup's half of D of K, for dq = dS K (not NARROW): half of
+  // the one slab's row at D = 64, a slab at D = 128, two slabs at D = 256
   const uint32_t kh_addr =
       smem_u32(smem + S::K) +
       (SLABS == 1 ? wg * 64 : (SLABS / 2) * wg * S::K_SLAB);
@@ -254,47 +288,34 @@ __device__ __forceinline__ void walk(
     const float* delta_s =
         reinterpret_cast<const float*>(slot + S::DELTA_OFF);
     const bool mask = (causal && q0 < k0 + BK) || q0 + BQ > T || k0 + BK > T;
-
-    // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, 64 q), issued back
-    // to back; then P^T = exp2(S^T scale log2 e - lse log2 e) and
-    // dS^T = P^T (dP^T - delta) scale from the f32 P^T, each rounded to
-    // E pairs: the A fragments of dV += P^T dO and dK += dS^T Q
-    // At D 256 in two passes of 32 q columns (m64n32k16), so that S^T and
-    // dP^T beside dK and dV take 32 registers, not 64: over all 64 q
-    // columns ptxas spilled there
-    constexpr int QP = SPLIT ? 2 : 1, QW = BQ / QP;  // passes; q a pass
-    uint32_t pa[BQ / 4], da[BQ / 4];
-#pragma unroll
-    for (int qp = 0; qp < QP; ++qp) {
-      float st[QW / 2], dpt[QW / 2];
-      const uint32_t q_rows = qp * QW * SLAB;  // rows qp QW.. of Q and dO
+    if constexpr (S::NARROW) {
+      // S^T = K_wg Q^T, then dP^T = V_wg dO^T (64 keys, BQ q), each its
+      // own group: P^T = exp2(S^T scale log2 e - lse log2 e) is formed
+      // while dP^T is in flight and dV += P^T dO issued at once; dS^T =
+      // P^T (dP^T - delta) scale (from the f32 P^T) while dV runs; then
+      // dK += dS^T Q.  dO and Q are MN-major narrow slabs
+      float st[BQ / 2], dpt[BQ / 2];
+      uint32_t pa[BQ / 4], da[BQ / 4];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
-        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-        mma_ss<E, 0, 0>(st, desc_k(k_addr + koff),
-                        desc_k(q_addr + q_rows + qoff), kk > 0);
-      }
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
-        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-        mma_ss<E, 0, 0>(dpt, desc_k(v_addr + koff),
-                        desc_k(do_addr + q_rows + qoff), kk > 0);
-      }
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<E, 0, 0, HI>(st, desc_k(k_addr + 32 * kk),
+                            desc_k(q_addr + 32 * kk), kk > 0);
       wgmma_commit();
-      wgmma_wait<0>();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        mma_ss<E, 0, 0, HI>(dpt, desc_k(v_addr + 32 * kk),
+                            desc_k(do_addr + 32 * kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
       fence_regs(st);
-      fence_regs(dpt);
       const float sl2 = scale * LOG2E;
 #pragma unroll
-      for (int t = 0; t < QW / 4; ++t) {
+      for (int t = 0; t < BQ / 4; ++t) {
         const int e = 2 * t;  // columns c and c + 1 of one key row
         const int key = key_a + 8 * ((e / 2) % 2);
-        const int c = qp * QW + 8 * (e / 4) + col;
+        const int c = 8 * (e / 4) + col;
         const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
-        const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
         float p0 = ex2(fmaf(st[e], sl2, -ls.x));
         float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
         if (mask) {
@@ -303,86 +324,215 @@ __device__ __forceinline__ void walk(
           if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
           if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
         }
-        pa[qp * QW / 4 + t] = pack<E>(p0, p1);
-        da[qp * QW / 4 + t] = pack<E>(p0 * (dpt[e] - dl.x) * scale,
-                                      p1 * (dpt[e + 1] - dl.y) * scale);
+        st[e] = p0;
+        st[e + 1] = p1;
+        pa[t] = pack<E>(p0, p1);
       }
-    }
-    unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;
-    if constexpr (DQ) {
-      // dS^T into shared memory for dq_tile = dS K below (at D 256 both
-      // warpgroups hold all of it: each writes q columns [32 wg, 32 wg
-      // + 32))
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs<E, 1, HI>(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                         pa[4 * kk + 3],
+                         desc(do_addr + kk * 16 * RB, S::Q_SLAB), 1);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dpt);
 #pragma unroll
       for (int t = 0; t < BQ / 4; ++t) {
-        if (SPLIT && t / (BQ / 8) != wg) continue;
-        const int e = 2 * t;
-        const int r = kw + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
-        *reinterpret_cast<uint32_t*>(
-            ds_buf + swizzle_128b(r, 8 * (e / 4) + col)) = da[t];
+        const int e = 2 * t, c = 8 * (e / 4) + col;
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+        da[t] = pack<E>(st[e] * (dpt[e] - dl.x) * scale,
+                        st[e + 1] * (dpt[e + 1] - dl.y) * scale);
       }
-      fence_proxy_async();
-    }
+      unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;
+      if constexpr (DQ) {
+        // dS^T into shared memory for dq_tile = dS K below: q column c
+        // in slab c / 64
+#pragma unroll
+        for (int t = 0; t < BQ / 4; ++t) {
+          const int e = 2 * t, c8 = 8 * (e / 4);
+          const int r = kw + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+          *reinterpret_cast<uint32_t*>(ds_buf + (c8 / 64) * S::DS_SLAB +
+                                       swizzle_128b(r, c8 % 64 + col)) =
+              da[t];
+        }
+        fence_proxy_async();
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs<E, 1, HI>(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                         da[4 * kk + 3],
+                         desc(q_addr + kk * 16 * RB, S::Q_SLAB), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      // Q, dO, lse and delta were read last here
+      if (tid == 0) mbar_arrive(&q_empty[s]);
 
-    // dV += P^T dO and dK += dS^T Q: dO and Q (64 q, this warpgroup's DW
-    // columns) MN-major
-    const uint32_t cw_off = (cw / 64) * S::Q_SLAB;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<E, 1>(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                   pa[4 * kk + 3],
-                   desc(do_addr + cw_off + kk * 16 * SLAB, S::Q_SLAB), 1);
-#pragma unroll
-    for (int kk = 0; kk < BQ / 16; ++kk)
-      mma_rs<E, 1>(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-                   da[4 * kk + 3],
-                   desc(q_addr + cw_off + kk * 16 * SLAB, S::Q_SLAB), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-
-    if constexpr (DQ) {
-      // both warpgroups' halves of dS^T are in place
-      named_barrier(1, 256);
-      // this warpgroup's half of D of dq_tile = dS K: A = dS (64 q, BK
-      // keys) read from dS^T (MN-major), B = K (BK keys, D / 2) MN-major;
-      // at D 256 in two products of 64 columns, one after the other, so
-      // that dK, dV and the product's accumulator stay in 240 registers
-      // (one 128-column product beside them spilled)
-      constexpr int PARTS = D == 256 ? 2 : 1, DQW = D / 2 / PARTS;
-      const uint32_t ds_addr = smem_u32(ds_buf);
-#pragma unroll
-      for (int part = 0; part < PARTS; ++part) {
-        float dqa[DQW / 2];
+      if constexpr (DQ) {
+        // both warpgroups' halves of dS^T are in place; this warpgroup's
+        // 64 q rows of dq_tile = dS K over all D: A = dS (64 q, BK keys)
+        // read from dS^T's slab wg (MN-major), B = K (BK keys, D)
+        // MN-major
+        named_barrier(1, 256);
+        const uint32_t ds_addr = smem_u32(ds_buf) + wg * S::DS_SLAB;
+        const uint32_t kq_addr = smem_u32(smem + S::K);
+        float dqa[D / 2];
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BK / 16; ++kk)
-          mma_ss<E, 1, 1>(
-              dqa, desc(ds_addr + kk * 16 * SLAB, S::DS_BUF),
-              desc(kh_addr + part * S::K_SLAB + kk * 16 * SLAB, S::K_SLAB),
-              kk > 0);
+          mma_ss<E, 1, 1, DESC_HI, HI>(
+              dqa, desc(ds_addr + kk * 16 * SLAB, S::DS_SLAB),
+              desc(kq_addr + kk * 16 * RB, S::K_SLAB), kk > 0);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(dqa);
-        if (part == 0 && tid == 0) mbar_arrive(&q_empty[s]);
-
         // added to dq by vector f32 reductions (red.global.add.v2.f32)
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
-          const int q = q0 + 16 * warp + lane / 4 + 8 * r;
+          const int q = q0 + 64 * wg + 16 * warp + lane / 4 + 8 * r;
           if (q >= T) continue;
-          float* dst = dq + q_base + (int64_t)q * q_rs + (D / 2) * wg +
-                       DQW * part + col;
+          float* dst = dq + q_base + (int64_t)q * q_rs + col;
 #pragma unroll
-          for (int c = 0; c < DQW / 8; ++c)
+          for (int c = 0; c < D / 8; ++c)
             atomicAdd(reinterpret_cast<float2*>(dst + 8 * c),
-                      make_float2(dqa[4 * c + 2 * r], dqa[4 * c + 2 * r + 1]));
+                      make_float2(dqa[4 * c + 2 * r],
+                                  dqa[4 * c + 2 * r + 1]));
         }
       }
     } else {
-      if (tid == 0) mbar_arrive(&q_empty[s]);
+      // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, 64 q), issued back
+      // to back; then P^T = exp2(S^T scale log2 e - lse log2 e) and
+      // dS^T = P^T (dP^T - delta) scale from the f32 P^T, each rounded to
+      // E pairs: the A fragments of dV += P^T dO and dK += dS^T Q
+      // At D 256 in two passes of 32 q columns (m64n32k16), so that S^T and
+      // dP^T beside dK and dV take 32 registers, not 64: over all 64 q
+      // columns ptxas spilled there
+      constexpr int QP = SPLIT ? 2 : 1, QW = BQ / QP;  // passes; q a pass
+      uint32_t pa[BQ / 4], da[BQ / 4];
+#pragma unroll
+      for (int qp = 0; qp < QP; ++qp) {
+        float st[QW / 2], dpt[QW / 2];
+        const uint32_t q_rows = qp * QW * SLAB;  // rows qp QW.. of Q and dO
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
+          const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          mma_ss<E, 0, 0>(st, desc_k(k_addr + koff),
+                          desc_k(q_addr + q_rows + qoff), kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
+          const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          mma_ss<E, 0, 0>(dpt, desc_k(v_addr + koff),
+                          desc_k(do_addr + q_rows + qoff), kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        const float sl2 = scale * LOG2E;
+#pragma unroll
+        for (int t = 0; t < QW / 4; ++t) {
+          const int e = 2 * t;  // columns c and c + 1 of one key row
+          const int key = key_a + 8 * ((e / 2) % 2);
+          const int c = qp * QW + 8 * (e / 4) + col;
+          const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+          const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+          float p0 = ex2(fmaf(st[e], sl2, -ls.x));
+          float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
+          if (mask) {
+            const int q = q0 + c;
+            const bool kin = key < T;
+            if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
+            if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
+          }
+          pa[qp * QW / 4 + t] = pack<E>(p0, p1);
+          da[qp * QW / 4 + t] = pack<E>(p0 * (dpt[e] - dl.x) * scale,
+                                        p1 * (dpt[e + 1] - dl.y) * scale);
+        }
+      }
+      unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;
+      if constexpr (DQ) {
+        // dS^T into shared memory for dq_tile = dS K below (at D 256 both
+        // warpgroups hold all of it: each writes q columns [32 wg, 32 wg
+        // + 32))
+#pragma unroll
+        for (int t = 0; t < BQ / 4; ++t) {
+          if (SPLIT && t / (BQ / 8) != wg) continue;
+          const int e = 2 * t;
+          const int r = kw + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+          *reinterpret_cast<uint32_t*>(
+              ds_buf + swizzle_128b(r, 8 * (e / 4) + col)) = da[t];
+        }
+        fence_proxy_async();
+      }
+
+      // dV += P^T dO and dK += dS^T Q: dO and Q (64 q, this warpgroup's DW
+      // columns) MN-major
+      const uint32_t cw_off = (cw / 64) * S::Q_SLAB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs<E, 1>(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                     pa[4 * kk + 3],
+                     desc(do_addr + cw_off + kk * 16 * SLAB, S::Q_SLAB), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        mma_rs<E, 1>(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                     da[4 * kk + 3],
+                     desc(q_addr + cw_off + kk * 16 * SLAB, S::Q_SLAB), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+
+      if constexpr (DQ) {
+        // both warpgroups' halves of dS^T are in place
+        named_barrier(1, 256);
+        // this warpgroup's half of D of dq_tile = dS K: A = dS (64 q, BK
+        // keys) read from dS^T (MN-major), B = K (BK keys, D / 2) MN-major;
+        // at D 256 in two products of 64 columns, one after the other, so
+        // that dK, dV and the product's accumulator stay in 240 registers
+        // (one 128-column product beside them spilled)
+        constexpr int PARTS = D == 256 ? 2 : 1, DQW = D / 2 / PARTS;
+        const uint32_t ds_addr = smem_u32(ds_buf);
+#pragma unroll
+        for (int part = 0; part < PARTS; ++part) {
+          float dqa[DQW / 2];
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)
+            mma_ss<E, 1, 1>(
+                dqa, desc(ds_addr + kk * 16 * SLAB, S::DS_BUF),
+                desc(kh_addr + part * S::K_SLAB + kk * 16 * SLAB, S::K_SLAB),
+                kk > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dqa);
+          if (part == 0 && tid == 0) mbar_arrive(&q_empty[s]);
+
+          // added to dq by vector f32 reductions (red.global.add.v2.f32)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int q = q0 + 16 * warp + lane / 4 + 8 * r;
+            if (q >= T) continue;
+            float* dst = dq + q_base + (int64_t)q * q_rs + (D / 2) * wg +
+                         DQW * part + col;
+#pragma unroll
+            for (int c = 0; c < DQW / 8; ++c)
+              atomicAdd(reinterpret_cast<float2*>(dst + 8 * c),
+                        make_float2(dqa[4 * c + 2 * r],
+                                    dqa[4 * c + 2 * r + 1]));
+          }
+        }
+      } else {
+        if (tid == 0) mbar_arrive(&q_empty[s]);
+      }
     }
   }
 
@@ -400,6 +550,16 @@ __device__ __forceinline__ void walk(
           make_float2(dv[4 * c + 2 * r], dv[4 * c + 2 * r + 1]);
     }
   }
+}
+
+// CTAs of a walk kernel (THREADS threads, `bytes` of dynamic shared
+// memory) one multiprocessor holds, by the occupancy API.
+template <typename Kernel>
+int walk_ctas_per_sm(Kernel kernel, int bytes, int* ctas) {
+  const int e = ptt::allow_smem(kernel, bytes);
+  if (e) return e;
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, kernel, THREADS, bytes));
 }
 
 // ---------------------------------------------------------------------------

@@ -20,6 +20,15 @@
 // groups 1024 bytes apart), and the register-to-shared stores write it by
 // hand (swizzle_128b, swizzle_128b_f32, transpose_tf32).  A (rows, D) tile
 // with D = 128 is two such slabs of bf16, four of f32.
+//
+// A 16-bit tile at D 32 or 16 has 64- or 32-byte rows: one narrow slab,
+// swizzled at its row width.  In each mode the hardware XORs address bits
+// [4, 4 + b) with bits [7, 7 + b), b = 3, 2, 1 for 128-, 64- and 32-byte
+// rows: chunk c of row r sits at chunk c ^ (r % 8), c ^ ((r / 2) % 4) or
+// c ^ ((r / 4) % 2).  TMA writes it (make_map's row_bytes: SWIZZLE_64B /
+// 32B, a box of D columns), the descriptors read it (desc_hi: layout type
+// 2 / 3, 8-row groups 512 / 256 bytes apart), and a tile is aligned to
+// that period.  No store writes a narrow slab by hand.
 #pragma once
 
 #include <cuda.h>
@@ -274,10 +283,21 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
 // are 1024 bytes apart (SBO) and 64-wide blocks of M/N are `lbo` bytes
 // apart; one k16 step moves `addr` by 2048 bytes.  Only the low word
 // (start address >> 4, LBO >> 4) varies; the high word (SBO >> 4, layout
-// type 1 = 128-byte swizzle) is DESC_HI for every operand here.  The
+// type 1 = 128-byte swizzle) is DESC_HI for every 128-byte operand.  The
 // wrappers below pack the two inside their asm, so a descriptor waiting
-// for its wgmma holds one register, not two.
-constexpr uint32_t DESC_HI = (1024 >> 4) | (1u << 30);
+// for its wgmma holds one register, not two; they take each operand's
+// high word as a template argument (HA, HB), DESC_HI unless given.
+//
+// A narrow slab (rows of 64 or 32 bytes, see the header) has the high
+// word desc_hi(row_bytes): SBO 8 rows (512 or 256 bytes), layout type 2
+// (64-byte swizzle) or 3 (32-byte).  K-major, a k16 step moves `addr` by
+// 32 bytes inside the row; MN-major, an M/N block is 32 or 16 wide and a
+// k16 step moves `addr` by 16 rows.
+__host__ __device__ constexpr uint32_t desc_hi(int row_bytes) {
+  return ((8 * row_bytes) >> 4) |
+         (uint32_t(row_bytes == 128 ? 1 : row_bytes == 64 ? 2 : 3) << 30);
+}
+constexpr uint32_t DESC_HI = desc_hi(128);
 struct Desc {
   uint32_t lo;
 };
@@ -519,13 +539,38 @@ __device__ __forceinline__ void mma_rs_tf32(float (&d)[64], uint32_t a0,
 // E pairs: a0..a3 = columns 16 kk + {0..15} of a 64 x N accumulator
 // are the pairs of d[8 kk .. 8 kk + 7].  TA / TB: 0 K-major, 1 MN-major.
 
+// d (64 x 16, f32) (+)= A (64 x 16) B (16 x 16), A and B from shared memory
+// (descriptors a, b).
+#define PTT_MMA_SS_N16(TY)                                              \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
+      "setp.ne.b32 p, %11, 0;\n"                                        \
+      "mov.b64 da, {%8, %10};\nmov.b64 db, {%9, %14};\n"                \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32" TY " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "                               \
+      "da, db, p, 1, 1, %12, %13;\n}\n"                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                   \
+      : "r"(a.lo), "r"(b.lo), "r"(HA), "r"(accumulate), "n"(TA),        \
+        "n"(TB), "r"(HB))
+template <typename E, int TA, int TB, uint32_t HA = DESC_HI,
+          uint32_t HB = HA>
+__device__ __forceinline__ void mma_ss(float (&d)[8], Desc a, Desc b,
+                                       int accumulate) {
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_SS_N16(".f16.f16");
+  else
+    PTT_MMA_SS_N16(".bf16.bf16");
+}
+#undef PTT_MMA_SS_N16
+
 // d (64 x 32, f32) (+)= A (64 x 16) B (16 x 32), A and B from shared memory
 // (descriptors a, b).
 #define PTT_MMA_SS_N32(TY)                                              \
   asm volatile(                                                         \
       "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
       "setp.ne.b32 p, %19, 0;\n"                                        \
-      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %18};\n"              \
+      "mov.b64 da, {%16, %18};\nmov.b64 db, {%17, %22};\n"              \
       "wgmma.mma_async.sync.aligned.m64n32k16.f32" TY " {"              \
       "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
       "%8, %9, %10, %11, %12, %13, %14, %15}, "                         \
@@ -534,9 +579,10 @@ __device__ __forceinline__ void mma_rs_tf32(float (&d)[64], uint32_t a0,
        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])               \
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),   \
-        "n"(TB))
-template <typename E, int TA, int TB>
+      : "r"(a.lo), "r"(b.lo), "r"(HA), "r"(accumulate), "n"(TA),        \
+        "n"(TB), "r"(HB))
+template <typename E, int TA, int TB, uint32_t HA = DESC_HI,
+          uint32_t HB = HA>
 __device__ __forceinline__ void mma_ss(float (&d)[16], Desc a, Desc b,
                                        int accumulate) {
   if constexpr (std::is_same_v<E, __half>)
@@ -552,7 +598,7 @@ __device__ __forceinline__ void mma_ss(float (&d)[16], Desc a, Desc b,
   asm volatile(                                                         \
       "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
       "setp.ne.b32 p, %35, 0;\n"                                        \
-      "mov.b64 da, {%32, %34};\nmov.b64 db, {%33, %34};\n"              \
+      "mov.b64 da, {%32, %34};\nmov.b64 db, {%33, %38};\n"              \
       "wgmma.mma_async.sync.aligned.m64n64k16.f32" TY " {"              \
       "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
       "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
@@ -567,9 +613,10 @@ __device__ __forceinline__ void mma_ss(float (&d)[16], Desc a, Desc b,
        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),   \
-        "n"(TB))
-template <typename E, int TA, int TB>
+      : "r"(a.lo), "r"(b.lo), "r"(HA), "r"(accumulate), "n"(TA),        \
+        "n"(TB), "r"(HB))
+template <typename E, int TA, int TB, uint32_t HA = DESC_HI,
+          uint32_t HB = HA>
 __device__ __forceinline__ void mma_ss(float (&d)[32], Desc a, Desc b,
                                        int accumulate) {
   if constexpr (std::is_same_v<E, __half>)
@@ -578,6 +625,59 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], Desc a, Desc b,
     PTT_MMA_SS_N64(".bf16.bf16");
 }
 #undef PTT_MMA_SS_N64
+
+// d (64 x 16, f32) (+)= A (64 x 16, E pairs in registers) B (16 x 16,
+// shared memory, descriptor b).
+#define PTT_MMA_RS_N16(TY)                                              \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 db;\n"                               \
+      "setp.ne.b32 p, %14, 0;\n"                                        \
+      "mov.b64 db, {%12, %13};\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32" TY " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "                               \
+      "{%8, %9, %10, %11}, db, p, 1, 1, %15;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                   \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(HB),         \
+        "r"(accumulate), "n"(TB))
+template <typename E, int TB, uint32_t HB = DESC_HI>
+__device__ __forceinline__ void mma_rs(float (&d)[8], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       Desc b, int accumulate) {
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_RS_N16(".f16.f16");
+  else
+    PTT_MMA_RS_N16(".bf16.bf16");
+}
+#undef PTT_MMA_RS_N16
+
+// d (64 x 32, f32) (+)= A (64 x 16, E pairs in registers) B (16 x 32,
+// shared memory, descriptor b).
+#define PTT_MMA_RS_N32(TY)                                              \
+  asm volatile(                                                         \
+      "{\n.reg .pred p;\n.reg .b64 db;\n"                               \
+      "setp.ne.b32 p, %22, 0;\n"                                        \
+      "mov.b64 db, {%20, %21};\n"                                       \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32" TY " {"              \
+      "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "                         \
+      "{%16, %17, %18, %19}, db, p, 1, 1, %23;\n}\n"                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),                 \
+       "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),                  \
+       "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),                \
+       "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])               \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(HB),         \
+        "r"(accumulate), "n"(TB))
+template <typename E, int TB, uint32_t HB = DESC_HI>
+__device__ __forceinline__ void mma_rs(float (&d)[16], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       Desc b, int accumulate) {
+  if constexpr (std::is_same_v<E, __half>)
+    PTT_MMA_RS_N32(".f16.f16");
+  else
+    PTT_MMA_RS_N32(".bf16.bf16");
+}
+#undef PTT_MMA_RS_N32
 
 // d (64 x 64, f32) (+)= A (64 x 16, E pairs in registers) B (16 x 64,
 // shared memory, descriptor b).
@@ -600,9 +700,9 @@ __device__ __forceinline__ void mma_ss(float (&d)[32], Desc a, Desc b,
        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),              \
        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),              \
        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])               \
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),    \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(HB),         \
         "r"(accumulate), "n"(TB))
-template <typename E, int TB>
+template <typename E, int TB, uint32_t HB = DESC_HI>
 __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        Desc b, int accumulate) {
@@ -619,7 +719,7 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
   asm volatile(                                                         \
       "{\n.reg .pred p;\n.reg .b64 da, db;\n"                           \
       "setp.ne.b32 p, %67, 0;\n"                                        \
-      "mov.b64 da, {%64, %66};\nmov.b64 db, {%65, %66};\n"              \
+      "mov.b64 da, {%64, %66};\nmov.b64 db, {%65, %70};\n"              \
       "wgmma.mma_async.sync.aligned.m64n128k16.f32" TY " {"             \
       "%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
       "%8, %9, %10, %11, %12, %13, %14, %15,"                           \
@@ -646,9 +746,10 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),              \
        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate), "n"(TA),   \
-        "n"(TB))
-template <typename E, int TA, int TB>
+      : "r"(a.lo), "r"(b.lo), "r"(HA), "r"(accumulate), "n"(TA),        \
+        "n"(TB), "r"(HB))
+template <typename E, int TA, int TB, uint32_t HA = DESC_HI,
+          uint32_t HB = HA>
 __device__ __forceinline__ void mma_ss(float (&d)[64], Desc a, Desc b,
                                        int accumulate) {
   if constexpr (std::is_same_v<E, __half>)
@@ -691,9 +792,9 @@ __device__ __forceinline__ void mma_ss(float (&d)[64], Desc a, Desc b,
        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),              \
        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),              \
        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),    \
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(HB),         \
         "r"(accumulate), "n"(TB))
-template <typename E, int TB>
+template <typename E, int TB, uint32_t HB = DESC_HI>
 __device__ __forceinline__ void mma_rs(float (&d)[64], uint32_t a0,
                                        uint32_t a1, uint32_t a2, uint32_t a3,
                                        Desc b, int accumulate) {
@@ -808,24 +909,29 @@ inline EncodeTiled encode_tiled() {
 }
 
 // The tensor of E at `base` as a 4-D map (D, Hx, T, Bx), innermost first,
-// read in boxes of (128 bytes of columns, 1, rows, 1), 128-byte swizzled:
-// 64 columns of bf16 / fp16, 32 of f32.  The port's two layouts: (B, T,
-// Hx, D) is (D, Hx, T, B); (B*Hx, T, D) is (D, 1, T, B*Hx).  Rows at or
+// read in boxes of (row_bytes of columns, 1, rows, 1), swizzled at
+// row_bytes: 128 (64 columns of bf16 / fp16, 32 of f32), or a narrow
+// slab's 64 or 32 (a 16-bit D of 32 or 16, the header).  The port's two
+// layouts: (B, T, Hx, D) is (D, Hx, T, B); (B*Hx, T, D) is (D, 1, T,
+// B*Hx).  Rows at or
 // past T read as zeros, so the host pads nothing.  f32 is mapped as
 // TFLOAT32, whose loads round each value to TF32 (to nearest, ties away:
 // cvt.rna's rounding, which chip_smoke.py phase 1 checks on the card);
 // wgmma would otherwise drop the low 13 mantissa bits of what it reads.
 template <typename E>
 int make_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
-             int Bx, int rows) {
+             int Bx, int rows, int row_bytes = 128) {
   EncodeTiled encode = encode_tiled();
   if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  if (row_bytes != 128 && row_bytes != 64 && row_bytes != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   constexpr cuuint64_t ES = sizeof(E);
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)Hx, (cuuint64_t)T,
                               (cuuint64_t)Bx};
   const cuuint64_t strides[3] = {(cuuint64_t)D * ES, (cuuint64_t)Hx * D * ES,
                                  (cuuint64_t)T * Hx * D * ES};
-  const cuuint32_t box[4] = {(cuuint32_t)(128 / ES), 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)(row_bytes / ES), 1,
+                             (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   constexpr CUtensorMapDataType type =
       std::is_same_v<E, float>    ? CU_TENSOR_MAP_DATA_TYPE_TFLOAT32
@@ -834,7 +940,9 @@ int make_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
   CUresult r = encode(map, type, 4,
                       const_cast<void*>(base), dims, strides, box, unit,
                       CU_TENSOR_MAP_INTERLEAVE_NONE,
-                      CU_TENSOR_MAP_SWIZZLE_128B,
+                      row_bytes == 128  ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                        : CU_TENSOR_MAP_SWIZZLE_32B,
                       CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
@@ -844,9 +952,10 @@ int make_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
 // (bh_layout 0: (B, T, Hx, D); 1: (B*Hx, T, D)).
 template <typename E>
 int make_head_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
-                  int B, int bh_layout, int rows) {
-  return bh_layout ? make_map<E>(map, base, D, 1, T, B * Hx, rows)
-                   : make_map<E>(map, base, D, Hx, T, B, rows);
+                  int B, int bh_layout, int rows, int row_bytes = 128) {
+  return bh_layout
+             ? make_map<E>(map, base, D, 1, T, B * Hx, rows, row_bytes)
+             : make_map<E>(map, base, D, Hx, T, B, rows, row_bytes);
 }
 
 // Map coordinates (c1, c3) of head h of batch b in either layout.

@@ -116,9 +116,11 @@ def _launches():
 
 def _hopper(kernel, dtype, D):
     """The stated route at head dim ``D`` (padded to the kernels' next):
-    B1-B4 run Hopper at 64/128/256 for bf16, fp16 and f32; D 16/32 runs
-    WMMA."""
+    B1-B4 run Hopper at 64/128/256 for bf16, fp16 and f32, and B2 and B4
+    (the walk) at 16-bit D 16/32 too; the rest of D 16/32 runs WMMA."""
     D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
+    if kernel in ("bwd", "dkv") and dtype != torch.float32:
+        return D in (16, 32, 64, 128, 256)
     return D in (64, 128, 256)
 
 
@@ -237,12 +239,13 @@ def test_flash_batch_heads_past_the_grid_y_limit(cuda, monkeypatch, route,
             assert err <= TOL[dtype] * y.abs().max().item() + 1e-3, err
 
 
-def test_sm90_dkv_forms_ds_from_f32_p(cuda):
+@pytest.mark.parametrize("D", [32, 128])
+def test_sm90_dkv_forms_ds_from_f32_p(cuda, D):
     """The Hopper B4 forms dS from the f32 P, as the WMMA B4 does: against
     the f32 plain version its dk error is no larger than the WMMA B4's
-    on the same inputs (bf16, T2048, GQA 16 / 4), beyond summation
-    order."""
-    args = _bwd_args(cuda, 1, 2048, 16, 4, 128, torch.bfloat16)
+    on the same inputs (bf16, T2048, GQA 16 / 4; at D 32 the walk's
+    narrow slabs), beyond summation order."""
+    args = _bwd_args(cuda, 1, 2048, 16, 4, D, torch.bfloat16)
     ref = fa._flash_bwd_dkv_reference(*(x.float() if torch.is_tensor(x)
                                         and x.dtype == torch.bfloat16
                                         else x for x in args))
@@ -334,12 +337,14 @@ def test_sm90_dq_matches_plain(cuda, dtype, D, T, causal, bh):
 @pytest.mark.parametrize("bh", [False, True])
 @pytest.mark.parametrize("T", [1, 129, 1000, 2048])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_sm90_kernels_match_plain(cuda, D, causal, T, bh):
     """flash_fwd_sm90 and flash_bwd_sm90 (bf16, GQA H16 / Hk4) against
     autograd through the f32 plain forward, at T = 1, ragged T (not a
     multiple of the 64- and 128-row tiles) and T2048, in both layouts,
-    with exactly one launch of each and none of the WMMA kernels."""
+    with exactly one launch of each and none of the WMMA kernels (at D
+    16/32 flash_bwd_sm90's narrow-slab walk, and one launch of the WMMA
+    forward in place of flash_fwd_sm90)."""
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)
     assert launched == _want(torch.bfloat16, D, two=False)
@@ -351,12 +356,14 @@ def test_sm90_kernels_match_plain(cuda, D, causal, T, bh):
 @pytest.mark.parametrize("bh", [False, True])
 @pytest.mark.parametrize("T", [1, 129, 1000, 2048])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
 def test_sm90_two_kernel_match_plain(cuda, monkeypatch, D, causal, T, bh):
     """flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 (bf16, GQA H16 / Hk4, the
     two-kernel route forced) against autograd through the f32 plain
     forward, at T = 1, ragged T and T2048, in both layouts, with exactly
-    one launch of each and none of the WMMA kernels."""
+    one launch of each and none of the WMMA kernels (at D 16/32
+    flash_bwd_dkv_sm90's narrow-slab walk, and one launch each of the
+    WMMA forward and dq kernel in place of the Hopper ones)."""
     monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)

@@ -2,7 +2,9 @@
 dtypes and head dims the Hopper kernels take beyond bf16 at D 64/128:
 fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64, 128 and 256
 (the TF32 kernels; at D 256 the fused, dq and dk / dv kernels on
-clusters of two CTAs).
+clusters of two CTAs), and bf16 at D 32 and fp16 at D 16 (the fused and
+dk / dv kernels' narrow-slab walk; the forward and dq kernel there are
+WMMA).
 
 On the CPU the port runs its kernels' plain versions (the forward, the
 fused backward, and the dq and dk / dv kernels on the two-kernel route),
@@ -53,7 +55,8 @@ REL, ABS = 1e-2, 1e-3
 
 # (dtype, D): the Hopper instantiations this parity covers
 INSTANCES = [("fp16", 64), ("fp16", 128), ("bf16", 256), ("fp16", 256),
-             ("f32", 64), ("f32", 128), ("f32", 256)]
+             ("f32", 64), ("f32", 128), ("f32", 256), ("bf16", 32),
+             ("fp16", 16)]
 # (B, T, H, Hk, causal): one ragged T, causal and not, GQA
 SHAPES = [(1, 128, 2, 2, False), (1, 200, 4, 2, True),
           (1, 384, 2, 1, True)]

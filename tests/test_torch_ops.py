@@ -224,16 +224,21 @@ class TestTwoKernelRoute:
 
 
 def hopper_by_the_rule(kernel, dtype, D):
-    """The stated route, written out: the forward, the fused backward, the
-    dq and the dk / dv kernel run their Hopper versions for bf16, fp16
-    and f32 at kernel head dim 64, 128 or 256; D 16/32 runs WMMA."""
+    """The stated route, written out: the fused backward and the dk / dv
+    kernel (the Hopper walk) run their Hopper versions for bf16 and fp16
+    at kernel head dim 16, 32, 64, 128 or 256 and for f32 at 64, 128 or
+    256; the forward and the dq kernel for bf16, fp16 and f32 at 64, 128
+    or 256; everything else (D 16/32) runs WMMA."""
+    if kernel in ("bwd", "dkv") and dtype != torch.float32:
+        return D in (16, 32, 64, 128, 256)
     return D in (64, 128, 256)
 
 
 class TestHopperDispatch:
     """Which version of each flash kernel a CUDA call launches, by the
     per-kernel, per-dtype rule (``_sm90``): the Hopper ones at D
-    64/128/256 for every dtype, the WMMA ones at D 16/32."""
+    64/128/256 for every dtype, and the fused and dk / dv kernels at
+    16-bit D 16/32 too; the WMMA ones elsewhere."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
@@ -242,6 +247,21 @@ class TestHopperDispatch:
         for kernel in ("fwd", "bwd", "dq", "dkv"):
             want = hopper_by_the_rule(kernel, dtype, D)
             assert fa._sm90(kernel, dtype, D) is want, kernel
+
+    def test_tiny_llama_backward_is_hopper(self):
+        """At the head dim of ``llama.tiny()`` (16) in bf16, the fused
+        backward and the dk / dv kernel take the Hopper walk, the forward
+        and the dq kernel the WMMA versions; in f32 all four WMMA."""
+        from pytorch_operator_tpu_torch.models import llama
+
+        cfg = llama.tiny(dtype=torch.bfloat16)
+        D = fa._kernel_dim(cfg.head_dim)
+        assert D == 16
+        assert {k: fa._sm90(k, torch.bfloat16, D)
+                for k in ("fwd", "bwd", "dq", "dkv")} == {
+            "fwd": False, "bwd": True, "dq": False, "dkv": True}
+        assert not any(fa._sm90(k, torch.float32, D)
+                       for k in ("fwd", "bwd", "dq", "dkv"))
 
     @pytest.mark.parametrize("D", [64, 128])
     def test_cpu_tensors_take_the_plain_versions(self, monkeypatch, D):
@@ -286,8 +306,8 @@ class TestHopperDispatch:
 class TestTwoKernelDispatch:
     """Which kernel each wrapper launches (the forward, the fused backward,
     the dq and the dk / dv kernel): its Hopper version where the
-    per-kernel rule takes it (every dtype at D 64/128/256), else (D
-    16/32) its WMMA version."""
+    per-kernel rule takes it (every dtype at D 64/128/256, the fused and
+    dk / dv kernels at 16-bit D 16/32 too), else its WMMA version."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
