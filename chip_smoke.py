@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             nvcc build of every kernel from pytorch_operator_tpu_torch/
             csrc (timed, with ptxas' register and spill counts by kernel
             and instantiation; any spill byte in a _sm90 kernel fails;
-            the CTAs per multiprocessor of the 16-bit walk, B2 and B4,
-            by the occupancy API),
+            the CTAs per multiprocessor of every 16-bit Hopper kernel,
+            B1-B4, by the occupancy API),
             and what a TMA load of f32 gives back through a FLOAT32 and
             a TFLOAT32 tensor map (copied, rounded or truncated);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
@@ -24,16 +24,17 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             at a ragged T, the bh layout), f32 on the Hopper TF32
             kernels (D 64 with GQA at a ragged T and in the bh layout,
             D 128 at the main shape, D 256 with the backward on
-            clusters of two CTAs), the Hopper B2 on narrow slabs at bf16
-            and fp16 D 16/32 (GQA at a ragged T, T = 1 and 129, non-causal
-            in the bh layout) and B*H = 65,536), the two-kernel
-            route (dq, then dk/dv) at T4096 and on the same variety with
-            the route forced (the Hopper B3 at fp16, D 256 and f32 D
-            64/128/256, at f32 D 256 B3 and B4 on clusters, the Hopper
-            B4 at bf16 and fp16 D 16/32); the
+            clusters of two CTAs), the Hopper B1 and B2 on narrow slabs
+            at bf16 and fp16 D 16/32 (GQA at a ragged T, T = 1 and 129,
+            both layouts, causal and not) and B*H = 65,536), the
+            two-kernel route (dq, then dk/dv) at T4096 and on the same
+            variety with the route forced (the Hopper B3 at fp16, D 256
+            and f32 D 64/128/256, at f32 D 256 B3 and B4 on clusters, the
+            Hopper B3 and B4 at bf16 and fp16 D 16/32); the
             Hopper B4's dk/dv bit for bit B2's and the Hopper B3's dq
-            bit for bit over two runs at every bf16, fp16 and f32
-            instantiation; the WMMA forward and fused backward,
+            bit for bit over two runs, and within bounds of B2's, at
+            every bf16, fp16 and f32 instantiation; the WMMA forward and
+            fused backward,
             which bf16, fp16 and f32 no longer reach, at the main path's
             shape in bf16 and f32; at the long path's full
             shape B1 and the Hopper and WMMA B3 and B4 against their
@@ -55,16 +56,17 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             B2, each in turns with the WMMA kernel it replaced), bf16 at
             D 96 (padded), and B3 + B4 on the two-kernel route at each of
             those but D 96 (the Hopper B3 in turns with the WMMA one),
-            bf16 and fp16 at D 32 (H64) and D 16 (H128), B2 and B4 on
-            the Hopper walk in turns with their WMMA kernels and B1 and
-            B3 on WMMA, and f32 there, B1-B4 on WMMA; the bounds count
+            bf16 and fp16 at D 32 (H64) and D 16 (H128), B1-B4 on
+            narrow slabs in turns with their WMMA kernels, and f32
+            there, B1-B4 on WMMA; the bounds count
             the tensor products and one exponential a score element
             (PEAK_EXP); the forward beside SDPA and the backward
             beside aten's flash backward (bf16, fp16) or SDPA's
             memory-efficient backward (f32, which aten's refuses); B1
             and B2 at the MoE's and the pipeline's length, B1 x T4096
             with 32 q heads over 8 kv heads, D128, beside SDPA and
-            aten's backward on k and v expanded to 32 heads;
+            aten's backward on k and v expanded to 32 heads, and at the
+            --pp microbatch, B1 x T4096 H32 (no GQA), D128;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -78,9 +80,10 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             it: the backward takes the two-kernel route; then two steps
             of train_llama at that shape with --remat-policy auto;
 7. tiers    the tiny model in bf16 through the kernels at every ported
-            remat tier: grads against no remat and the flash forward's
-            launches per step (L under save_attn*, 2L under full remat),
-            and L of the fused backward's Hopper walk (head dim 16);
+            remat tier: grads against no remat and the Hopper flash
+            forward's launches per step (L under save_attn*, 2L under
+            full remat), and L of the fused backward's Hopper walk (head
+            dim 16, both on narrow slabs, no WMMA launch);
 8. sharded  the T2048 path of phase 4 through the sharded code path at
             world size 1 over NCCL: make_mesh(1, 1, 1), sharded_init
             (at one rank the plain model: no FSDP2, no DTensor),
@@ -349,9 +352,9 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 # The Hopper kernels' instantiations: B1, B2, B3 and B4 at bf16, fp16
-# and f32 (TF32) at D 64/128/256 (9 each), and B2 and B4 at bf16 and fp16
-# at D 16/32 (the narrow-slab walk, 4 each)
-SM90_INSTANTIATIONS = 44
+# and f32 (TF32) at D 64/128/256 (9 each), and at bf16 and fp16 at D
+# 16/32 (on narrow slabs, 4 each)
+SM90_INSTANTIATIONS = 52
 
 
 def check_sm90_ptxas(log: str) -> dict:
@@ -373,10 +376,11 @@ def check_sm90_ptxas(log: str) -> dict:
     return sm90
 
 
-def walk_ctas_per_sm() -> dict:
+def sm90_ctas_per_sm() -> dict:
     """CTAs per multiprocessor of every 16-bit instantiation of the Hopper
-    walk (B2 and B4), by the occupancy API (the C entries
-    ``flash_bwd_sm90_ctas_per_sm`` and ``flash_bwd_dkv_sm90_ctas_per_sm``:
+    kernels (B1-B4), by the occupancy API (the C entries
+    ``flash_fwd_sm90_ctas_per_sm``, ``flash_bwd_sm90_ctas_per_sm``,
+    ``flash_bwd_dq_sm90_ctas_per_sm`` and ``flash_bwd_dkv_sm90_ctas_per_sm``:
     THREADS threads and the kernel's shared memory).  Fails on one that
     fits no multiprocessor."""
     import ctypes
@@ -385,7 +389,8 @@ def walk_ctas_per_sm() -> dict:
 
     lib = kernels.load()
     res = {}
-    for kernel in ("flash_bwd_sm90", "flash_bwd_dkv_sm90"):
+    for kernel in ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
+                   "flash_bwd_dkv_sm90"):
         fn = getattr(lib, kernel + "_ctas_per_sm")
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
@@ -398,10 +403,10 @@ def walk_ctas_per_sm() -> dict:
                                  f"returned CUDA error {rc}")
                 res[f"{kernel}<{dtype}, {D}>"] = ctas.value
     ok = all(v >= 1 for v in res.values())
-    emit({"check": "walk_ctas_per_sm", "ctas": res,
+    emit({"check": "sm90_ctas_per_sm", "ctas": res,
           "tolerance": "every instantiation fits a multiprocessor",
           "ok": ok})
-    require(ok, f"a walk instantiation fits no multiprocessor: {res}")
+    require(ok, f"a Hopper instantiation fits no multiprocessor: {res}")
     return res
 
 
@@ -629,15 +634,18 @@ FLASH_CASES = {
     "d64_gqa_ragged": (2, 333, 8, 2, 64, True, False, BF16),
     "d64_non_causal_bh": (1, 1000, 16, 4, 64, False, True, BF16),
     "d16_gqa": (2, 333, 8, 4, 16, True, False, BF16),
-    # the Hopper walk (B2) on narrow slabs at 16-bit D 16/32, beside the
-    # WMMA B1: GQA at a ragged T, fp16, T = 1, T = 129 (one 128-row q tile
-    # and a row), non-causal in the bh layout
+    # the Hopper B1 and B2 on narrow slabs at 16-bit D 16/32: GQA at a
+    # ragged T, fp16, T = 1, T = 129 (one 128-row q tile and a row), both
+    # layouts, causal and not
     "d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, BF16),
     "fp16_d16_gqa_ragged": (2, 333, 8, 4, 16, True, False, F16),
     "fp16_d32_gqa": (2, 1000, 16, 4, 32, True, False, F16),
     "d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, BF16),
     "d32_t1_gqa": (2, 1, 16, 4, 32, True, False, BF16),
     "d32_t129": (2, 129, 8, 8, 32, True, False, BF16),
+    "d16_gqa_bh": (1, 500, 8, 2, 16, True, True, BF16),
+    "fp16_d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, F16),
+    "fp16_d16_non_causal": (2, 333, 8, 8, 16, False, False, F16),
     "f32": (2, 1000, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
@@ -682,14 +690,17 @@ TWO_KERNEL_CASES = {
     "d64_non_causal_bh": (1, 1000, 16, 4, 64, False, True, BF16),
     "d32": (2, 500, 8, 8, 32, True, False, BF16),
     "d16_gqa": (2, 500, 8, 4, 16, True, False, BF16),
-    # the Hopper B4 on narrow slabs at 16-bit D 16/32 (beside the WMMA B1
-    # and B3), as in FLASH_CASES
+    # the Hopper B1, B3 and B4 on narrow slabs at 16-bit D 16/32, as in
+    # FLASH_CASES
     "d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, BF16),
     "fp16_d16_gqa_ragged": (2, 333, 8, 4, 16, True, False, F16),
     "fp16_d32_gqa": (2, 1000, 16, 4, 32, True, False, F16),
     "d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, BF16),
     "d32_t1_gqa": (2, 1, 16, 4, 32, True, False, BF16),
     "d32_t129": (2, 129, 8, 8, 32, True, False, BF16),
+    "d16_gqa_bh": (1, 500, 8, 2, 16, True, True, BF16),
+    "fp16_d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, F16),
+    "fp16_d16_non_causal": (2, 333, 8, 8, 16, False, False, F16),
     "f32": (1, 2048, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
@@ -757,9 +768,9 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
     WMMA version by the route (ops/flash_attention.py _sm90: B1-B4 Hopper
-    for bf16, fp16 and f32 at D 64/128/256, and B2 and B4 for bf16 and
-    fp16 at D 16/32 too; WMMA elsewhere); the fused backward, or B3 + B4
-    on the two-kernel route."""
+    for bf16 and fp16 at every D and for f32 at D 64/128/256; WMMA for
+    f32 at D 16/32); the fused backward, or B3 + B4 on the two-kernel
+    route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -907,35 +918,47 @@ def check_dkv_bitwise(torch, gen) -> dict:
 
 
 # Every instantiation of the Hopper B3 (dtype, D)
-SM90_DQS = ((BF16, 64), (BF16, 128), (BF16, 256), (F16, 64), (F16, 128),
-            (F16, 256), (F32, 64), (F32, 128), (F32, 256))
+SM90_DQS = ((BF16, 16), (BF16, 32), (BF16, 64), (BF16, 128), (BF16, 256),
+            (F16, 16), (F16, 32), (F16, 64), (F16, 128), (F16, 256),
+            (F32, 64), (F32, 128), (F32, 256))
 
 
 def check_dq_bitwise(torch, gen) -> dict:
     """The Hopper B3 sums each dq element in one thread and writes it
     once: at every instantiation two runs on the same inputs give the
     same bits (GQA H16 / Hk4, ragged T1000, causal in the (B, T, H, D)
-    layout and not in the bh one)."""
+    layout and not in the bh one).  Beside that its dq against the
+    Hopper B2's on the same inputs, within the flash_bwd checks' bounds
+    (B3 rounds dq to the input type; B2 sums it in f32 atomics)."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         BWD_DQ_SM90_KERNEL,
+        BWD_SM90_KERNEL,
+        _flash_bwd_cuda,
         _flash_bwd_dq_cuda,
     )
 
-    res = {}
+    res, vs_fused = {}, {}
     for dtype, D in SM90_DQS:
         for causal, bh in ((True, False), (False, True)):
             args = _bwd_args(torch, gen, 1, 1000, 16, D, dtype=dtype, Hk=4,
                              causal=causal, bh=bh)
             first = _flash_bwd_dq_cuda(*args, kernel=BWD_DQ_SM90_KERNEL)
             second = _flash_bwd_dq_cuda(*args, kernel=BWD_DQ_SM90_KERNEL)
+            fused = _flash_bwd_cuda(*args, kernel=BWD_SM90_KERNEL)[0]
             torch.cuda.synchronize()
-            res[f"{dtype}_d{D}_{'causal' if causal else 'bh'}"] = bool(
-                torch.equal(first, second))
-            del args, first, second
-    ok = all(res.values())
+            case = f"{dtype}_d{D}_{'causal' if causal else 'bh'}"
+            res[case] = bool(torch.equal(first, second))
+            errs, close = _grad_errs(first, fused)
+            vs_fused[case] = {**errs, "ok": close}
+            del args, first, second, fused
+    ok = all(res.values()) and all(e["ok"] for e in vs_fused.values())
     emit({"check": "sm90_dq_bitwise_stable", "cases": res,
-          "tolerance": "B3's dq bit for bit equal over two runs", "ok": ok})
-    require(ok, f"the Hopper B3's dq differs between two runs: {res}")
+          "vs_fused": vs_fused,
+          "tolerance": "B3's dq bit for bit equal over two runs; against "
+                       "B2's, max|err| <= 1e-2 * max|ref| and rel <= 1e-2",
+          "ok": ok})
+    require(ok, f"the Hopper B3's dq differs between two runs or from "
+                f"B2's: {res}, {vs_fused}")
     return res
 
 
@@ -1375,14 +1398,19 @@ def time_long_kernels(torch, gen) -> dict:
 # the MoE's and the pipeline's attention length, at Mixtral's heads (32 q
 # heads over 8 kv heads, D128): B1 and B2, the fused backward's route
 GQA_T4096 = dict(B=1, T=4096, H=32, Hk=8, D=128)
+# the pipeline's microbatch (train_llama --pp 4 at the 7B width: B8 in 8
+# microbatches of B1 x T4096, 32 heads, no GQA): B1 and B2
+PIPE_T4096 = dict(B=1, T=4096, H=32, Hk=32, D=128)
 
 
-def time_gqa_kernels(torch, gen) -> dict:
-    """Phase 3's GQA_T4096 row: B1 and B2 (causal, bf16), each beside its
-    plain version, its bound (q, dO and dq at 32 heads, k, v, dk and dv at
-    8; lse and delta) and the library call on the same inputs with k and
-    v expanded to the 32 q heads (SDPA's forward; aten's flash backward,
-    whose dk and dv come per q head, as B2's f32 partials do)."""
+def time_gqa_kernels(torch, gen, shape=GQA_T4096, label="gqa_t4096"
+                     ) -> dict:
+    """Phase 3's GQA_T4096 (or PIPE_T4096) row: B1 and B2 (causal, bf16)
+    at ``shape``, each beside its plain version, its bound (q, dO and dq
+    at H heads, k, v, dk and dv at Hk; lse and delta) and the library
+    call on the same inputs with k and v expanded to the H q heads
+    (SDPA's forward; aten's flash backward, whose dk and dv come per q
+    head, as B2's f32 partials do)."""
     import torch.nn.functional as F
 
     from pytorch_operator_tpu_torch.ops.flash_attention import (
@@ -1392,7 +1420,7 @@ def time_gqa_kernels(torch, gen) -> dict:
         _flash_fwd_reference,
     )
 
-    B, T, H, Hk, D = (GQA_T4096[x] for x in ("B", "T", "H", "Hk", "D"))
+    B, T, H, Hk, D = (shape[x] for x in ("B", "T", "H", "Hk", "D"))
     q, k, v, g = _flash_inputs(torch, gen, B, T, H, Hk, D, False)
     scale = D ** -0.5
     pairs = B * H * causal_pairs(T, True)
@@ -1414,7 +1442,7 @@ def time_gqa_kernels(torch, gen) -> dict:
                 aten_flash_bwd(torch, q, ke, ve, g, scale), plain_kw=slow)
     res = {"shape": [B, T, H, Hk, D],
            "fwd": {**fwd, "library": "scaled_dot_product_attention, k and "
-                                     "v expanded to 32 heads",
+                                     f"v expanded to {H} heads",
                    **dict(zip(("bound_ms", "bound_by"),
                               bound(2 * ioq + 2 * iok + rows,
                                     4 * D * pairs, exps=pairs)))},
@@ -1423,7 +1451,7 @@ def time_gqa_kernels(torch, gen) -> dict:
                    **dict(zip(("bound_ms", "bound_by"),
                               bound(3 * ioq + 4 * iok + 2 * rows,
                                     10 * D * pairs, exps=pairs)))}}
-    emit({"timing": "gqa_t4096", **res})
+    emit({"timing": label, **res})
     return res
 
 
@@ -1459,9 +1487,9 @@ def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
 # D 64, 128 and 256 (the Hopper TF32 kernels, each beside its WMMA
 # predecessor; the backward at D 256 on clusters of two CTAs), bf16 at D
 # 96, zero-padded to the Hopper kernels' 128, bf16 and fp16 at D 32 and
-# 16 (the Hopper B2 and B4 on narrow slabs, each beside its WMMA
-# predecessor; B1 and B3 there WMMA) and f32 at D 32 and 16 (the WMMA
-# kernels), heads such that H D = 2048 (1536 at D 96): (dtype, D, heads)
+# 16 (the Hopper B1-B4 on narrow slabs, each beside its WMMA
+# predecessor) and f32 at D 32 and 16 (the WMMA kernels), heads such
+# that H D = 2048 (1536 at D 96): (dtype, D, heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
@@ -1471,9 +1499,9 @@ C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "f32_d32": (F32, 32, 64), "f32_d16": (F32, 16, 128)}
 # the cases whose two-kernel route (B3 then B4) phase 3 also times: the
 # Hopper B3 and B4 at fp16 D 128 and 256, bf16 D 256 and f32 D 64, 128
-# and 256 (each beside the WMMA kernel it replaced; at f32 D 256 both on
-# clusters of two CTAs), at 16-bit D 32 and 16 the WMMA B3 and the Hopper
-# B4 (beside the WMMA one), and the WMMA B3 and B4 at f32 D 32 and 16
+# and 256 and 16-bit D 32 and 16 (each beside the WMMA kernel it
+# replaced; at f32 D 256 both on clusters of two CTAs), and the WMMA B3
+# and B4 at f32 D 32 and 16
 C3_TWO_KERNEL = ("fp16_d256", "bf16_d256", "fp16_d128", "f32_d256",
                  "f32_d128", "f32_d64", "bf16_d32", "bf16_d16", "fp16_d32",
                  "fp16_d16", "f32_d32", "f32_d16")
@@ -2074,9 +2102,9 @@ REMAT_TIERS = (None, "save_attn", "save_attn+qkv", "save_attn+gateup",
 
 def check_remat_tiers(torch) -> dict:
     """The tiny model (bf16, head dim 16, GQA 8:4) through the kernels at
-    every ported remat_policy: grads against no remat, and the forward
-    kernels' and the fused backward's (the Hopper walk on narrow slabs)
-    launches in one forward + backward."""
+    every ported remat_policy: grads against no remat, and the Hopper
+    forward's and fused backward's (both on narrow slabs) launches in one
+    forward + backward, none of the WMMA ones."""
     import numpy as np
 
     from pytorch_operator_tpu_torch import kernels
@@ -2102,16 +2130,17 @@ def check_remat_tiers(torch) -> dict:
 
     ref, ref_counts = grads(base)
     res = {"no_remat": {k: ref_counts[k] for k in (
-        "flash_fwd", "flash_bwd_sm90", "flash_bwd", "rms_norm_fwd")}}
+        "flash_fwd_sm90", "flash_fwd", "flash_bwd_sm90", "flash_bwd",
+        "rms_norm_fwd")}}
     for policy in REMAT_TIERS:
         got, counts = grads(dataclasses.replace(base, remat=True,
                                                 remat_policy=policy))
         err = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
                   for a, b in zip(got, ref))
         save_attn = (policy or "").startswith("save_attn")
-        # head dim 16 in bf16: the WMMA forward, the Hopper walk (B2)
-        want = {"flash_fwd": L if save_attn else 2 * L,
-                "flash_bwd_sm90": L, "flash_bwd": 0,
+        # head dim 16 in bf16: the Hopper forward and walk (B1, B2)
+        want = {"flash_fwd_sm90": L if save_attn else 2 * L,
+                "flash_fwd": 0, "flash_bwd_sm90": L, "flash_bwd": 0,
                 "rms_norm_fwd": 2 * L + 1 + (
                     0 if "normed" in (policy or "") else 2 * L)}
         launched = {k: counts[k] for k in want}
@@ -4508,7 +4537,7 @@ def run() -> tuple[str, list[dict]]:
              or ln.startswith("==")]
     emit({"build_s": build_s, "library": so.name, "ptxas": ptxas})
     check_sm90_ptxas(log.read_text() if log.exists() else "")
-    walk_ctas_per_sm()
+    sm90_ctas_per_sm()
     probe_tma_tfloat32(torch)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4535,6 +4564,7 @@ def run() -> tuple[str, list[dict]]:
     timing.update(time_long_kernels(torch, gen))
     c3 = time_c3_kernels(torch, gen)
     gqa = time_gqa_kernels(torch, gen)
+    pipe = time_gqa_kernels(torch, gen, PIPE_T4096, "pipe_t4096")
     seconds["timing"] = time.perf_counter() - t
     t = time.perf_counter()
     paths["main_path"] = run_main_path(torch)
@@ -4609,7 +4639,7 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("D 16/32 only; timed beside its Hopper "
+            row["path"] = ("f32 D 16/32 only; timed beside its Hopper "
                            "successor at its shape as the yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
@@ -4618,10 +4648,11 @@ def run() -> tuple[str, list[dict]]:
         if row_c3:
             row["c3"] = row_c3
         if short in ("flash_fwd_sm90", "flash_bwd_sm90"):
-            part = gqa[short.split("_")[1]]
-            row["gqa_t4096"] = {"shape": gqa["shape"], **{
-                k: part[k] for k in ("ms", "plain_ms", "library_ms",
-                                     "bound_ms", "bound_by")}}
+            for key, r in (("gqa_t4096", gqa), ("pipe_t4096", pipe)):
+                part = r[short.split("_")[1]]
+                row[key] = {"shape": r["shape"], **{
+                    k: part[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}}
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (

@@ -30,10 +30,10 @@
 // as TF32 m16n16k8).  Rows at or past T read as zero and their p is
 // forced to 0; dq rows past T are never written.  Head dims 16, 32, 64,
 // 128 and 256 (f32 at D 256 on 32-row tiles, see ptt::tile_rows).  The
-// route (ops/flash_attention.py SM90_RULE) sends only D 16/32 here; at
-// D 64/128/256 every dtype runs flash_bwd_dq_sm90.cu, and these
-// instantiations (f32 at D 256 among them) stay as the yardstick it is
-// timed against (the wrappers' kernel=).
+// route (ops/flash_attention.py SM90_RULE) sends only f32 at D 16/32
+// here; bf16 and fp16 at every D and f32 at D 64/128/256 run
+// flash_bwd_dq_sm90.cu, and these instantiations stay as the yardstick it
+// is timed against (the wrappers' kernel=).
 #include "common.cuh"
 
 using namespace nvcuda;

@@ -1,10 +1,12 @@
-// dq kernel of the two-kernel flash-attention backward for Hopper: bf16,
-// fp16 or f32 (as TF32) in at head dim 64, 128 or 256, f32 accumulate, dq
-// in the inputs' type, causal or not, GQA, either layout.
+// dq kernel of the two-kernel flash-attention backward for Hopper: bf16
+// or fp16 in at head dim 16, 32, 64, 128 or 256, or f32 (as TF32) at 64,
+// 128 or 256, f32 accumulate, dq in the inputs' type, causal or not, GQA,
+// either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dq_kernel (the first pallas_call of _flash_bwd) at D in {64, 128,
-// 256} for every dtype; the WMMA kernel flash_bwd_dq.cu keeps D 16/32.
+// _bwd_dq_kernel (the first pallas_call of _flash_bwd) for bf16 and fp16
+// at every D and for f32 at D in {64, 128, 256}; the WMMA kernel
+// flash_bwd_dq.cu keeps f32 at D 16/32.
 // Per (q tile, q head) it recomputes, for each key tile up to the
 // diagonal,
 //   S = Q K^T,  P = exp(S scale - lse),  dP = dO V^T,
@@ -41,6 +43,18 @@
 //    a thread, within the 240 registers setmaxnreg gives.  It is written
 //    once in E, rows at or past T skipped; TMA zero-fills the tiles past
 //    T, so the host pads nothing.
+//  - D 32 and 16 (DqSmem::NARROW): each tile is one slab of 64- or
+//    32-byte rows (sm90.cuh: swizzled at that width by TMA and the
+//    descriptors).  S and dP come from the narrow K-major slabs (a k16
+//    step 32 bytes along the row), each its own commit group, so that
+//    P's exponentials (one a score element, which sets the bound) run
+//    while dP is formed; dq += dS K reads K MN-major at N = D, one narrow
+//    block.  At D 16 two CTAs a multiprocessor (80 registers a thread at
+//    launch, 104 for the consumers by setmaxnreg): 11 % faster in turns
+//    on the H100 (PERF.md §6).  At D 32 that spilled (140 bytes), and on
+//    32-key tiles it did not but was 2 % slower than one CTA; 128-key
+//    tiles were 1-2 % slower than 64, and leaving the dq product running
+//    into the next tile gave nothing at D 32 and lost 3 % at D 16.
 //  - D 256 (DqSmem::SPLIT): a 128-row Q and dO would take 128 KB and dq
 //    over 256 columns 128 f32 a thread beside S and dP.  So 64-row q tiles:
 //    both consumer warpgroups form all of S and dP for those 64 rows
@@ -117,14 +131,17 @@ __device__ __forceinline__ void get_partial(float (&a)[16],
 // The 16-bit kernel's tiles by head dim (see the header): 128 q rows, 64
 // a consumer warpgroup, and four stages of 64 keys; at D 256 (SPLIT) 64
 // q rows for both warpgroups, each owning DW = 128 columns of dq, and two
-// stages.
+// stages; at D 16 / 32 (NARROW) the same tiles, each one slab of 2
+// D-byte rows, and at D 16 SM_CTAS = 2 blocks a multiprocessor.
 template <int D> struct DqSmem {
-  static constexpr bool SPLIT = D == 256;
+  static constexpr bool SPLIT = D == 256, NARROW = D < 64;
+  static constexpr int SM_CTAS = D == 16 ? 2 : 1;
   static constexpr int BQ = SPLIT ? 64 : 128, BK = 64;
   static constexpr int STAGES = SPLIT ? 2 : 4;
   static constexpr int DW = SPLIT ? D / 2 : D;  // dq columns a warpgroup
-  static constexpr int SLABS = D / 64;
-  static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
+  static constexpr int RB = NARROW ? 2 * D : SLAB;  // bytes a slab row
+  static constexpr int SLABS = NARROW ? 1 : D / 64;
+  static constexpr int Q_SLAB = BQ * RB, KV_SLAB = BK * RB;
   static constexpr int KV_TILE = SLABS * KV_SLAB;
   static constexpr int Q = 0;
   static constexpr int DO = Q + SLABS * Q_SLAB;
@@ -138,7 +155,7 @@ template <int D> struct DqSmem {
 };
 
 template <typename E, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, DqSmem<D>::SM_CTAS)
 flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                          const __grid_constant__ CUtensorMap mk,
                          const __grid_constant__ CUtensorMap mv,
@@ -208,8 +225,13 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   }
 
   // ---- consumers: warpgroup wg owns q rows [q0w, q0w + 64) and dq's
-  // columns [cw, cw + DW) (SPLIT: both the same rows, half of D each)
-  setmaxnreg_inc<240>();
+  // columns [cw, cw + DW) (SPLIT: both the same rows, half of D each;
+  // two CTAs a multiprocessor: 80 registers a thread at launch, 128 x 24
+  // + 256 x 104 of them)
+  if constexpr (S::SM_CTAS == 2)
+    setmaxnreg_inc<104>();
+  else
+    setmaxnreg_inc<240>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int rw = SPLIT ? 0 : 64 * wg, cw = SPLIT ? DW * wg : 0;
   const int q0w = q0 + rw;
@@ -245,58 +267,110 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap mq,
       const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
       const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
 
-      // S = Q_wg K^T and dP = dO_wg V^T: (64 q, 64 keys) f32 each
-      float st[BK / 2], dp[BK / 2];
-      wgmma_fence();
+      if constexpr (S::NARROW) {
+        // S and dP from narrow K-major slabs (a k16 step 32 bytes along
+        // the row), each its own group: P's exponentials run while dP is
+        // formed; dq += dS K with K MN-major at N = D, one narrow block
+        constexpr uint32_t HI = desc_hi(S::RB);
+        const uint32_t qn_addr = smem_u32(smem + S::Q) + rw * S::RB;
+        const uint32_t don_addr = smem_u32(smem + S::DO) + rw * S::RB;
+        float st[BK / 2], dp[BK / 2];
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-        mma_ss<E, 0, 0>(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
-                        kk > 0);
-      }
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<E, 0, 0, HI>(st, desc_k(qn_addr + 32 * kk),
+                              desc_k(k_addr + 32 * kk), kk > 0);
+        wgmma_commit();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-        mma_ss<E, 0, 0>(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
-                        kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(st);
-      fence_regs(dp);
-
-      // dS = P (dP - delta) scale with P in f32, masked past T and, on
-      // the diagonal tiles, after the row; E pairs: the A fragments
-      const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
-      uint32_t da[BK / 4];
+        for (int kk = 0; kk < D / 16; ++kk)
+          mma_ss<E, 0, 0, HI>(dp, desc_k(don_addr + 32 * kk),
+                              desc_k(v_addr + 32 * kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+        // P in f32, masked past T and, on the diagonal tile, after the row
+        const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
 #pragma unroll
-      for (int t = 0; t < BK / 4; ++t) {
-        const int e = 2 * t, r = t % 2;  // columns c and c + 1 of row r
-        const int key = k0 + 8 * (t / 2) + col;
-        float p0 = ex2(fmaf(st[e], sl2, -lse2[r]));
-        float p1 = ex2(fmaf(st[e + 1], sl2, -lse2[r]));
-        if (mask) {
-          const int row = row_a + 8 * r;
-          if (key >= T || (causal && key > row)) p0 = 0.f;
-          if (key + 1 >= T || (causal && key + 1 > row)) p1 = 0.f;
+        for (int e = 0; e < BK / 2; ++e) {
+          const int r = (e / 2) % 2;
+          const int key = k0 + 8 * (e / 4) + col + (e % 2);
+          float p = ex2(fmaf(st[e], sl2, -lse2[r]));
+          if (mask && (key >= T || (causal && key > row_a + 8 * r))) p = 0.f;
+          st[e] = p;
         }
-        da[t] = pack<E>(p0 * (dp[e] - dl[r]) * scale,
-                        p1 * (dp[e + 1] - dl[r]) * scale);
-      }
-
-      // dq += dS K: K (64 keys, this warpgroup's DW columns) MN-major
-      const uint32_t kc_addr = k_addr + (cw / 64) * S::KV_SLAB;
-      wgmma_fence();
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - delta) scale, as E pairs: the A fragments
+        uint32_t da[BK / 4];
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        mma_rs<E, 1>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-                     da[4 * kk + 3],
-                     desc(kc_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_regs(acc);
+        for (int t = 0; t < BK / 4; ++t) {
+          const int e = 2 * t, r = t % 2;
+          da[t] = pack<E>(st[e] * (dp[e] - dl[r]) * scale,
+                          st[e + 1] * (dp[e + 1] - dl[r]) * scale);
+        }
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          mma_rs<E, 1, HI>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                           da[4 * kk + 3],
+                           desc(k_addr + kk * 16 * S::RB, S::KV_SLAB), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      } else {
+        // S = Q_wg K^T and dP = dO_wg V^T: (64 q, 64 keys) f32 each
+        float st[BK / 2], dp[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+          mma_ss<E, 0, 0>(st, desc_k(q_addr + qoff), desc_k(k_addr + koff),
+                          kk > 0);
+        }
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+          const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+          mma_ss<E, 0, 0>(dp, desc_k(do_addr + qoff), desc_k(v_addr + koff),
+                          kk > 0);
+        }
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dp);
+
+        // dS = P (dP - delta) scale with P in f32, masked past T and, on
+        // the diagonal tiles, after the row; E pairs: the A fragments
+        const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
+        uint32_t da[BK / 4];
+#pragma unroll
+        for (int t = 0; t < BK / 4; ++t) {
+          const int e = 2 * t, r = t % 2;  // columns c and c + 1 of row r
+          const int key = k0 + 8 * (t / 2) + col;
+          float p0 = ex2(fmaf(st[e], sl2, -lse2[r]));
+          float p1 = ex2(fmaf(st[e + 1], sl2, -lse2[r]));
+          if (mask) {
+            const int row = row_a + 8 * r;
+            if (key >= T || (causal && key > row)) p0 = 0.f;
+            if (key + 1 >= T || (causal && key + 1 > row)) p1 = 0.f;
+          }
+          da[t] = pack<E>(p0 * (dp[e] - dl[r]) * scale,
+                          p1 * (dp[e + 1] - dl[r]) * scale);
+        }
+
+        // dq += dS K: K (64 keys, this warpgroup's DW columns) MN-major
+        const uint32_t kc_addr = k_addr + (cw / 64) * S::KV_SLAB;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          mma_rs<E, 1>(acc, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                       da[4 * kk + 3],
+                       desc(kc_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      }
     }
     if (tid == 0) mbar_arrive(&kv_empty[s]);
   }
@@ -323,10 +397,11 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
            cudaStream_t stream) {
   using S = DqSmem<D>;
   CUtensorMap mq, mk, mv, mdo;
-  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, S::BQ);
-  if (!e) e = make_head_map<E>(&mdo, dout, D, H, T, B, bh_layout, S::BQ);
-  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, S::BK);
-  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
+  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, S::BQ, S::RB);
+  if (!e)
+    e = make_head_map<E>(&mdo, dout, D, H, T, B, bh_layout, S::BQ, S::RB);
+  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, S::BK, S::RB);
+  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, S::BK, S::RB);
   if (e) return e;
   const int bytes = S::BYTES, tiles = (T + S::BQ - 1) / S::BQ;
   if (!ptt::grid_fits(tiles, B * H))
@@ -699,6 +774,10 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
                int Hk, int T, int D, int bh_layout, float scale, int causal,
                cudaStream_t s) {
   switch (D) {
+    case 16: return launch<E, 16>(q, k, v, dout, lse, delta, dq, B, H, Hk,
+                                  T, bh_layout, scale, causal, s);
+    case 32: return launch<E, 32>(q, k, v, dout, lse, delta, dq, B, H, Hk,
+                                  T, bh_layout, scale, causal, s);
     case 64: return launch<E, 64>(q, k, v, dout, lse, delta, dq, B, H, Hk,
                                   T, bh_layout, scale, causal, s);
     case 128: return launch<E, 128>(q, k, v, dout, lse, delta, dq, B, H, Hk,
@@ -709,12 +788,37 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename E>
+int ctas_dim(int D, int* ctas) {
+  switch (D) {
+    case 16: return ctas_per_sm(flash_bwd_dq_sm90_kernel<E, 16>, THREADS,
+                                DqSmem<16>::BYTES, ctas);
+    case 32: return ctas_per_sm(flash_bwd_dq_sm90_kernel<E, 32>, THREADS,
+                                DqSmem<32>::BYTES, ctas);
+    case 64: return ctas_per_sm(flash_bwd_dq_sm90_kernel<E, 64>, THREADS,
+                                DqSmem<64>::BYTES, ctas);
+    case 128: return ctas_per_sm(flash_bwd_dq_sm90_kernel<E, 128>, THREADS,
+                                 DqSmem<128>::BYTES, ctas);
+    case 256: return ctas_per_sm(flash_bwd_dq_sm90_kernel<E, 256>, THREADS,
+                                 DqSmem<256>::BYTES, ctas);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1), fp16 (dtype 2)
-// and f32 (dtype 0) at D in {64, 128, 256}; any other dtype or head dim
-// is cudaErrorInvalidValue.  q, k, v, dout, dq 16-byte
-// aligned.
+// CTAs a multiprocessor holds of the bf16 (dtype 1) or fp16 (dtype 2)
+// kernel at D (chip_smoke.py phase 1 records them).
+extern "C" int flash_bwd_dq_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
+  if (dtype == ptt::BF16) return ctas_dim<__nv_bfloat16>(D, ctas);
+  if (dtype == ptt::F16) return ctas_dim<__half>(D, ctas);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1) and fp16 (dtype 2)
+// at D in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128,
+// 256}; any other dtype or head dim is cudaErrorInvalidValue.  q, k, v,
+// dout, dq 16-byte aligned.
 extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,

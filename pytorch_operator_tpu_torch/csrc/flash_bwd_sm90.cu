@@ -141,16 +141,16 @@ int launch_dim(const void* q, const void* k, const void* v, const void* dout,
 template <typename E>
 int ctas_dim(int D, int* ctas) {
   switch (D) {
-    case 16: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 16>,
-                                     BwdSmem<16, true>::BYTES, ctas);
-    case 32: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 32>,
-                                     BwdSmem<32, true>::BYTES, ctas);
-    case 64: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 64>,
-                                     BwdSmem<64, true>::BYTES, ctas);
-    case 128: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 128>,
-                                      BwdSmem<128, true>::BYTES, ctas);
-    case 256: return walk_ctas_per_sm(flash_bwd_sm90_kernel<E, 256>,
-                                      BwdSmem<256, true>::BYTES, ctas);
+    case 16: return ctas_per_sm(flash_bwd_sm90_kernel<E, 16>,
+                                THREADS, BwdSmem<16, true>::BYTES, ctas);
+    case 32: return ctas_per_sm(flash_bwd_sm90_kernel<E, 32>,
+                                THREADS, BwdSmem<32, true>::BYTES, ctas);
+    case 64: return ctas_per_sm(flash_bwd_sm90_kernel<E, 64>,
+                                THREADS, BwdSmem<64, true>::BYTES, ctas);
+    case 128: return ctas_per_sm(flash_bwd_sm90_kernel<E, 128>,
+                                 THREADS, BwdSmem<128, true>::BYTES, ctas);
+    case 256: return ctas_per_sm(flash_bwd_sm90_kernel<E, 256>,
+                                 THREADS, BwdSmem<256, true>::BYTES, ctas);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -552,16 +552,6 @@ __device__ __forceinline__ void walk(
   }
 }
 
-// CTAs of a walk kernel (THREADS threads, `bytes` of dynamic shared
-// memory) one multiprocessor holds, by the occupancy API.
-template <typename Kernel>
-int walk_ctas_per_sm(Kernel kernel, int bytes, int* ctas) {
-  const int e = ptt::allow_smem(kernel, bytes);
-  if (e) return e;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, kernel, THREADS, bytes));
-}
-
 // ---------------------------------------------------------------------------
 // f32: the walk with TF32 wgmma (see the header)
 // ---------------------------------------------------------------------------

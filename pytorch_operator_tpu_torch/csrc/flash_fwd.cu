@@ -5,10 +5,10 @@
 // _fwd_kernel (pallas_call in _flash_fwd).  Per (batch, q head) row b the
 // kernel computes o = softmax(q k^T * scale) v with an online softmax and
 // lse = m + log(l), reading kv head h / (H / Hk) of the same batch.
-// Which calls reach it (ops/flash_attention.py SM90_RULE): D 16 and 32 at
-// every dtype; the Hopper kernel flash_fwd_sm90.cu takes bf16, fp16 and
-// f32 at D 64, 128 and 256.  chip_smoke.py times it beside that kernel on
-// the same inputs as its yardstick.
+// Which calls reach it (ops/flash_attention.py SM90_RULE): f32 at D 16
+// and 32; the Hopper kernel flash_fwd_sm90.cu takes bf16 and fp16 at
+// every D and f32 at D 64, 128 and 256.  chip_smoke.py times it beside
+// that kernel on the same inputs as its yardstick.
 //
 // Bound on the H100: tensor-core operations.  At B2 T2048 H16 D128 causal
 // the two products are 4 * B*H * T(T+1)/2 * D = 34.4 GFLOP (about 35 us

@@ -1,13 +1,13 @@
-// Flash-attention forward for Hopper: bf16, fp16 or f32 in (f32 as TF32),
-// f32 accumulate, head dim 64, 128 or 256, causal or not, GQA, either
-// layout.
+// Flash-attention forward for Hopper: bf16 or fp16 in at head dim 16,
+// 32, 64, 128 or 256, or f32 (as TF32) at 64, 128 or 256, f32
+// accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _fwd_kernel (pallas_call in _flash_fwd) for bf16, fp16 and f32 at D in
-// {64, 128, 256}; the WMMA kernel flash_fwd.cu keeps D 16/32.  It
-// computes what that kernel computes: per (batch, q head) o = softmax(q
-// k^T * scale) v with an online softmax, and lse = m + log(l) as a
-// natural log, reading kv head h / (H / Hk).
+// _fwd_kernel (pallas_call in _flash_fwd) for bf16 and fp16 at every D
+// and for f32 at D in {64, 128, 256}; the WMMA kernel flash_fwd.cu keeps
+// f32 at D 16/32.  It computes what that kernel computes: per (batch, q
+// head) o = softmax(q k^T * scale) v with an online softmax, and lse = m
+// + log(l) as a natural log, reading kv head h / (H / Hk).
 //
 // Bound on the H100: tensor-core operations (at B2 T2048 H16 D128 causal,
 // 34.4 GFLOP against 67 MB in bf16; in TF32 at half the rate against
@@ -34,6 +34,24 @@
 //    shared-memory scratch.
 //  - o / l is written in E and lse in f32, rows at or past T skipped;
 //    TMA zero-fills the tiles past T, so the host pads nothing.
+//
+// At 16-bit D 32 and 16 (FwdSmem::NARROW) a row of Q, K and V is 64 or 32
+// bytes: each tile is one narrow slab (sm90.cuh: TMA and the descriptors
+// swizzle at the row's width; nothing is stored by hand).  The products
+// are a quarter or an eighth of D 128's per score element while the
+// exponential stays, so the bound is ex2, 16 a clock a multiprocessor
+// (one a score element).  The narrow body is a branch of its own:
+//  - S_j = Q K_j^T is issued before O += P_{j-1} V_{j-1}, each its own
+//    commit group, and P_j's online softmax runs while that product is
+//    in flight (FlashAttention-3's intra-warpgroup overlap); the slot of
+//    tile j - 1 is released once it completes.
+//  - 64-key tiles and two CTAs a multiprocessor (80 registers a thread
+//    at launch; setmaxnreg gives the consumers 104): four consumer
+//    warpgroups keep the exponential unit busy and one CTA's start
+//    overlaps another's walk.  Timed in turns on the H100 (PERF.md §6),
+//    this took 18-24 % off one CTA of 128-key tiles, which took 1-5 %
+//    off the same without the overlap; four partial row maxima instead
+//    of one chain gave nothing.
 //
 // f32 (flash_fwd_sm90_tf32_kernel) runs the same walk on TF32 wgmma
 // (m64nNk8), which has no transpose bit: both shared-memory operands
@@ -72,10 +90,15 @@ constexpr int THREADS = 384;
 constexpr float LOG2E = 1.4426950408889634f, LN2 = 0.6931471805599453f;
 
 template <int D> struct FwdSmem {
-  static constexpr int SLABS = D / 64;
-  static constexpr int BK = D == 256 ? 64 : 128;  // key rows a tile
-  static constexpr int STAGES = D == 64 ? 4 : 2;
-  static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
+  // NARROW (16-bit D 16 / 32): one slab of 2 D-byte rows, 64-key tiles,
+  // SM_CTAS blocks a multiprocessor (see the header)
+  static constexpr bool NARROW = D < 64;
+  static constexpr int SM_CTAS = NARROW ? 2 : 1;
+  static constexpr int RB = NARROW ? 2 * D : SLAB;  // bytes a slab row
+  static constexpr int SLABS = NARROW ? 1 : D / 64;
+  static constexpr int BK = D == 256 || NARROW ? 64 : 128;  // key rows a tile
+  static constexpr int STAGES = D <= 64 ? 4 : 2;
+  static constexpr int Q_SLAB = BQ * RB, KV_SLAB = BK * RB;
   static constexpr int KV_TILE = SLABS * KV_SLAB;
   static constexpr int Q = 0;
   static constexpr int K = Q + SLABS * Q_SLAB;  // slot s at K + s * KV_TILE
@@ -93,8 +116,79 @@ __device__ __forceinline__ float (&part(float (&d)[M], int i))[N] {
   return *reinterpret_cast<float(*)[N]>(d + N * i);
 }
 
+// ---- the NARROW tile body's pieces (16-bit D 16 / 32, see the header)
+
+// sc (64 q, BK keys) = Q_wg K^T, both K-major narrow slabs: a k16 step
+// moves 32 bytes along the 2 D-byte row.
+template <typename E, int D, int BK>
+__device__ __forceinline__ void narrow_scores(float (&sc)[BK / 2],
+                                              uint32_t q_addr,
+                                              uint32_t k_addr) {
+  constexpr uint32_t HI = desc_hi(2 * D);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma_ss<E, 0, 0, HI>(sc, desc_k(q_addr + 32 * kk),
+                        desc_k(k_addr + 32 * kk), kk > 0);
+}
+
+// acc (64 q, D) += P V: P as E A fragments, V (BK keys, D) MN-major, one
+// narrow N block; a k16 step moves 16 rows.
+template <typename E, int D, int BK>
+__device__ __forceinline__ void narrow_pv(float (&acc)[D / 2],
+                                          const uint32_t (&pa)[BK / 4],
+                                          uint32_t v_addr) {
+  constexpr uint32_t HI = desc_hi(2 * D);
+#pragma unroll
+  for (int kk = 0; kk < BK / 16; ++kk)
+    mma_rs<E, 1, HI>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                     pa[4 * kk + 3], desc(v_addr + kk * 16 * 2 * D,
+                                          BK * 2 * D), 1);
+}
+
+// The online softmax of one score tile in its accumulator registers, as
+// the D >= 64 body does it inline: keys past T, and on the causal
+// diagonal keys after the row, masked where `mask`; the running max m
+// (scaled, log2 units) and the thread's part of the sum l of its two
+// rows moved on, alpha = exp2(m_old - m_new) returned for O, and sc
+// replaced by P = exp2(sc scale log2 e - m_new) in f32.
+template <int BK>
+__device__ __forceinline__ void softmax_tile(float (&sc)[BK / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], bool mask,
+                                             int k0, int row_a, int col,
+                                             int T, int causal, float sl2) {
+  if (mask) {
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int key = k0 + 8 * (i / 4) + col + (i % 2);
+      const int row = row_a + 8 * ((i / 2) % 2);
+      if (key >= T || (causal && key > row)) sc[i] = ptt::NEG_INF;
+    }
+  }
+  float mx[2] = {ptt::NEG_INF, ptt::NEG_INF}, neg_m[2];
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i)
+    mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * sl2);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    neg_m[r] = -m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = ex2(fmaf(sc[i], sl2, neg_m[r]));
+    l[r] += sc[i];
+  }
+}
+
 template <typename E, int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, FwdSmem<D>::SM_CTAS)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
                       const __grid_constant__ CUtensorMap mk,
                       const __grid_constant__ CUtensorMap mv,
@@ -158,7 +252,12 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
   }
 
   // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
-  setmaxnreg_inc<240>();
+  // (NARROW: two CTAs share the register file, 80 registers a thread at
+  // launch; 128 x 24 + 256 x 104 of them)
+  if constexpr (S::NARROW)
+    setmaxnreg_inc<104>();
+  else
+    setmaxnreg_inc<240>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int row_a = q0 + 64 * wg + 16 * warp + lane / 4;  // row_b = +8
   const int col = 2 * (lane % 4);
@@ -178,88 +277,143 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
     if (causal) n_kt_wg = min(n_kt, (q0 + 64 * wg + 64 + BK - 1) / BK);
   mbar_wait(q_full, 0);
 
-  for (int j = 0; j < n_kt_wg; ++j) {
-    const int s = j % STAGES;
-    mbar_wait(&kv_full[s], (j / STAGES) & 1);
-    const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
-    const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
-
-    // S = Q K^T: (64, BK) f32
-    float sc[BK / 2];
+  if constexpr (S::NARROW) {
+    // S_j is issued before O += P_{j-1} V_{j-1}, and P_j's exponentials
+    // run while that product is in flight (see the header)
+    const uint32_t qn_addr = smem_u32(smem + S::Q) + 64 * wg * S::RB;
+    const uint32_t k_base = smem_u32(smem + S::K);
+    const uint32_t v_base = smem_u32(smem + S::V);
+    // keys past T, or on the diagonal tiles (the last BQ / BK of the
+    // causal walk)
+    auto masked = [&](int j) {
+      return (causal && j >= n_kt - BQ / BK) || (j + 1) * BK > T;
+    };
+    float sc[BK / 2], alpha[2];
+    uint32_t pa[BK / 4];
+    mbar_wait(&kv_full[0], 0);
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-      const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-      mma_ss<E, 0, 0>(sc, desc_k(q_addr + off), desc_k(k_addr + koff),
-                      kk > 0);
-    }
+    narrow_scores<E, D, BK>(sc, qn_addr, k_base);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
-
-    // mask: keys past T, and keys after the row on the diagonal tiles
-    // (the last BQ / BK of the causal walk)
-    if ((causal && (BK == BQ ? j == n_kt - 1 : j >= n_kt - BQ / BK)) ||
-        (j + 1) * BK > T) {
+    softmax_tile<BK>(sc, m, l, alpha, masked(0), 0, row_a, col, T, causal,
+                     sl2);
 #pragma unroll
-      for (int i = 0; i < BK / 2; ++i) {
-        const int key = j * BK + 8 * (i / 4) + col + (i % 2);
-        const int row = row_a + 8 * ((i / 2) % 2);
-        if (key >= T || (causal && key > row)) sc[i] = ptt::NEG_INF;
-      }
+    for (int t = 0; t < BK / 4; ++t)
+      pa[t] = pack<E>(sc[2 * t], sc[2 * t + 1]);
+    for (int j = 1; j < n_kt_wg; ++j) {
+      const int s = j % STAGES, sp = (j - 1) % STAGES;
+      mbar_wait(&kv_full[s], (j / STAGES) & 1);
+      wgmma_fence();
+      narrow_scores<E, D, BK>(sc, qn_addr, k_base + s * S::KV_TILE);
+      wgmma_commit();
+      narrow_pv<E, D, BK>(acc, pa, v_base + sp * S::KV_TILE);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(sc);
+      softmax_tile<BK>(sc, m, l, alpha, masked(j), j * BK, row_a, col, T,
+                       causal, sl2);
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&kv_empty[sp]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+#pragma unroll
+      for (int t = 0; t < BK / 4; ++t)
+        pa[t] = pack<E>(sc[2 * t], sc[2 * t + 1]);
     }
-
-    // online softmax over the two rows this thread holds a quarter of
-    float mx[2] = {ptt::NEG_INF, ptt::NEG_INF};
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
-      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
-    float alpha[2], neg_m[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float m_new = fmaxf(m[r], mx[r] * sl2);
-      alpha[r] = ex2(m[r] - m_new);
-      m[r] = m_new;
-      neg_m[r] = -m_new;
-      l[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int i = 0; i < BK / 2; ++i) {
-      const int r = (i / 2) % 2;
-      sc[i] = ex2(fmaf(sc[i], sl2, neg_m[r]));
-      l[r] += sc[i];
-    }
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
-
-    // O += P V: P as E A fragments, V (BK keys, D) MN-major; at D 256
-    // one product per half of D (two slabs, LBO = a slab)
-    uint32_t pa[BK / 4];
-#pragma unroll
-    for (int t = 0; t < BK / 4; ++t) pa[t] = pack<E>(sc[2 * t], sc[2 * t + 1]);
+    const int sl = (n_kt_wg - 1) % STAGES;
     wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      if constexpr (D == 256) {
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-          mma_rs<E, 1>(part<64>(acc, n), pa[4 * kk], pa[4 * kk + 1],
-                       pa[4 * kk + 2], pa[4 * kk + 3],
-                       desc(v_addr + 2 * n * S::KV_SLAB + kk * 16 * SLAB,
-                            S::KV_SLAB), 1);
-      } else {
-        mma_rs<E, 1>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                     pa[4 * kk + 3],
-                     desc(v_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
-      }
-    }
+    narrow_pv<E, D, BK>(acc, pa, v_base + sl * S::KV_TILE);
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(acc);
-    if (tid == 0) mbar_arrive(&kv_empty[s]);
+    if (tid == 0) mbar_arrive(&kv_empty[sl]);
+  } else {
+    for (int j = 0; j < n_kt_wg; ++j) {
+      const int s = j % STAGES;
+      mbar_wait(&kv_full[s], (j / STAGES) & 1);
+      const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
+      const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
+
+      // S = Q K^T: (64, BK) f32
+      float sc[BK / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+        const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
+        mma_ss<E, 0, 0>(sc, desc_k(q_addr + off), desc_k(k_addr + koff),
+                        kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+
+      // mask: keys past T, and keys after the row on the diagonal tiles
+      // (the last BQ / BK of the causal walk)
+      if ((causal && (BK == BQ ? j == n_kt - 1 : j >= n_kt - BQ / BK)) ||
+          (j + 1) * BK > T) {
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int key = j * BK + 8 * (i / 4) + col + (i % 2);
+          const int row = row_a + 8 * ((i / 2) % 2);
+          if (key >= T || (causal && key > row)) sc[i] = ptt::NEG_INF;
+        }
+      }
+
+      // online softmax over the two rows this thread holds a quarter of
+      float mx[2] = {ptt::NEG_INF, ptt::NEG_INF};
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i)
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+      float alpha[2], neg_m[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r] * sl2);
+        alpha[r] = ex2(m[r] - m_new);
+        m[r] = m_new;
+        neg_m[r] = -m_new;
+        l[r] *= alpha[r];
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) {
+        const int r = (i / 2) % 2;
+        sc[i] = ex2(fmaf(sc[i], sl2, neg_m[r]));
+        l[r] += sc[i];
+      }
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i / 2) % 2];
+
+      // O += P V: P as E A fragments, V (BK keys, D) MN-major; at D 256
+      // one product per half of D (two slabs, LBO = a slab)
+      uint32_t pa[BK / 4];
+#pragma unroll
+      for (int t = 0; t < BK / 4; ++t)
+        pa[t] = pack<E>(sc[2 * t], sc[2 * t + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        if constexpr (D == 256) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n)
+            mma_rs<E, 1>(part<64>(acc, n), pa[4 * kk], pa[4 * kk + 1],
+                         pa[4 * kk + 2], pa[4 * kk + 3],
+                         desc(v_addr + 2 * n * S::KV_SLAB + kk * 16 * SLAB,
+                              S::KV_SLAB), 1);
+        } else {
+          mma_rs<E, 1>(acc, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                       pa[4 * kk + 3],
+                       desc(v_addr + kk * 16 * SLAB, S::KV_SLAB), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (tid == 0) mbar_arrive(&kv_empty[s]);
+    }
   }
 
   // epilogue: o / l in E, lse = (m + log2 l) ln 2
@@ -543,11 +697,11 @@ template <typename E, int D>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int B, int H, int Hk, int T, int bh_layout, float scale,
            int causal, cudaStream_t stream) {
-  constexpr int BK = FwdSmem<D>::BK;
+  constexpr int BK = FwdSmem<D>::BK, RB = FwdSmem<D>::RB;
   CUtensorMap mq, mk, mv;
-  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, BQ);
-  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, BK);
-  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, BK);
+  int e = make_head_map<E>(&mq, q, D, H, T, B, bh_layout, BQ, RB);
+  if (!e) e = make_head_map<E>(&mk, k, D, Hk, T, B, bh_layout, BK, RB);
+  if (!e) e = make_head_map<E>(&mv, v, D, Hk, T, B, bh_layout, BK, RB);
   if (e) return e;
   const int bytes = FwdSmem<D>::BYTES, tiles = (T + BQ - 1) / BQ;
   if (!ptt::grid_fits(tiles, B * H))
@@ -579,6 +733,10 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
                float* lse, int B, int H, int Hk, int T, int D, int bh_layout,
                float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch<E, 16>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
+                                  scale, causal, s);
+    case 32: return launch<E, 32>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
+                                  scale, causal, s);
     case 64: return launch<E, 64>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
                                   scale, causal, s);
     case 128: return launch<E, 128>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
@@ -589,11 +747,37 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+template <typename E>
+int ctas_dim(int D, int* ctas) {
+  switch (D) {
+    case 16: return ctas_per_sm(flash_fwd_sm90_kernel<E, 16>, THREADS,
+                                FwdSmem<16>::BYTES, ctas);
+    case 32: return ctas_per_sm(flash_fwd_sm90_kernel<E, 32>, THREADS,
+                                FwdSmem<32>::BYTES, ctas);
+    case 64: return ctas_per_sm(flash_fwd_sm90_kernel<E, 64>, THREADS,
+                                FwdSmem<64>::BYTES, ctas);
+    case 128: return ctas_per_sm(flash_fwd_sm90_kernel<E, 128>, THREADS,
+                                 FwdSmem<128>::BYTES, ctas);
+    case 256: return ctas_per_sm(flash_fwd_sm90_kernel<E, 256>, THREADS,
+                                 FwdSmem<256>::BYTES, ctas);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// As flash_fwd (flash_fwd.cu) for f32 (dtype 0), bf16 (dtype 1) and fp16
-// (dtype 2) at D in {64, 128, 256}; any other dtype or head dim is
-// cudaErrorInvalidValue.  q, k, v, o 16-byte aligned.
+// CTAs a multiprocessor holds of the bf16 (dtype 1) or fp16 (dtype 2)
+// kernel at D (chip_smoke.py phase 1 records them).
+extern "C" int flash_fwd_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
+  if (dtype == ptt::BF16) return ctas_dim<__nv_bfloat16>(D, ctas);
+  if (dtype == ptt::F16) return ctas_dim<__half>(D, ctas);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// As flash_fwd (flash_fwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
+// in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128, 256}; any
+// other dtype or head dim is cudaErrorInvalidValue.  q, k, v, o 16-byte
+// aligned.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int Hk,
                               int T, int D, int bh_layout, float scale,

@@ -958,6 +958,17 @@ int make_head_map(CUtensorMap* map, const void* base, int D, int Hx, int T,
              : make_map<E>(map, base, D, Hx, T, B, rows, row_bytes);
 }
 
+// CTAs of `kernel` (`threads` threads, `bytes` of dynamic shared memory)
+// one multiprocessor holds, by the occupancy API.
+template <typename Kernel>
+int ctas_per_sm(Kernel kernel, int threads, int bytes, int* ctas) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e) return static_cast<int>(e);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      ctas, kernel, threads, bytes));
+}
+
 // Map coordinates (c1, c3) of head h of batch b in either layout.
 __device__ __forceinline__ int2 head_coords(int b, int h, int Hx,
                                             int bh_layout) {

@@ -26,17 +26,16 @@ fallback.  The Hopper versions are built on ``wgmma``, TMA and a
 warp-specialized mbarrier ring (f32 as TF32, with the transposed copies
 of V, Q, dO and K that TF32 ``wgmma`` needs written in shared memory;
 the backward kernels at f32 D 256 on clusters of two CTAs that split D
-and exchange their partial scores through shared memory):
+and exchange their partial scores through shared memory).  All four
+run them:
 
-  forward, dq                bf16, fp16, f32 at D 64, 128, 256
-  fused, dk/dv               bf16, fp16 at D 16, 32, 64, 128, 256 (at
-                             D 16/32 on 64- or 32-byte swizzled rows and
-                             128-row q tiles); f32 at D 64, 128, 256
+  bf16, fp16   at D 16, 32, 64, 128, 256 (at D 16/32 on 64- or 32-byte
+               swizzled rows, 128-row q tiles and 128-key tiles)
+  f32          at D 64, 128, 256
 
 Every model's attention but the tiny ones' is bf16 at D 64 or 128; the
-tiny Llama and MoE have D 16 (in bf16, their training backward is the
-fused Hopper kernel).  Everything else (the forward and dq kernel at D
-16/32, and f32 at D 16/32) runs the WMMA versions.  A build or launch
+tiny Llama and MoE have D 16 (in bf16 they train on the Hopper kernels
+alone).  Only f32 at D 16/32 runs the WMMA versions.  A build or launch
 failure of either version raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
@@ -108,22 +107,21 @@ _FUSED_DQ_BYTES = 4 * 1024 * 1024
 
 
 # Per flash kernel and dtype, the kernel head dims its Hopper version
-# takes: each kernel at every dtype at D 64/128/256, and the fused and
-# dk / dv kernels at 16-bit D 16/32 too (the dk / dv kernel is the fused
-# kernel's walk without dq, so the two take the same).
-_ALL = {torch.bfloat16: (64, 128, 256), torch.float16: (64, 128, 256),
-        torch.float32: (64, 128, 256)}
-_WALK = {**_ALL, torch.bfloat16: (16, 32, 64, 128, 256),
-         torch.float16: (16, 32, 64, 128, 256)}
-SM90_RULE = {"fwd": _ALL, "bwd": _WALK, "dq": _ALL, "dkv": _WALK}
+# takes: today the same for all four, bf16 and fp16 at every kernel head
+# dim and f32 at D 64/128/256 (the dk / dv kernel is the fused kernel's
+# walk without dq, so those two always take the same).
+_HOPPER_DIMS = {torch.bfloat16: KERNEL_HEAD_DIMS,
+                torch.float16: KERNEL_HEAD_DIMS,
+                torch.float32: (64, 128, 256)}
+SM90_RULE = dict.fromkeys(("fwd", "bwd", "dq", "dkv"), _HOPPER_DIMS)
 
 
 def _sm90(kernel: str, dtype: torch.dtype, D: int) -> bool:
     """True where flash kernel ``kernel`` ("fwd", "bwd", "dq" or "dkv")
     runs its Hopper version for ``dtype`` at (kernel) head dim ``D``, by
-    SM90_RULE; elsewhere (D 16/32, but the fused and dk / dv kernels at
-    16 bits) its WMMA version (``flash_fwd``, ``flash_bwd``,
-    ``flash_bwd_dq``, ``flash_bwd_dkv``) runs."""
+    SM90_RULE; elsewhere (f32 at D 16/32) its WMMA version
+    (``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``, ``flash_bwd_dkv``)
+    runs."""
     return D in SM90_RULE[kernel].get(dtype, ())
 
 
@@ -182,7 +180,8 @@ def _flash_fwd_reference(q, k, v, scale, causal, bh):
     group = H // k4.shape[1]
     k4 = k4.repeat_interleave(group, dim=1)
     v4 = v4.repeat_interleave(group, dim=1)
-    s = (q4 @ k4.transpose(-1, -2)).float() * scale
+    # the scores in f32, as the kernels' products accumulate them
+    s = (q4.float() @ k4.float().transpose(-1, -2)) * scale
     if causal:
         s = s.masked_fill(~_causal_mask(T, s.device), NEG_INF)
     lse = torch.logsumexp(s, dim=-1)

@@ -1,6 +1,6 @@
 """Time the port's dq kernel (the two-kernel backward's B3), or with
-``--kernel`` the fused backward (B2) or the dk / dv kernel (B4), in
-several checkouts, in turns, on one card.
+``--kernel`` the forward (B1), the fused backward (B2) or the dk / dv
+kernel (B4), in several checkouts, in turns, on one card.
 
     python scripts/time_dq_trees.py ROOT [ROOT ...] [--kernel dq] \
         [--dtype float32] [--D 256] [--B 2] [--T 2048] [--H 8]
@@ -8,15 +8,17 @@ several checkouts, in turns, on one card.
 Each ROOT is a checkout of the repo (``.`` for this one, or a copy
 unpacked by ``git archive`` into a gitignored directory, with its own
 edit to ``csrc/``).  Every tree's kernels are built first, all at once;
-then one process a tree calls the kernel's wrapper (``_flash_bwd_dq_
-cuda``, ``_flash_bwd_cuda`` or ``_flash_bwd_dkv_cuda``) as the route
-picks it on the same seeded causal inputs (lse and delta from that
-tree's forward), checks it against the plain version and times it with
+then one process a tree calls the kernel's wrapper (``_flash_fwd_cuda``,
+``_flash_bwd_dq_cuda``, ``_flash_bwd_cuda`` or ``_flash_bwd_dkv_cuda``)
+as the route picks it on the same seeded causal inputs (a backward's
+lse and delta from that tree's forward), checks it against the plain
+version and times it with
 ``chip_smoke.time_ms`` (profiler device time, CUDA events beside it).
 The trees run in the order given, then in reverse, so that each is timed
 twice, in turns.  Prints one JSON line a run, then one summary line: for
 each tree its two times and the SHA-256 prefix of its deterministic
-output (dq of B3; dk and dv of B2 and B4: B2's dq sums with atomics),
+output (out and lse of B1; dq of B3; dk and dv of B2 and B4: B2's dq
+sums with atomics),
 and whether every tree gave the same bits.  Needs a CUDA card and nvcc.
 """
 
@@ -56,9 +58,13 @@ def one(root: str, args) -> dict:
     delta = (g.float() * out.float()).sum(-1).transpose(1, 2).reshape(
         B * H, T).contiguous()
     call = (q, k, v, g, lse.reshape(B * H, T), delta, scale, True, False)
-    kernel = {"dq": fa._flash_bwd_dq_cuda, "bwd": fa._flash_bwd_cuda,
+    if args.kernel == "fwd":
+        call = (q, k, v, scale, True, False)
+    kernel = {"fwd": fa._flash_fwd_cuda, "dq": fa._flash_bwd_dq_cuda,
+              "bwd": fa._flash_bwd_cuda,
               "dkv": fa._flash_bwd_dkv_cuda}[args.kernel]
-    plain = {"dq": fa._flash_bwd_dq_reference, "bwd": fa._flash_bwd_reference,
+    plain = {"fwd": fa._flash_fwd_reference,
+             "dq": fa._flash_bwd_dq_reference, "bwd": fa._flash_bwd_reference,
              "dkv": fa._flash_bwd_dkv_reference}[args.kernel]
     outs, refs = kernel(*call), plain(*call)
     if args.kernel == "dq":
@@ -68,7 +74,7 @@ def one(root: str, args) -> dict:
                     / b.float().abs().max()) for a, b in zip(outs, refs))
     bits = hashlib.sha256()
     for x in outs[-2:] if args.kernel != "dq" else outs:
-        bits.update(x.cpu().numpy().tobytes())
+        bits.update(x.contiguous().view(torch.uint8).cpu().numpy().tobytes())
     t = c.time_ms(lambda: kernel(*call))
     return {"root": root, "ms": t["ms"], "event_ms": t["event_ms"],
             "max_abs_err_over_max_ref": err,
@@ -78,7 +84,8 @@ def one(root: str, args) -> dict:
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("roots", nargs="+")
-    ap.add_argument("--kernel", default="dq", choices=("dq", "bwd", "dkv"))
+    ap.add_argument("--kernel", default="dq",
+                    choices=("fwd", "dq", "bwd", "dkv"))
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16", "float16"))
     ap.add_argument("--D", type=int, default=256)

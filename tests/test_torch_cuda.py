@@ -116,10 +116,10 @@ def _launches():
 
 def _hopper(kernel, dtype, D):
     """The stated route at head dim ``D`` (padded to the kernels' next):
-    B1-B4 run Hopper at 64/128/256 for bf16, fp16 and f32, and B2 and B4
-    (the walk) at 16-bit D 16/32 too; the rest of D 16/32 runs WMMA."""
+    B1-B4 run Hopper at every D for bf16 and fp16 and at 64/128/256 for
+    f32; f32 at D 16/32 runs WMMA."""
     D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
-    if kernel in ("bwd", "dkv") and dtype != torch.float32:
+    if dtype != torch.float32:
         return D in (16, 32, 64, 128, 256)
     return D in (64, 128, 256)
 
@@ -180,8 +180,8 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
     through the f32 plain forward, with exact launch counts: the Hopper
-    kernels for bf16 at D 128 and f32 at D 64/128 here, the WMMA ones for
-    D 16/32."""
+    kernels for bf16 at every D and f32 at D 64/128 here, the WMMA ones
+    for f32 at D 16."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
@@ -283,11 +283,15 @@ def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
                                      (torch.float16, 64),
                                      (torch.float16, 128),
                                      (torch.bfloat16, 256),
-                                     (torch.float16, 256)])
+                                     (torch.float16, 256),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 32),
+                                     (torch.float16, 16),
+                                     (torch.float16, 32)])
 def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     """B3 sums dq without atomics: two runs give the same bits (the
-    Hopper B3 at each of its instantiations here, at f32 D 256 on
-    clusters of two CTAs).  B4 is the fused kernel's walk without dq: the
+    Hopper B3 at each of its instantiations, at f32 D 256 on clusters of
+    two CTAs, at 16-bit D 16/32 on narrow slabs).  B4 is the fused kernel's walk without dq: the
     Hopper B4 (bf16, fp16, and f32 on the TF32 walk, at D 256 on clusters
     of two CTAs) gives the Hopper B2's dk / dv bit for bit at each
     instantiation (GQA H16 / Hk4, ragged T)."""
@@ -314,12 +318,17 @@ def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
                                      (torch.float16, 256),
                                      (torch.float32, 64),
                                      (torch.float32, 128),
-                                     (torch.float32, 256)])
+                                     (torch.float32, 256),
+                                     (torch.bfloat16, 16),
+                                     (torch.bfloat16, 32),
+                                     (torch.float16, 16),
+                                     (torch.float16, 32)])
 def test_sm90_dq_matches_plain(cuda, dtype, D, T, causal, bh):
     """The Hopper B3 at each instantiation beyond bf16 D 64/128 (fp16,
-    D 256, and f32 as TF32, at D 256 on clusters of two CTAs) against
-    its plain version on the same inputs, lse and delta: GQA H16 / Hk4,
-    ragged T, both layouts, causal and not, one launch of it."""
+    D 256, f32 as TF32, at D 256 on clusters of two CTAs, and 16-bit D
+    16/32 on narrow slabs) against its plain version on the same inputs,
+    lse and delta: GQA H16 / Hk4, ragged T, both layouts, causal and
+    not, one launch of it."""
     assert _hopper("dq", dtype, D)
     args = _bwd_args(cuda, 1, T, 16, 4, D, dtype, bh, causal)
     before = _launches()
@@ -335,6 +344,40 @@ def test_sm90_dq_matches_plain(cuda, dtype, D, T, causal, bh):
 
 
 @pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [1, 129, 1000])
+@pytest.mark.parametrize("dtype,D", [(torch.bfloat16, 16),
+                                     (torch.bfloat16, 32),
+                                     (torch.float16, 16),
+                                     (torch.float16, 32)])
+def test_sm90_narrow_fwd_matches_plain(cuda, dtype, D, T, causal, bh):
+    """The Hopper B1 on narrow slabs (16-bit D 16/32) against its plain
+    version on the same inputs: out within the bound of the other
+    forward checks (p rounded to the input type before p v), lse to f32
+    rounding; GQA H16 / Hk4, T = 1, ragged T and T1000, both layouts,
+    causal and not, one launch of it and none of the WMMA forward."""
+    assert _hopper("fwd", dtype, D)
+
+    def r(h):
+        shape = (h, T, D) if bh else (1, T, h, D)
+        return torch.randn(*shape, generator=cuda, device="cuda").to(dtype)
+
+    q, k, v = r(16), r(4), r(4)
+    before = _launches()
+    out, lse = fa._flash_fwd_cuda(q, k, v, D ** -0.5, causal, bh)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launches().items()}
+    assert launched == {n: int(n == "flash_fwd_sm90") for n in FLASH_KERNELS}
+    ref_out, ref_lse = fa._flash_fwd_reference(q.float(), k.float(),
+                                               v.float(), D ** -0.5, causal,
+                                               bh)
+    assert out.dtype == dtype
+    err = (out.float() - ref_out).abs().max().item()
+    assert err <= TOL[dtype] * ref_out.abs().max().item() + 1e-3, err
+    assert (lse - ref_lse).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("bh", [False, True])
 @pytest.mark.parametrize("T", [1, 129, 1000, 2048])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("D", [16, 32, 64, 128])
@@ -343,8 +386,7 @@ def test_sm90_kernels_match_plain(cuda, D, causal, T, bh):
     autograd through the f32 plain forward, at T = 1, ragged T (not a
     multiple of the 64- and 128-row tiles) and T2048, in both layouts,
     with exactly one launch of each and none of the WMMA kernels (at D
-    16/32 flash_bwd_sm90's narrow-slab walk, and one launch of the WMMA
-    forward in place of flash_fwd_sm90)."""
+    16/32 both on narrow slabs)."""
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)
     assert launched == _want(torch.bfloat16, D, two=False)
@@ -361,9 +403,8 @@ def test_sm90_two_kernel_match_plain(cuda, monkeypatch, D, causal, T, bh):
     """flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 (bf16, GQA H16 / Hk4, the
     two-kernel route forced) against autograd through the f32 plain
     forward, at T = 1, ragged T and T2048, in both layouts, with exactly
-    one launch of each and none of the WMMA kernels (at D 16/32
-    flash_bwd_dkv_sm90's narrow-slab walk, and one launch each of the
-    WMMA forward and dq kernel in place of the Hopper ones)."""
+    one launch of each and none of the WMMA kernels (at D 16/32 all on
+    narrow slabs)."""
     monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, 1, T, 16, 4, D, causal,
                                       torch.bfloat16, bh)
@@ -380,10 +421,12 @@ def test_sm90_two_kernel_match_plain(cuda, monkeypatch, D, causal, T, bh):
 @pytest.mark.parametrize("dtype,D", [(torch.float16, 64),
                                      (torch.float16, 128),
                                      (torch.bfloat16, 256),
-                                     (torch.float16, 256)])
+                                     (torch.float16, 256),
+                                     (torch.float16, 16),
+                                     (torch.float16, 32)])
 def test_sm90_fp16_and_d256_match_plain(cuda, monkeypatch, dtype, D, causal,
                                         T, bh, route):
-    """The Hopper instantiations beyond bf16 at D 64/128 (GQA H16 / Hk4):
+    """The Hopper instantiations beyond bf16 at D 16-128 (GQA H16 / Hk4):
     B1 with B2, or B1 with B3 + B4, against
     autograd through the f32 plain forward at T = 1, ragged T (not a
     multiple of the 64- and 128-row tiles) and T1000, in both layouts,

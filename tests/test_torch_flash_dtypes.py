@@ -2,24 +2,26 @@
 dtypes and head dims the Hopper kernels take beyond bf16 at D 64/128:
 fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64, 128 and 256
 (the TF32 kernels; at D 256 the fused, dq and dk / dv kernels on
-clusters of two CTAs), and bf16 at D 32 and fp16 at D 16 (the fused and
-dk / dv kernels' narrow-slab walk; the forward and dq kernel there are
-WMMA).
+clusters of two CTAs), and bf16 and fp16 at D 16 and 32 (every kernel
+on narrow slabs).
 
 On the CPU the port runs its kernels' plain versions (the forward, the
 fused backward, and the dq and dk / dv kernels on the two-kernel route),
 so these tests pin the function that the card's kernels are held to
 (``chip_smoke.py`` phase 2) to the JAX reference at the same shapes.
 The same seeded numpy inputs, rounded to the working dtype, go through
-the JAX ``flash_attention`` (Pallas kernels in interpret mode, as
-tests/test_ops.py runs them) and through the port, both in that dtype.
+the JAX ``flash_attention`` in f32 (Pallas kernels in interpret mode, as
+tests/test_ops.py runs them: the exact answer on those inputs) and
+through the port in the working dtype.
 
 Tolerance: max|err| <= 1e-2 * max|ref| + 1e-3 for out, dq, dk and dv,
-the bound the card's bf16 / fp16 flash tests hold the kernels to
-(tests/test_torch_cuda.py ``TOL``): the two packages round the scores,
-p and the outputs to the working dtype at different places (the port's
-plain forward rounds q k^T to the working dtype, JAX keeps it in f32:
-bf16 at D 256 comes to 0.95e-2 * max|ref|, fp16 to 0.1e-2).
+the bound the card's bf16 / fp16 flash tests hold the kernels to against
+an f32 reference (tests/test_torch_cuda.py ``TOL``): the port rounds p,
+the outputs and the backward's delta (from the rounded out) to the
+working dtype.  Held against JAX run in the working dtype instead, the
+two packages' roundings add: at bf16 D 16 their dq differ by 1.34e-2 *
+max|dq| where each is within 0.71e-2 (port) and 0.63e-2 (JAX) of the f32
+answer.
 
 The f32 Hopper kernels multiply in TF32, and ``wgmma`` reads its f32
 operands from shared memory by dropping their low 13 mantissa bits.
@@ -56,7 +58,7 @@ REL, ABS = 1e-2, 1e-3
 # (dtype, D): the Hopper instantiations this parity covers
 INSTANCES = [("fp16", 64), ("fp16", 128), ("bf16", 256), ("fp16", 256),
              ("f32", 64), ("f32", 128), ("f32", 256), ("bf16", 32),
-             ("fp16", 16)]
+             ("fp16", 16), ("fp16", 32), ("bf16", 16)]
 # (B, T, H, Hk, causal): one ragged T, causal and not, GQA
 SHAPES = [(1, 128, 2, 2, False), (1, 200, 4, 2, True),
           (1, 384, 2, 1, True)]
@@ -110,11 +112,11 @@ def assert_close(got, want):
 def test_fused_route_matches_jax(dtype, D, B, T, H, Hk, causal):
     """The forward and the fused backward (T * D * 4 <= 4 MiB: both
     packages take it)."""
-    tdt, jdt = DTYPES[dtype]
+    tdt, _ = DTYPES[dtype]
     assert fa._use_fused_bwd(T, D)
     q, k, v, g = inputs(D + T, B, T, H, Hk, D, tdt)
     assert_close(port_run(q, k, v, g, causal, tdt),
-                 jax_run(q, k, v, g, causal, jdt))
+                 jax_run(q, k, v, g, causal, jnp.float32))
 
 
 @pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
@@ -131,11 +133,11 @@ def test_two_kernel_route_matches_jax(monkeypatch, dtype, D, B, T, H, Hk,
         fn = getattr(fa, name)
         monkeypatch.setattr(fa, name, lambda *a, fn=fn, name=name: (
             ran.append(name), fn(*a))[1])
-    tdt, jdt = DTYPES[dtype]
+    tdt, _ = DTYPES[dtype]
     q, k, v, g = inputs(D + T + 1, B, T, H, Hk, D, tdt)
     got = port_run(q, k, v, g, causal, tdt)
     assert ran == ["_flash_bwd_dq_reference", "_flash_bwd_dkv_reference"]
-    assert_close(got, jax_run(q, k, v, g, causal, jdt))
+    assert_close(got, jax_run(q, k, v, g, causal, jnp.float32))
 
 
 def tf32_trunc(x):
