@@ -26,11 +26,14 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             D 128 at the main shape, D 256 with the backward on
             clusters of two CTAs), the Hopper B1 and B2 on narrow slabs
             at bf16 and fp16 D 16/32 (GQA at a ragged T, T = 1 and 129,
-            both layouts, causal and not) and B*H = 65,536), the
+            both layouts, causal and not), the Hopper TF32 B2 at f32 D
+            16/32 (GQA at a ragged T, T = 2 and 129, both layouts,
+            causal and not) and B*H = 65,536), the
             two-kernel route (dq, then dk/dv) at T4096 and on the same
             variety with the route forced (the Hopper B3 at fp16, D 256
             and f32 D 64/128/256, at f32 D 256 B3 and B4 on clusters, the
-            Hopper B3 and B4 at bf16 and fp16 D 16/32); the
+            Hopper B3 and B4 at bf16 and fp16 D 16/32, the Hopper TF32
+            B4 at f32 D 16/32); the
             Hopper B4's dk/dv bit for bit B2's and the Hopper B3's dq
             bit for bit over two runs, and within bounds of B2's, at
             every bf16, fp16 and f32 instantiation; the WMMA forward and
@@ -58,7 +61,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             those but D 96 (the Hopper B3 in turns with the WMMA one),
             bf16 and fp16 at D 32 (H64) and D 16 (H128), B1-B4 on
             narrow slabs in turns with their WMMA kernels, and f32
-            there, B1-B4 on WMMA; the bounds count
+            there, the Hopper TF32 B2 and B4 in turns with their WMMA
+            kernels beside the WMMA B1 and B3; the bounds count
             the tensor products and one exponential a score element
             (PEAK_EXP); the forward beside SDPA and the backward
             beside aten's flash backward (bf16, fp16) or SDPA's
@@ -352,9 +356,9 @@ def ptxas_by_kernel(log: str) -> dict:
 
 
 # The Hopper kernels' instantiations: B1, B2, B3 and B4 at bf16, fp16
-# and f32 (TF32) at D 64/128/256 (9 each), and at bf16 and fp16 at D
-# 16/32 (on narrow slabs, 4 each)
-SM90_INSTANTIATIONS = 52
+# and f32 (TF32) at D 64/128/256 (9 each), at bf16 and fp16 at D 16/32
+# (on narrow slabs, 4 each), and B2 and B4 at f32 D 16/32 (2 each)
+SM90_INSTANTIATIONS = 56
 
 
 def check_sm90_ptxas(log: str) -> dict:
@@ -648,6 +652,17 @@ FLASH_CASES = {
     "fp16_d16_non_causal": (2, 333, 8, 8, 16, False, False, F16),
     "f32": (2, 1000, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
+    # the Hopper TF32 B2 at f32 D 32 and 16 (128-row q tiles): GQA at a
+    # ragged T, non-causal in the bh layout, T = 2, T = 129 (one 128-row q
+    # tile and a row); the WMMA B1 beside it.  Not T = 1: there the plain
+    # grads are exactly 0 and a TF32 kernel's are not (dP from dO rounded
+    # to TF32, delta from the f32 dO: tests/test_torch_cuda.py
+    # test_sm90_f32_match_plain)
+    "f32_d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, F32),
+    "f32_d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, F32),
+    "f32_d32_t2_gqa": (2, 2, 16, 4, 32, True, False, F32),
+    "f32_d32_t129": (2, 129, 8, 8, 32, True, False, F32),
+    "f32_d16_bh": (1, 500, 8, 2, 16, True, True, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
     # the MoE path's attention (phase 15, phase 13's MoE runs): Mixtral's
     # 32 heads over 8 kv heads at T4096, still the fused backward
@@ -703,6 +718,13 @@ TWO_KERNEL_CASES = {
     "fp16_d16_non_causal": (2, 333, 8, 8, 16, False, False, F16),
     "f32": (1, 2048, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
+    # the Hopper TF32 B4 at f32 D 32 and 16, as in FLASH_CASES (the WMMA
+    # B1 and B3 beside it)
+    "f32_d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, F32),
+    "f32_d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, F32),
+    "f32_d32_t2_gqa": (2, 2, 16, 4, 32, True, False, F32),
+    "f32_d32_t129": (2, 129, 8, 8, 32, True, False, F32),
+    "f32_d16_bh": (1, 500, 8, 2, 16, True, True, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
     "fp16_d128": (2, 1000, 16, 4, 128, True, False, F16),
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
@@ -768,9 +790,9 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
     WMMA version by the route (ops/flash_attention.py _sm90: B1-B4 Hopper
-    for bf16 and fp16 at every D and for f32 at D 64/128/256; WMMA for
-    f32 at D 16/32); the fused backward, or B3 + B4 on the two-kernel
-    route."""
+    for bf16 and fp16 at every D and for f32 at D 64/128/256, B2 and B4
+    also at f32 D 16/32; WMMA for B1 and B3 at f32 D 16/32); the fused
+    backward, or B3 + B4 on the two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -883,7 +905,7 @@ def check_two_kernel_route(torch, gen) -> dict:
 # Every instantiation of the Hopper B2 / B4 walk (dtype, D)
 SM90_WALKS = ((BF16, 16), (BF16, 32), (BF16, 64), (BF16, 128), (BF16, 256),
               (F16, 16), (F16, 32), (F16, 64), (F16, 128), (F16, 256),
-              (F32, 64), (F32, 128), (F32, 256))
+              (F32, 16), (F32, 32), (F32, 64), (F32, 128), (F32, 256))
 
 
 def check_dkv_bitwise(torch, gen) -> dict:
@@ -964,10 +986,11 @@ def check_dq_bitwise(torch, gen) -> dict:
 
 def check_wmma_at_main(torch, gen) -> dict:
     """The WMMA forward and fused backward (flash_fwd.cu, flash_bwd.cu),
-    which bf16, fp16 and f32 at D 64/128/256 no longer reach, at the main
-    path's shape in bf16 and in f32 against their plain versions, so
-    that the yardstick phase 3 times beside the Hopper kernels computes
-    the same function.  Returns the bf16 max abs errors."""
+    which bf16, fp16 and f32 at D 64/128/256 no longer reach (the fused
+    backward no call reaches since f32 D 16/32 took the Hopper walk), at
+    the main path's shape in bf16 and in f32 against their plain
+    versions, so that the yardstick phase 3 times beside the Hopper
+    kernels computes the same function.  Returns the bf16 max abs errors."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         BWD_KERNEL,
         FWD_KERNEL,
@@ -1488,8 +1511,9 @@ def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
 # predecessor; the backward at D 256 on clusters of two CTAs), bf16 at D
 # 96, zero-padded to the Hopper kernels' 128, bf16 and fp16 at D 32 and
 # 16 (the Hopper B1-B4 on narrow slabs, each beside its WMMA
-# predecessor) and f32 at D 32 and 16 (the WMMA kernels), heads such
-# that H D = 2048 (1536 at D 96): (dtype, D, heads)
+# predecessor) and f32 at D 32 and 16 (the Hopper TF32 B2 and B4 beside
+# their WMMA predecessors, the WMMA B1 and B3), heads such that H D =
+# 2048 (1536 at D 96): (dtype, D, heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
@@ -1500,8 +1524,8 @@ C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
 # the cases whose two-kernel route (B3 then B4) phase 3 also times: the
 # Hopper B3 and B4 at fp16 D 128 and 256, bf16 D 256 and f32 D 64, 128
 # and 256 and 16-bit D 32 and 16 (each beside the WMMA kernel it
-# replaced; at f32 D 256 both on clusters of two CTAs), and the WMMA B3
-# and B4 at f32 D 32 and 16
+# replaced; at f32 D 256 both on clusters of two CTAs), and at f32 D 32
+# and 16 the WMMA B3 beside the Hopper B4 (in turns with its WMMA one)
 C3_TWO_KERNEL = ("fp16_d256", "bf16_d256", "fp16_d128", "f32_d256",
                  "f32_d128", "f32_d64", "bf16_d32", "bf16_d16", "fp16_d32",
                  "fp16_d16", "f32_d32", "f32_d16")
@@ -4639,8 +4663,10 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = ("f32 D 16/32 only; timed beside its Hopper "
-                           "successor at its shape as the yardstick")
+            row["path"] = (("f32 D 16/32 only" if short in (
+                "flash_fwd", "flash_bwd_dq") else "on no route")
+                + "; timed beside its Hopper successor at its shape as "
+                  "the yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
                   for part in ("fwd", "bwd", "dq", "dkv")

@@ -10,7 +10,11 @@
 // four products per tile.  It is the fused kernel's walk
 // (flash_bwd_kv.cuh) without the dq product and its atomics.  dk and dv
 // are written once per q head as f32 partials; the wrapper sums them over
-// each GQA group (_reduce_kv_partials).
+// each GQA group (_reduce_kv_partials).  Which calls reach it
+// (ops/flash_attention.py SM90_RULE): none; the Hopper kernel
+// flash_bwd_dkv_sm90.cu takes every dtype at every D.  It stays as the
+// yardstick that chip_smoke.py times the Hopper kernel against (the
+// wrappers' kernel=).
 //
 // Bound on the H100: tensor-core operations.  At B1 T16384 H16 D128
 // causal the four products are 8 * B*H * T(T+1)/2 * D = 2.20 TFLOP,

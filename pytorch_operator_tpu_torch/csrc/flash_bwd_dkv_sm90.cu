@@ -1,11 +1,10 @@
 // dk / dv kernel of the two-kernel flash-attention backward for Hopper:
-// bf16 or fp16 in at head dim 16, 32, 64, 128 or 256, or f32 (as TF32) at
-// 64, 128 or 256, f32 accumulate, causal or not, GQA, either layout.
+// bf16, fp16 or f32 (as TF32) in at head dim 16, 32, 64, 128 or 256, f32
+// accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) at every 16-bit
-// D and at f32 D in {64, 128, 256}; the WMMA kernel flash_bwd_dkv.cu
-// keeps f32 at D 16/32.  Its
+// _bwd_dkv_kernel (pallas_call at the end of _flash_bwd) at every dtype
+// and D; the WMMA kernel flash_bwd_dkv.cu stays as its yardstick.  Its
 // contract is flash_bwd_dkv's: per (key tile, q head) it accumulates
 //   dk[j] = sum_i dS[i, j]^T Q[i],   dv[j] = sum_i P[i, j]^T dO[i]
 // (four products per tile) and writes them once per q head as f32
@@ -25,8 +24,9 @@
 // in flash_bwd_sm90.cu.  Being the same walk, its dk and dv are
 // bitwise those of flash_bwd_sm90.  Like it, and like the JAX kernel, it
 // forms dS from the f32 P.  f32 runs walk_tf32<D, false>
-// (flash_bwd_dkv_sm90_tf32_kernel; at D 256 on clusters of two CTAs),
-// bitwise flash_bwd_sm90's f32 dk / dv in the same way.
+// (flash_bwd_dkv_sm90_tf32_kernel; at D 256 on clusters of two CTAs, at
+// D 16 / 32 on 128-row q tiles), bitwise flash_bwd_sm90's f32 dk / dv in
+// the same way.
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -145,9 +145,9 @@ extern "C" int flash_bwd_dkv_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As flash_bwd_dkv (flash_bwd_dkv.cu) for bf16 (dtype 1) and fp16 (dtype
-// 2) at D in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128,
-// 256}; any other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout
+// As flash_bwd_dkv (flash_bwd_dkv.cu) for f32 (dtype 0), bf16 (dtype 1)
+// and fp16 (dtype 2) at D in {16, 32, 64, 128, 256}; any other dtype or
+// head dim is cudaErrorInvalidValue.  q, k, v, dout
 // 16-byte aligned.
 extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
                                   const void* v, const void* dout,
@@ -160,6 +160,12 @@ extern "C" int flash_bwd_dkv_sm90(const void* q, const void* k,
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::F32) {
+    if (D == 16)
+      return launch_tf32<16>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
+                             T, bh_layout, scale, causal, s);
+    if (D == 32)
+      return launch_tf32<32>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
+                             T, bh_layout, scale, causal, s);
     if (D == 64)
       return launch_tf32<64>(q, k, v, dout, lse, delta, dkp, dvp, B, H, Hk,
                              T, bh_layout, scale, causal, s);

@@ -1,11 +1,10 @@
-// Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16
-// or fp16 in at head dim 16, 32, 64, 128 or 256, or f32 (as TF32) at 64,
-// 128 or 256, f32 accumulate, causal or not, GQA, either layout.
+// Fused flash-attention backward for Hopper (one pass: dq, dk, dv), bf16,
+// fp16 or f32 (as TF32) in at head dim 16, 32, 64, 128 or 256, f32
+// accumulate, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_fused_kernel (pallas_call in _flash_bwd_fused) at every 16-bit D
-// and at f32 D in {64, 128, 256}; the WMMA kernel flash_bwd.cu keeps f32
-// at D 16/32.  Its
+// _bwd_fused_kernel (pallas_call in _flash_bwd_fused) at every dtype and
+// D; the WMMA kernel flash_bwd.cu stays as its yardstick.  Its
 // contract is flash_bwd's: dq f32, zeroed by the caller and added to here;
 // dk / dv as per-q-head f32 partials that the wrapper sums over each GQA
 // group.
@@ -46,7 +45,8 @@
 // dO^T and K^T written in shared memory, 32-row q tiles, and dq formed
 // as dq^T = K^T dS^T (flash_bwd_sm90.cuh); at D 256 on clusters of two
 // CTAs, each owning half of D, that exchange their partial S^T and dP^T
-// through shared memory (launch_walk_tf32).
+// through shared memory (launch_walk_tf32); at D 16 / 32 on 128-row q
+// tiles with dq formed as dS K, each warpgroup 64 q rows over all D.
 #include "flash_bwd_sm90.cuh"
 
 namespace {
@@ -165,9 +165,9 @@ extern "C" int flash_bwd_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As flash_bwd (flash_bwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
-// in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128, 256}; any
-// other dtype or head dim is cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
+// As flash_bwd (flash_bwd.cu) for f32 (dtype 0), bf16 (dtype 1) and fp16
+// (dtype 2) at D in {16, 32, 64, 128, 256}; any other dtype or head dim
+// is cudaErrorInvalidValue.  q, k, v, dout 16-byte aligned;
 // dq zeroed by the caller.
 extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
@@ -179,6 +179,12 @@ extern "C" int flash_bwd_sm90(const void* q, const void* k, const void* v,
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::F32) {
+    if (D == 16)
+      return launch_tf32<16>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
+                             Hk, T, bh_layout, scale, causal, s);
+    if (D == 32)
+      return launch_tf32<32>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
+                             Hk, T, bh_layout, scale, causal, s);
     if (D == 64)
       return launch_tf32<64>(q, k, v, dout, lse, delta, dq, dkp, dvp, B, H,
                              Hk, T, bh_layout, scale, causal, s);

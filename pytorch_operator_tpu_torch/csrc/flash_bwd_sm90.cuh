@@ -47,8 +47,8 @@
 //    faster in the dk/dv kernel, which runs this same walk); a 4-slot
 //    ring, or dq issued behind dK, gave nothing.
 //
-// f32 (walk_tf32, D 64, 128 and 256) multiplies in TF32, whose wgmma takes
-// both shared-memory operands K-major.  S^T = K Q^T and dP^T = V dO^T
+// f32 (walk_tf32, every D) multiplies in TF32, whose wgmma takes both
+// shared-memory operands K-major.  S^T = K Q^T and dP^T = V dO^T
 // are K-major already; the other three products read an MN-major
 // operand at 16 bits, so the f32 walk writes transposed copies:
 //  - dV += P^T dO and dK += dS^T Q take dO^T and Q^T (D rows of the 32
@@ -80,6 +80,26 @@
 // before it sends the next tile.
 // The room for the peer's partials (16 KB) comes from the ring: there
 // lse and delta leave the slots, whose rounding to 1 KB took 2 KB.
+// f32 at D 32 and 16 (NARROW): a row of Q, dO, K or V is 128 or 64 bytes,
+// one slab (at D 16 swizzled at 64 bytes, read by descriptors of
+// desc_hi(64), as the 16-bit D 32 walk's); a k8 step moves 32 bytes
+// inside it.  As at 16 bits the products are small beside the
+// exponentials and the per-tile handshakes, so the tiles are 128 keys
+// (warpgroup wg owning keys [64 wg, 64 wg + 64)) by 128 q rows: S^T and
+// dP^T m64n128k8 (64 f32 each, each its own commit group, P^T's
+// exponentials while dP^T runs), dV / dK m64nDk8 from Q^T and dO^T in
+// four 32-q slabs of D rows (transpose_tf32: at D 16 from the narrow
+// slab).  P^T and dS^T are rounded to TF32 in place, their registers
+// taken in the fragments' order at the product, so a thread holds S^T,
+// dP^T, dK and dV (128 + D f32) and no second copy.  dq^T = K^T dS^T
+// would put D in wgmma's M, which is 64, so dq = dS K instead, split by
+// q rows as at 16 bits: warpgroup wg forms q rows [64 wg, 64 wg + 64)
+// over all D (A = dS, q rows of 128 keys K-major in four 32-key slabs;
+// B = K^T, D rows of 128 keys) and adds them with vector f32 reductions.
+// dS takes 64 KB a buffer: at D 16 two fit (219 KB); at D 32 the fused
+// kernel keeps one dS buffer and one Q^T / dO^T stage (211 KB), and a
+// warpgroup writes the next tile's dS only once the other has read this
+// one's (named barriers 2 and 3).
 #pragma once
 
 #include "common.cuh"
@@ -132,13 +152,15 @@ struct Maps {
 
 // Rows of the walk's q tiles and key tiles over E at head dim D, and the
 // bytes of a slab row: the f32 walk's (walk_tf32) are 32 q rows and 64
-// keys at D 128 and 256, 128 at D 64; a 16-bit D 16 / 32 has narrow slabs.
+// keys at D 128 and 256, 128 at D 64, and 128 of each at D 16 / 32, whose
+// rows are one slab of 4 D bytes; a 16-bit D 16 / 32 has narrow slabs.
 template <typename E, int D> struct WalkTiles {
   static constexpr int BQ = q_tile<D>(), BK = key_tile<D>();
   static constexpr int RB = BwdSmem<D, false>::RB;
 };
 template <int D> struct WalkTiles<float, D> {
-  static constexpr int BQ = 32, BK = D == 64 ? 128 : 64, RB = SLAB;
+  static constexpr int BQ = D < 64 ? 128 : 32;
+  static constexpr int BK = D <= 64 ? 128 : 64, RB = D < 64 ? 4 * D : SLAB;
 };
 
 template <typename E, int D>
@@ -557,8 +579,8 @@ __device__ __forceinline__ void walk(
 // ---------------------------------------------------------------------------
 
 template <int D, bool DQ> struct BwdTf32Smem {
-  static_assert(D == 64 || D == 128 || D == 256,
-                "the f32 walk takes D 64, 128 and 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "the f32 walk takes D 16, 32, 64, 128 and 256");
   // D 256: a cluster of CTAS = 2 CTAs, each owning DC = 128 of D's
   // columns (see the header)
   static constexpr bool CLUSTER = D == 256;
@@ -566,10 +588,14 @@ template <int D, bool DQ> struct BwdTf32Smem {
   // DC 128: both warpgroups own all BK keys and half of the CTA's columns
   // of dK and dV; D 64: each its own 64 keys and all of D
   static constexpr bool SPLIT = DC == 128;
+  // NARROW (D 16 / 32): 128-row q tiles, Q, dO, K and V one slab of 4 D
+  // bytes a row (swizzled at 64 bytes at D 16), dq = dS K (see the header)
+  static constexpr bool NARROW = D < 64;
   static constexpr int BK = WalkTiles<float, D>::BK;
   static constexpr int BQ = WalkTiles<float, D>::BQ;
-  static constexpr int SLABS = DC / 32;  // 32 f32 columns a slab
-  static constexpr int K_SLAB = BK * SLAB, Q_SLAB = BQ * SLAB;
+  static constexpr int RB = WalkTiles<float, D>::RB;  // bytes a slab row
+  static constexpr int SLABS = NARROW ? 1 : DC / 32;  // 32 f32 columns a slab
+  static constexpr int K_SLAB = BK * RB, Q_SLAB = BQ * RB;
   static constexpr int K = 0;
   static constexpr int V = K + SLABS * K_SLAB;
   // with DQ: K^T, DC rows of BK keys (BK / 32 slabs of DC rows), written
@@ -583,17 +609,21 @@ template <int D, bool DQ> struct BwdTf32Smem {
   static constexpr int QD = 2 * SLABS * Q_SLAB;
   static constexpr int SLOT =
       CLUSTER ? QD : (QD + 2 * BQ * 4 + 1023) / 1024 * 1024;
-  // Q^T then dO^T of a slot's tile: DC rows of BQ = 32 q each (one slab
-  // each), q in the A fragments' order; QT_STAGES buffers
-  static constexpr int QT_SLAB = DC * SLAB, QT_STAGES = SPLIT ? 1 : 2;
+  // Q^T then dO^T of a slot's tile: DC rows of BQ q each (BQ / 32 slabs
+  // of QT_SUB bytes: one at BQ = 32), q in the A fragments' order;
+  // QT_STAGES buffers.  With DQ at D 32 one, and one dS buffer, for room
+  static constexpr int QT_SUB = DC * SLAB, QT_SLAB = (BQ / 32) * QT_SUB;
+  static constexpr bool ROOM = NARROW && DQ && D == 32;
+  static constexpr int QT_STAGES = SPLIT || ROOM ? 1 : 2;
   static constexpr int QT = RING + STAGES * SLOT;
-  // with DQ: dS (BQ q rows of BK keys, BK / 32 slabs), two buffers
+  // with DQ: dS (BQ q rows of BK keys, BK / 32 slabs), DS_BUFS buffers
   static constexpr int DS_SLAB = BQ * SLAB, DS_BUF = (BK / 32) * DS_SLAB;
+  static constexpr int DS_BUFS = ROOM ? 1 : 2;
   static constexpr int DS = QT + QT_STAGES * 2 * QT_SLAB;
   // CLUSTER: the peer's partial S^T then dP^T (BK x BQ f32 each, in the
   // order of the consumer threads' accumulator registers), then each
   // slot's lse and delta
-  static constexpr int XS = DS + (DQ ? 2 : 0) * DS_BUF;
+  static constexpr int XS = DS + (DQ ? DS_BUFS : 0) * DS_BUF;
   static constexpr int X_TILE = BK * BQ * 4, X_BYTES = CLUSTER ? 2 * X_TILE : 0;
   static constexpr int ROWS = XS + X_BYTES;
   static constexpr int BAR = ROWS + (CLUSTER ? STAGES * 2 * BQ * 4 : 0);
@@ -604,10 +634,10 @@ template <int D, bool DQ> struct BwdTf32Smem {
   static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
 };
 
-// As walk<E, D, DQ> for f32 inputs at D 64, 128 and 256: the same
-// contract, grid (ceil(T / BK) * B * H * CTAS blocks, clusters of CTAS
-// consecutive blocks: launch_walk_tf32, BwdTf32Smem<D, DQ>::BYTES of
-// dynamic shared memory) and maps (make_maps<float, D>).
+// As walk<E, D, DQ> for f32 inputs: the same contract, grid (ceil(T /
+// BK) * B * H * CTAS blocks, clusters of CTAS consecutive blocks:
+// launch_walk_tf32, BwdTf32Smem<D, DQ>::BYTES of dynamic shared memory)
+// and maps (make_maps<float, D>).
 template <int D, bool DQ>
 __device__ __forceinline__ void walk_tf32(
     const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
@@ -618,6 +648,7 @@ __device__ __forceinline__ void walk_tf32(
   using S = BwdTf32Smem<D, DQ>;
   constexpr int SLABS = S::SLABS, BK = S::BK, BQ = S::BQ, DC = S::DC;
   constexpr int QTS = S::QT_STAGES;
+  constexpr uint32_t HI = desc_hi(S::RB);  // Q, dO, K, V: DESC_HI but D 16
   constexpr bool SPLIT = S::SPLIT, CLUSTER = S::CLUSTER;
   constexpr int DW = SPLIT ? DC / 2 : DC;  // dK / dV columns a warpgroup
   extern __shared__ unsigned char smem_raw[];
@@ -720,7 +751,7 @@ __device__ __forceinline__ void walk_tf32(
       }
     } else {
       constexpr int W = TF32_TRANSPOSERS / 32;
-      constexpr int Q_UNITS = (DC / 32) * (BQ / 32);  // of Q^T; dO^T's next
+      constexpr int Q_UNITS = transpose_tf32_units<BQ, DC>();  // then dO^T's
       const int tw = pt / 32 - 1, lane = pt % 32;
       if constexpr (DQ) {
         mbar_wait(kv_full, 0);
@@ -758,8 +789,8 @@ __device__ __forceinline__ void walk_tf32(
 #pragma unroll
   for (int i = 0; i < DW / 2; ++i) dk[i] = dv[i] = 0.f;
 
-  const uint32_t k_addr = smem_u32(smem + S::K) + kw * SLAB;
-  const uint32_t v_addr = smem_u32(smem + S::V) + kw * SLAB;
+  const uint32_t k_addr = smem_u32(smem + S::K) + kw * S::RB;
+  const uint32_t v_addr = smem_u32(smem + S::V) + kw * S::RB;
   // dq^T = K^T dS^T, this warpgroup's part: SPLIT, d rows [64 wg, 64 wg +
   // 64) of the CTA's over all BQ q; else all 64 d rows over q [16 wg, 16
   // wg + 16)
@@ -790,143 +821,293 @@ __device__ __forceinline__ void walk_tf32(
     const float* delta_s = reinterpret_cast<const float*>(rows + BQ * 4);
     const bool mask = (causal && q0 < k0 + BK) || q0 + BQ > T || k0 + BK > T;
 
-    // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, BQ q), m64n32k8 from
-    // shared memory, issued back to back
-    float st[BQ / 2], dpt[BQ / 2];
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < DC / 8; ++kk) {
-      const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-      mma_ss_tf32(st, desc_k(k_addr + koff), desc_k(q_addr + qoff), kk > 0);
-    }
-#pragma unroll
-    for (int kk = 0; kk < DC / 8; ++kk) {
-      const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
-      const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
-      mma_ss_tf32(dpt, desc_k(v_addr + koff), desc_k(do_addr + qoff),
-                  kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(st);
-    fence_regs(dpt);
-
-    if constexpr (CLUSTER) {
-      // partial sums over this CTA's columns: send ours once the peer has
-      // read the last tile's, add the peer's once they have landed
-      mbar_wait_cluster(x_empty, (it & 1) ^ 1);
-      if (wg == 0)
-        send_partial(st, x_peer, tid, x_full_peer);
-      else
-        send_partial(dpt, x_peer, tid, x_full_peer);
-      mbar_wait_cluster(x_full, it & 1);
-      add_partial(st, smem + S::XS, tid);
-      add_partial(dpt, smem + S::XS + S::X_TILE, tid);
-      __syncwarp();
-      if (lane == 0) {
-        // the next tile's bytes are expected before the peer, released
-        // here, may send them
-        if (tid == 0 && wg == 0 && i + 1 < n_qt)
-          mbar_expect_tx(x_full, S::X_BYTES);
-        mbar_arrive_cluster(x_empty_peer);
-      }
-    }
-
-    // P^T and dS^T in f32 (dS^T from the f32 P^T), in place
-    const float sl2 = scale * LOG2E;
-#pragma unroll
-    for (int e = 0; e < BQ / 2; e += 2) {  // columns c and c + 1 of a key row
-      const int key = key_a + 8 * ((e / 2) % 2);
-      const int c = 8 * (e / 4) + col;
-      const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
-      const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
-      float p0 = ex2(fmaf(st[e], sl2, -ls.x));
-      float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
-      if (mask) {
-        const int q = q0 + c;
-        const bool kin = key < T;
-        if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
-        if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
-      }
-      st[e] = p0;
-      st[e + 1] = p1;
-      dpt[e] = p0 * (dpt[e] - dl.x) * scale;
-      dpt[e + 1] = p1 * (dpt[e + 1] - dl.y) * scale;
-    }
-    // their TF32 A fragments: each k8 block of q in the order Q^T and
-    // dO^T are written in
-    uint32_t pa[BQ / 2], da[BQ / 2];
-#pragma unroll
-    for (int t = 0; t < BQ / 8; ++t) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int e = 4 * t + (j == 1 ? 2 : j == 2 ? 1 : j);
-        pa[4 * t + j] = tf32(st[e]);
-        da[4 * t + j] = tf32(dpt[e]);
-      }
-    }
-    unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;
-    if constexpr (DQ) {
-      // dS (q rows, keys K-major) into shared memory for dq^T = K^T dS^T
-      // below, rounded to TF32 (SPLIT: both warpgroups hold all of it,
-      // each writes q columns [16 wg, 16 wg + 16))
-#pragma unroll
-      for (int e = 0; e < BQ / 2; ++e) {
-        if (SPLIT && (e / 4) / 2 != wg) continue;
-        const int key = kw + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
-        const int q = 8 * (e / 4) + col + (e % 2);
-        *reinterpret_cast<uint32_t*>(
-            ds_buf + (key / 32) * S::DS_SLAB +
-            swizzle_128b_f32(q, key % 32)) = tf32(dpt[e]);
-      }
-      fence_proxy_async();
-    }
-
-    // dV += P^T dO and dK += dS^T Q: B = dO^T and Q^T (this warpgroup's
-    // DW rows of the CTA's columns, BQ q K-major), m64n64k8
-    mbar_wait(&qt_full[qs], (it / QTS) & 1);
-    const uint32_t qt_addr =
-        smem_u32(smem + S::QT + qs * 2 * S::QT_SLAB) + cw * SLAB;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < BQ / 8; ++kk)
-      mma_rs_tf32(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
-                  pa[4 * kk + 3], desc_k(qt_addr + S::QT_SLAB + kk * 32), 1);
-#pragma unroll
-    for (int kk = 0; kk < BQ / 8; ++kk)
-      mma_rs_tf32(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
-                  da[4 * kk + 3], desc_k(qt_addr + kk * 32), 1);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(dv);
-    fence_regs(dk);
-    if (tid == 0) {
-      mbar_arrive(&qt_empty[qs]);
-      mbar_arrive(&q_empty[s]);
-    }
-
-    if constexpr (DQ) {
-      // both warpgroups' parts of dS are in place, and K^T
-      named_barrier(1, 256);
-      mbar_wait(kt_full, 0);
-      const uint32_t ds_addr = smem_u32(ds_buf) + qn * SLAB;
-      float dqa[DQN / 2];
+    if constexpr (S::NARROW) {
+      // The tile's shared addresses from a base the compiler cannot hoist
+      // out of the loop: at D 32, with one Q^T / dO^T stage and one dS
+      // buffer, every descriptor and dS address is loop-invariant, and the
+      // compiler kept them all in registers (628 bytes spilled)
+      const uint32_t nb = opaque(smem_u32(smem));
+      const uint32_t k_at = nb + S::K + kw * S::RB;
+      const uint32_t v_at = nb + S::V + kw * S::RB;
+      const uint32_t q_at = nb + S::RING + s * S::SLOT;
+      const uint32_t do_at = q_at + S::DO_OFF;
+      // S^T = K_wg Q^T, then dP^T = V_wg dO^T (64 keys, 128 q, m64n128k8
+      // over D / 8 steps), each its own group: P^T's exponentials run
+      // while dP^T is formed
+      float st[BQ / 2], dpt[BQ / 2];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 8; ++kk)
-        mma_ss_tf32(
-            dqa, desc_k(kt_addr + (kk / 4) * S::KT_SLAB + (kk % 4) * 32),
-            desc_k(ds_addr + (kk / 4) * S::DS_SLAB + (kk % 4) * 32), kk > 0);
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_ss_tf32<HI>(st, desc_k(k_at + 32 * kk), desc_k(q_at + 32 * kk),
+                        kk > 0);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk)
+        mma_ss_tf32<HI>(dpt, desc_k(v_at + 32 * kk),
+                        desc_k(do_at + 32 * kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(st);
+      const float sl2 = scale * LOG2E;
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {  // columns c, c + 1 of a key row
+        const int key = key_a + 8 * ((e / 2) % 2);
+        const int c = 8 * (e / 4) + col;
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+        float p0 = ex2(fmaf(st[e], sl2, -ls.x));
+        float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
+        if (mask) {
+          const int q = q0 + c;
+          const bool kin = key < T;
+          if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
+          if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
+        }
+        st[e] = p0;
+        st[e + 1] = p1;
+      }
+      wgmma_wait<0>();
+      fence_regs(dpt);
+      // dS^T from the f32 P^T; then both rounded to TF32 in place: the A
+      // fragments of dV += P^T dO and dK += dS^T Q, a k8 block's registers
+      // taken in the order {0, 2, 1, 3} (q in the order of Q^T and dO^T)
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {
+        const int c = 8 * (e / 4) + col;
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+        dpt[e] = st[e] * (dpt[e] - dl.x) * scale;
+        dpt[e + 1] = st[e + 1] * (dpt[e + 1] - dl.y) * scale;
+      }
+#pragma unroll
+      for (int e = 0; e < BQ / 2; ++e) {
+        st[e] = __uint_as_float(tf32(st[e]));
+        dpt[e] = __uint_as_float(tf32(dpt[e]));
+      }
+      const uint32_t dsn =
+          nb + S::DS + (S::DS_BUFS == 2 ? (it & 1) * S::DS_BUF : 0);
+      if constexpr (DQ) {
+        // dS (q rows, keys K-major) into shared memory for dq = dS K below;
+        // with one buffer once the other warpgroup has read the last
+        // tile's.  Register 4 j + 2 h + b holds key row h, q column 8 j +
+        // col + b: swizzled at (col + b, key) plus 1024 j bytes
+        if (S::DS_BUFS == 1 && it > 0) named_barrier(2 + wg, 256);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int key = kw + 16 * warp + lane / 4 + 8 * h;
+#pragma unroll
+          for (int b = 0; b < 2; ++b) {
+            const uint32_t at = dsn + (key / 32) * S::DS_SLAB +
+                                swizzle_128b_f32(col + b, key % 32);
+#pragma unroll
+            for (int j = 0; j < BQ / 8; ++j)
+              st_shared_f32(at + 1024 * j, dpt[4 * j + 2 * h + b]);
+          }
+        }
+        fence_proxy_async();
+      }
+
+      // dV += P^T dO and dK += dS^T Q: B = dO^T and Q^T (D rows of 128 q
+      // K-major, four slabs), m64nDk8
+      mbar_wait(&qt_full[qs], (it / QTS) & 1);
+      const uint32_t qt_addr = nb + S::QT + qs * 2 * S::QT_SLAB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk)
+        mma_rs_tf32(dv, __float_as_uint(st[4 * kk]),
+                    __float_as_uint(st[4 * kk + 2]),
+                    __float_as_uint(st[4 * kk + 1]),
+                    __float_as_uint(st[4 * kk + 3]),
+                    desc_k(qt_addr + S::QT_SLAB + (kk / 4) * S::QT_SUB +
+                           (kk % 4) * 32),
+                    1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk)
+        mma_rs_tf32(dk, __float_as_uint(dpt[4 * kk]),
+                    __float_as_uint(dpt[4 * kk + 2]),
+                    __float_as_uint(dpt[4 * kk + 1]),
+                    __float_as_uint(dpt[4 * kk + 3]),
+                    desc_k(qt_addr + (kk / 4) * S::QT_SUB + (kk % 4) * 32), 1);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs(dqa);
-      // dq^T's (d, q) element added to dq[q, d] (red.global.add.f32)
+      fence_regs(dv);
+      fence_regs(dk);
+      // Q, dO, Q^T, dO^T, lse and delta were read last here
+      if (tid == 0) {
+        mbar_arrive(&qt_empty[qs]);
+        mbar_arrive(&q_empty[s]);
+      }
+
+      if constexpr (DQ) {
+        // both warpgroups' halves of dS are in place, and K^T; this
+        // warpgroup's 64 q rows of dq_tile = dS K over all D: A = dS (64 q
+        // rows of BK keys), B = K^T (D rows of BK keys), m64nDk8
+        named_barrier(1, 256);
+        mbar_wait(kt_full, 0);
+        const uint32_t ds_addr = dsn + 64 * wg * SLAB;
+        const uint32_t ktd_addr = nb + S::KT;
+        float dqa[D / 2];
+        wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < DQN / 2; ++e) {
-        const int d = c0 + dm + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
-        const int q = q0 + qn + 8 * (e / 4) + col + (e % 2);
-        if (q < T) atomicAdd(dq + q_base + (int64_t)q * q_rs + d, dqa[e]);
+        for (int kk = 0; kk < BK / 8; ++kk)
+          mma_ss_tf32(
+              dqa, desc_k(ds_addr + (kk / 4) * S::DS_SLAB + (kk % 4) * 32),
+              desc_k(ktd_addr + (kk / 4) * S::KT_SLAB + (kk % 4) * 32),
+              kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        // the other warpgroup may write the next tile's dS
+        if (S::DS_BUFS == 1 && i + 1 < n_qt) named_arrive(2 + (wg ^ 1), 256);
+        // added to dq by vector f32 reductions (red.global.add.v2.f32)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = q0 + 64 * wg + 16 * warp + lane / 4 + 8 * r;
+          if (q >= T) continue;
+          float* dst = dq + q_base + (int64_t)q * q_rs + col;
+#pragma unroll
+          for (int c = 0; c < D / 8; ++c)
+            atomicAdd(reinterpret_cast<float2*>(dst + 8 * c),
+                      make_float2(dqa[4 * c + 2 * r], dqa[4 * c + 2 * r + 1]));
+        }
+      }
+    } else {
+      // S^T = K_wg Q^T and dP^T = V_wg dO^T (64 keys, BQ q), m64n32k8 from
+      // shared memory, issued back to back
+      float st[BQ / 2], dpt[BQ / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DC / 8; ++kk) {
+        const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
+        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+        mma_ss_tf32(st, desc_k(k_addr + koff), desc_k(q_addr + qoff), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DC / 8; ++kk) {
+        const uint32_t koff = (kk / 4) * S::K_SLAB + (kk % 4) * 32;
+        const uint32_t qoff = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
+        mma_ss_tf32(dpt, desc_k(v_addr + koff), desc_k(do_addr + qoff),
+                    kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+
+      if constexpr (CLUSTER) {
+        // partial sums over this CTA's columns: send ours once the peer has
+        // read the last tile's, add the peer's once they have landed
+        mbar_wait_cluster(x_empty, (it & 1) ^ 1);
+        if (wg == 0)
+          send_partial(st, x_peer, tid, x_full_peer);
+        else
+          send_partial(dpt, x_peer, tid, x_full_peer);
+        mbar_wait_cluster(x_full, it & 1);
+        add_partial(st, smem + S::XS, tid);
+        add_partial(dpt, smem + S::XS + S::X_TILE, tid);
+        __syncwarp();
+        if (lane == 0) {
+          // the next tile's bytes are expected before the peer, released
+          // here, may send them
+          if (tid == 0 && wg == 0 && i + 1 < n_qt)
+            mbar_expect_tx(x_full, S::X_BYTES);
+          mbar_arrive_cluster(x_empty_peer);
+        }
+      }
+
+      // P^T and dS^T in f32 (dS^T from the f32 P^T), in place
+      const float sl2 = scale * LOG2E;
+#pragma unroll
+      for (int e = 0; e < BQ / 2; e += 2) {  // columns c and c + 1 of a key row
+        const int key = key_a + 8 * ((e / 2) % 2);
+        const int c = 8 * (e / 4) + col;
+        const float2 ls = *reinterpret_cast<const float2*>(lse_s + c);
+        const float2 dl = *reinterpret_cast<const float2*>(delta_s + c);
+        float p0 = ex2(fmaf(st[e], sl2, -ls.x));
+        float p1 = ex2(fmaf(st[e + 1], sl2, -ls.y));
+        if (mask) {
+          const int q = q0 + c;
+          const bool kin = key < T;
+          if (!(kin && q < T && (!causal || key <= q))) p0 = 0.f;
+          if (!(kin && q + 1 < T && (!causal || key <= q + 1))) p1 = 0.f;
+        }
+        st[e] = p0;
+        st[e + 1] = p1;
+        dpt[e] = p0 * (dpt[e] - dl.x) * scale;
+        dpt[e + 1] = p1 * (dpt[e + 1] - dl.y) * scale;
+      }
+      // their TF32 A fragments: each k8 block of q in the order Q^T and
+      // dO^T are written in
+      uint32_t pa[BQ / 2], da[BQ / 2];
+#pragma unroll
+      for (int t = 0; t < BQ / 8; ++t) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int e = 4 * t + (j == 1 ? 2 : j == 2 ? 1 : j);
+          pa[4 * t + j] = tf32(st[e]);
+          da[4 * t + j] = tf32(dpt[e]);
+        }
+      }
+      unsigned char* ds_buf = smem + S::DS + (it & 1) * S::DS_BUF;
+      if constexpr (DQ) {
+        // dS (q rows, keys K-major) into shared memory for dq^T = K^T dS^T
+        // below, rounded to TF32 (SPLIT: both warpgroups hold all of it,
+        // each writes q columns [16 wg, 16 wg + 16))
+#pragma unroll
+        for (int e = 0; e < BQ / 2; ++e) {
+          if (SPLIT && (e / 4) / 2 != wg) continue;
+          const int key = kw + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+          const int q = 8 * (e / 4) + col + (e % 2);
+          *reinterpret_cast<uint32_t*>(
+              ds_buf + (key / 32) * S::DS_SLAB +
+              swizzle_128b_f32(q, key % 32)) = tf32(dpt[e]);
+        }
+        fence_proxy_async();
+      }
+
+      // dV += P^T dO and dK += dS^T Q: B = dO^T and Q^T (this warpgroup's
+      // DW rows of the CTA's columns, BQ q K-major), m64n64k8
+      mbar_wait(&qt_full[qs], (it / QTS) & 1);
+      const uint32_t qt_addr =
+          smem_u32(smem + S::QT + qs * 2 * S::QT_SLAB) + cw * SLAB;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk)
+        mma_rs_tf32(dv, pa[4 * kk], pa[4 * kk + 1], pa[4 * kk + 2],
+                    pa[4 * kk + 3], desc_k(qt_addr + S::QT_SLAB + kk * 32), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 8; ++kk)
+        mma_rs_tf32(dk, da[4 * kk], da[4 * kk + 1], da[4 * kk + 2],
+                    da[4 * kk + 3], desc_k(qt_addr + kk * 32), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      if (tid == 0) {
+        mbar_arrive(&qt_empty[qs]);
+        mbar_arrive(&q_empty[s]);
+      }
+
+      if constexpr (DQ) {
+        // both warpgroups' parts of dS are in place, and K^T
+        named_barrier(1, 256);
+        mbar_wait(kt_full, 0);
+        const uint32_t ds_addr = smem_u32(ds_buf) + qn * SLAB;
+        float dqa[DQN / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk)
+          mma_ss_tf32(
+              dqa, desc_k(kt_addr + (kk / 4) * S::KT_SLAB + (kk % 4) * 32),
+              desc_k(ds_addr + (kk / 4) * S::DS_SLAB + (kk % 4) * 32), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dqa);
+        // dq^T's (d, q) element added to dq[q, d] (red.global.add.f32)
+#pragma unroll
+        for (int e = 0; e < DQN / 2; ++e) {
+          const int d = c0 + dm + 16 * warp + lane / 4 + 8 * ((e / 2) % 2);
+          const int q = q0 + qn + 8 * (e / 4) + col + (e % 2);
+          if (q < T) atomicAdd(dq + q_base + (int64_t)q * q_rs + d, dqa[e]);
+        }
       }
     }
   }

@@ -229,6 +229,19 @@ int launch_clusters(void (*kernel)(Params...), int blocks, int threads,
   return e ? e : static_cast<int>(cudaGetLastError());
 }
 
+// x, as a value the compiler cannot see through: a shared address taken
+// from it inside a loop is computed there, not hoisted out and kept in a
+// register for the whole loop.
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  uint32_t r;
+  asm volatile("mov.b32 %0, %1;\n" : "=r"(r) : "r"(x));
+  return r;
+}
+
+__device__ __forceinline__ void st_shared_f32(uint32_t addr, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+
 // Order this thread's generic-proxy shared-memory writes before later
 // async-proxy (wgmma, TMA) reads of them.
 __device__ __forceinline__ void fence_proxy_async() {
@@ -238,6 +251,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive on barrier `id` without waiting: the releasing side of a
+// named_barrier(id, threads) that other threads wait on.
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Grow (consumers) or shrink (producer) this warpgroup's registers.
@@ -428,7 +447,9 @@ __device__ __forceinline__ void mma_ss_tf32(float (&d)[32], Desc a, Desc b,
 }
 
 // d (64 x 128, f32) (+)= A (64 x 8) B (8 x 128), TF32, both K-major from
-// shared memory (descriptors a, b).
+// shared memory (descriptors a, b, both of high word HI: desc_hi(64) for
+// the f32 walk's narrow slabs at D 16).
+template <uint32_t HI = DESC_HI>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[64], Desc a, Desc b,
                                             int accumulate) {
   asm volatile(
@@ -461,7 +482,48 @@ __device__ __forceinline__ void mma_ss_tf32(float (&d)[64], Desc a, Desc b,
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+      : "r"(a.lo), "r"(b.lo), "r"(HI), "r"(accumulate));
+}
+
+// d (64 x 16, f32) (+)= A (64 x 8, TF32 in registers: tf32()) B (8 x 16,
+// K-major in shared memory, descriptor b).
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[8], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %14, 0;\n"
+      "mov.b64 db, {%12, %13};\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),
+        "r"(accumulate));
+}
+
+// d (64 x 32, f32) (+)= A (64 x 8, TF32 in registers: tf32()) B (8 x 32,
+// K-major in shared memory, descriptor b).
+__device__ __forceinline__ void mma_rs_tf32(float (&d)[16], uint32_t a0,
+                                            uint32_t a1, uint32_t a2,
+                                            uint32_t a3, Desc b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .b64 db;\n"
+      "setp.ne.b32 p, %22, 0;\n"
+      "mov.b64 db, {%20, %21};\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, db, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b.lo), "r"(DESC_HI),
+        "r"(accumulate));
 }
 
 // d (64 x 64, f32) (+)= A (64 x 8, TF32 in registers: tf32()) B (8 x 64,
@@ -840,39 +902,104 @@ template <bool PERM> __device__ __forceinline__ int tf32_src_row(int p) {
 // one 16-byte store of four positions; a warp's loads read one 128-byte
 // row and its stores spread over all banks in each quarter warp.  Two
 // items' loads are in flight at a time.
-template <int R, int C, bool PERM, int WARPS>
-__device__ __forceinline__ void transpose_tf32(const unsigned char* src,
-                                               unsigned char* dst, int w,
-                                               int lane, int first = 0) {
-  static_assert(R % 32 == 0 && C % 32 == 0, "whole slabs");
-  constexpr int UNITS = (C / 32) * (R / 32);
+//
+// At C = 16 (the f32 walk at D 16) `src` is one narrow slab of R rows of
+// 64 bytes, swizzled at 64 bytes (chunk c of row r at c ^ ((r / 2) % 4)),
+// and `dst` gets R / 32 slabs of 16 rows (2048 bytes each).  A unit is 64
+// source rows: half hf = lane / 16 of the warp takes the 32 rows of
+// destination slab 2 u + hf, lane column lane % 16.  A 64-byte row fills
+// half the banks, so the two halves load rows of opposite parity at a
+// time: with PERM each 8 of positions holds the even rows in its first
+// four and the odd in its last four, and half 1 takes those fours in the
+// other order.  Without PERM (K^T, written once a CTA) the halves' loads
+// meet in the same banks.
+template <int R, bool PERM, int WARPS>
+__device__ __forceinline__ void transpose_tf32_n16(const unsigned char* src,
+                                                   unsigned char* dst, int w,
+                                                   int lane, int first) {
+  static_assert(R % 64 == 0, "whole units");
+  constexpr int UNITS = R / 64;
+  const int c = lane % 16, hf = lane / 16;
   const uint32_t s0 = smem_u32(src), d0 = smem_u32(dst);
-  // a row or position of residue k mod 8 takes load chunk (l / 4) ^ k and
-  // store chunk l ^ k: chunk offsets lc ^ (k << 4) and dc ^ (k << 4)
-  const uint32_t lc = ((lane >> 2) & 7) << 4, dc = (lane & 7) << 4;
+  // load chunk (c / 4) ^ k of a row with (r / 2) % 4 = k; store chunk
+  // q ^ c of position four q; with PERM half hf's q is p2 + (x ^ hf)
+  const uint32_t lc = (c / 4) << 4;
+  const uint32_t dc = ((c ^ (PERM ? hf : 0)) & 7) << 4;
   for (int u = (w - first % WARPS + WARPS) % WARPS; u < UNITS; u += WARPS) {
-    const int sl = u % (C / 32), rb = u / (C / 32);  // slab, 32-row block
-    const uint32_t sb =
-        s0 + sl * (R * 128) + rb * (32 * 128) + (lane & 3) * 4;
-    const uint32_t db = d0 + rb * (C * 128) + (32 * sl + lane) * 128;
+    const int blk = 2 * u + hf;  // 32-row block = destination slab
+    const uint32_t sb = s0 + blk * (32 * 64) + (c % 4) * 4;
+    const uint32_t db = d0 + blk * (16 * 128) + c * 128;
+    // PERM: the row of parity x ^ hf at x = 0, 1
+    const uint32_t sx0 = sb + (PERM ? 64 * hf : 0);
+    const uint32_t sx1 = sb + (PERM ? 64 * (1 - hf) : 0);
 #pragma unroll
     for (int p2 = 0; p2 < 8; p2 += 2) {
       uint32_t v[2][4];
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int x = 0; x < 2; ++x)
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
-          const int r = tf32_src_row<PERM>(4 * (p2 + h) + j);  // < 32
+          // PERM: source row 8 (p2 / 2) + 2 j + (x ^ hf), whose (r / 2) % 4
+          // is j; else 4 (p2 + x) + j
+          const int r = PERM ? 8 * (p2 / 2) + 2 * j : 4 * (p2 + x) + j;
+          const int k = PERM ? j : (r / 2) % 4;
           asm volatile("ld.shared.b32 %0, [%1];\n"
-                       : "=r"(v[h][j])
-                       : "r"(sb + r * 128 + (lc ^ ((r & 7) << 4))));
+                       : "=r"(v[x][j])
+                       : "r"((x ? sx1 : sx0) + r * 64 + (lc ^ (k << 4))));
         }
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+      for (int x = 0; x < 2; ++x)
         asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                         db + (dc ^ ((p2 + h) << 4))),
-                     "r"(v[h][0]), "r"(v[h][1]), "r"(v[h][2]), "r"(v[h][3])
+                         db + (dc ^ ((p2 + x) << 4))),
+                     "r"(v[x][0]), "r"(v[x][1]), "r"(v[x][2]), "r"(v[x][3])
                      : "memory");
+    }
+  }
+}
+
+// Units of work transpose_tf32<R, C, ...> splits an (R, C) tile into.
+template <int R, int C>
+__host__ __device__ constexpr int transpose_tf32_units() {
+  return C == 16 ? R / 64 : (C / 32) * (R / 32);
+}
+
+template <int R, int C, bool PERM, int WARPS>
+__device__ __forceinline__ void transpose_tf32(const unsigned char* src,
+                                               unsigned char* dst, int w,
+                                               int lane, int first = 0) {
+  if constexpr (C == 16) {
+    transpose_tf32_n16<R, PERM, WARPS>(src, dst, w, lane, first);
+  } else {
+    static_assert(R % 32 == 0 && C % 32 == 0, "whole slabs");
+    constexpr int UNITS = transpose_tf32_units<R, C>();
+    const uint32_t s0 = smem_u32(src), d0 = smem_u32(dst);
+    // a row or position of residue k mod 8 takes load chunk (l / 4) ^ k and
+    // store chunk l ^ k: chunk offsets lc ^ (k << 4) and dc ^ (k << 4)
+    const uint32_t lc = ((lane >> 2) & 7) << 4, dc = (lane & 7) << 4;
+    for (int u = (w - first % WARPS + WARPS) % WARPS; u < UNITS; u += WARPS) {
+      const int sl = u % (C / 32), rb = u / (C / 32);  // slab, 32-row block
+      const uint32_t sb =
+          s0 + sl * (R * 128) + rb * (32 * 128) + (lane & 3) * 4;
+      const uint32_t db = d0 + rb * (C * 128) + (32 * sl + lane) * 128;
+#pragma unroll
+      for (int p2 = 0; p2 < 8; p2 += 2) {
+        uint32_t v[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int r = tf32_src_row<PERM>(4 * (p2 + h) + j);  // < 32
+            asm volatile("ld.shared.b32 %0, [%1];\n"
+                         : "=r"(v[h][j])
+                         : "r"(sb + r * 128 + (lc ^ ((r & 7) << 4))));
+          }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                           db + (dc ^ ((p2 + h) << 4))),
+                       "r"(v[h][0]), "r"(v[h][1]), "r"(v[h][2]), "r"(v[h][3])
+                       : "memory");
+      }
     }
   }
 }

@@ -2,8 +2,9 @@
 dtypes and head dims the Hopper kernels take beyond bf16 at D 64/128:
 fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64, 128 and 256
 (the TF32 kernels; at D 256 the fused, dq and dk / dv kernels on
-clusters of two CTAs), and bf16 and fp16 at D 16 and 32 (every kernel
-on narrow slabs).
+clusters of two CTAs), bf16 and fp16 at D 16 and 32 (every kernel on
+narrow slabs), and f32 at D 16 and 32 (the fused and dk / dv kernels'
+TF32 walk on 128-row q tiles; the WMMA forward and dq kernel).
 
 On the CPU the port runs its kernels' plain versions (the forward, the
 fused backward, and the dq and dk / dv kernels on the two-kernel route),
@@ -32,7 +33,10 @@ JAX f32 reference within the card's f32 bounds (``chip_smoke.py`` phase
 max|err| <= 1e-2 * max|ref| and relative <= 1e-2, lse within 1e-2 of the
 plain version's.  ``test_split_d_dq_fits_the_f32_bounds`` replays the
 f32 dq kernel at D 256, whose two CTAs each hold half of D and exchange
-their partial scores, and holds its dq to the same bounds.
+their partial scores, and holds its dq to the same bounds;
+``test_narrow_walk_dq_fits_the_f32_bounds`` does the same for the fused
+kernel's f32 walk at D 16 and 32, which forms dq = dS K per 128-key tile
+on dS and K rounded to TF32 and sums the tiles' products in f32.
 """
 
 import importlib
@@ -58,7 +62,8 @@ REL, ABS = 1e-2, 1e-3
 # (dtype, D): the Hopper instantiations this parity covers
 INSTANCES = [("fp16", 64), ("fp16", 128), ("bf16", 256), ("fp16", 256),
              ("f32", 64), ("f32", 128), ("f32", 256), ("bf16", 32),
-             ("fp16", 16), ("fp16", 32), ("bf16", 16)]
+             ("fp16", 16), ("fp16", 32), ("bf16", 16), ("f32", 16),
+             ("f32", 32)]
 # (B, T, H, Hk, causal): one ragged T, causal and not, GQA
 SHAPES = [(1, 128, 2, 2, False), (1, 200, 4, 2, True),
           (1, 384, 2, 1, True)]
@@ -176,7 +181,7 @@ def port_tf32_truncated(q, k, v, g, causal):
 
 
 @pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
-@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("D", [16, 32, 64, 128, 256])
 def test_tf32_truncation_fits_the_f32_bounds(D, B, T, H, Hk, causal):
     q, k, v, g = inputs(D + T + 2, B, T, H, Hk, D, torch.float32)
     *got, lse = port_tf32_truncated(q, k, v, g, causal)
@@ -232,6 +237,56 @@ def port_split_d_dq(q, k, v, g, causal):
 def test_split_d_dq_fits_the_f32_bounds(B, T, H, Hk, causal):
     q, k, v, g = inputs(T + 3, B, T, H, Hk, 256, torch.float32)
     got = port_split_d_dq(q, k, v, g, causal)
+    want = jax_run(q, k, v, g, causal, jnp.float32)[1]
+    err = float(np.abs(got - want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert err <= 1e-2 * float(np.abs(want).max()) and rel <= 1e-2, \
+        (err, rel)
+
+
+def tf32_round(x):
+    """x (f32) rounded to TF32, to nearest with ties away from zero: the
+    kernels' cvt.rna of P and dS, and a TFLOAT32 tensor map's load."""
+    return ((x.contiguous().view(torch.int32) + 0x1000) & ~0x1FFF).view(
+        torch.float32)
+
+
+def port_narrow_walk_dq(q, k, v, g, causal):
+    """The f32 fused kernel's walk at D 16 / 32
+    (``csrc/flash_bwd_sm90.cuh``, walk_tf32's NARROW body) replayed in
+    plain f32 torch on (B, T, H, D) numpy inputs: q, k, v and dO rounded
+    to TF32 as TMA loads them, S^T and dP^T over them in f32, P and dS in
+    f32 from those (lse and delta as the route gives them: the forward
+    and rowsum(dO * out)), and dq the sum over 128-key tiles of that
+    tile's dS K, dS rounded to TF32 as the consumers store it.  Returns
+    dq as numpy."""
+    B, T, H, D = q.shape
+    group = H // k.shape[2]
+    scale = D ** -0.5
+    q, k, v, g = (tf32_round(torch.tensor(x)) for x in (q, k, v, g))
+    _, lse = fa._flash_fwd_reference(q, k, v, scale, causal, False)
+    q4, g4 = (fa._heads_first(x, False) for x in (q, g))
+    k4, v4 = (fa._heads_first(x, False).repeat_interleave(group, dim=1)
+              for x in (k, v))
+    p = torch.exp(q4 @ k4.transpose(-1, -2) * scale
+                  - lse.reshape(B, H, T, 1))
+    if causal:
+        p = p.masked_fill(~fa._causal_mask(T, p.device), 0.0)
+    out = tf32_round(p) @ v4
+    delta = (g4 * out).sum(-1, keepdim=True)
+    ds = tf32_round(p * (g4 @ v4.transpose(-1, -2) - delta) * scale)
+    dq = torch.zeros_like(q4)
+    for k0 in range(0, T, 128):
+        keys = slice(k0, k0 + 128)
+        dq = dq + ds[..., keys] @ k4[..., keys, :]
+    return fa._from_heads_first(dq, False).numpy()
+
+
+@pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
+@pytest.mark.parametrize("D", [16, 32])
+def test_narrow_walk_dq_fits_the_f32_bounds(D, B, T, H, Hk, causal):
+    q, k, v, g = inputs(D + T + 4, B, T, H, Hk, D, torch.float32)
+    got = port_narrow_walk_dq(q, k, v, g, causal)
     want = jax_run(q, k, v, g, causal, jnp.float32)[1]
     err = float(np.abs(got - want).max())
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
