@@ -12,7 +12,7 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             csrc (timed, with ptxas' register and spill counts by kernel
             and instantiation; any spill byte in a _sm90 kernel fails;
             the CTAs per multiprocessor of every 16-bit Hopper kernel,
-            B1-B4, by the occupancy API),
+            B1-B4, and of the f32 B1, by the occupancy API),
             and what a TMA load of f32 gives back through a FLOAT32 and
             a TFLOAT32 tensor map (copied, rounded or truncated);
 2. kernels  each CUDA kernel against its plain PyTorch version on the
@@ -26,20 +26,20 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             D 128 at the main shape, D 256 with the backward on
             clusters of two CTAs), the Hopper B1 and B2 on narrow slabs
             at bf16 and fp16 D 16/32 (GQA at a ragged T, T = 1 and 129,
-            both layouts, causal and not), the Hopper TF32 B2 at f32 D
-            16/32 (GQA at a ragged T, T = 2 and 129, both layouts,
+            both layouts, causal and not), the Hopper TF32 B1 and B2 at
+            f32 D 16/32 (GQA at a ragged T, T = 2 and 129, both layouts,
             causal and not) and B*H = 65,536), the
             two-kernel route (dq, then dk/dv) at T4096 and on the same
             variety with the route forced (the Hopper B3 at fp16, D 256
             and f32 D 64/128/256, at f32 D 256 B3 and B4 on clusters, the
             Hopper B3 and B4 at bf16 and fp16 D 16/32, the Hopper TF32
-            B4 at f32 D 16/32); the
+            B1, B3 and B4 at f32 D 16/32); the
             Hopper B4's dk/dv bit for bit B2's and the Hopper B3's dq
             bit for bit over two runs, and within bounds of B2's, at
             every bf16, fp16 and f32 instantiation; the WMMA forward and
-            fused backward,
-            which bf16, fp16 and f32 no longer reach, at the main path's
-            shape in bf16 and f32; at the long path's full
+            fused backward, which no call reaches, at the main path's
+            shape in bf16 and f32, and the WMMA forward and dq kernel at
+            phase 3's f32 D 32 and 16 shapes; at the long path's full
             shape B1 and the Hopper and WMMA B3 and B4 against their
             plain versions on two of the heads (the Hopper B4's dk error
             beside the WMMA B4's: both form dS from the f32 P), the
@@ -61,8 +61,8 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             those but D 96 (the Hopper B3 in turns with the WMMA one),
             bf16 and fp16 at D 32 (H64) and D 16 (H128), B1-B4 on
             narrow slabs in turns with their WMMA kernels, and f32
-            there, the Hopper TF32 B2 and B4 in turns with their WMMA
-            kernels beside the WMMA B1 and B3; the bounds count
+            there, the Hopper TF32 B1-B4 in turns with their WMMA
+            kernels; the bounds count
             the tensor products and one exponential a score element
             (PEAK_EXP); the forward beside SDPA and the backward
             beside aten's flash backward (bf16, fp16) or SDPA's
@@ -87,7 +87,11 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             remat tier: grads against no remat and the Hopper flash
             forward's launches per step (L under save_attn*, 2L under
             full remat), and L of the fused backward's Hopper walk (head
-            dim 16, both on narrow slabs, no WMMA launch);
+            dim 16, both on narrow slabs, no WMMA launch); then
+            train_llama's default model (the tiny Llama, f32, head dim
+            16, full remat) for two steps as the trainer runs it and
+            again with --no-remat: exact launches per step of the TF32
+            B1 and B2 and of RMSNorm, no WMMA launch;
 8. sharded  the T2048 path of phase 4 through the sharded code path at
             world size 1 over NCCL: make_mesh(1, 1, 1), sharded_init
             (at one rank the plain model: no FSDP2, no DTensor),
@@ -357,8 +361,8 @@ def ptxas_by_kernel(log: str) -> dict:
 
 # The Hopper kernels' instantiations: B1, B2, B3 and B4 at bf16, fp16
 # and f32 (TF32) at D 64/128/256 (9 each), at bf16 and fp16 at D 16/32
-# (on narrow slabs, 4 each), and B2 and B4 at f32 D 16/32 (2 each)
-SM90_INSTANTIATIONS = 56
+# (on narrow slabs, 4 each), and at f32 D 16/32 (2 each)
+SM90_INSTANTIATIONS = 60
 
 
 def check_sm90_ptxas(log: str) -> dict:
@@ -382,7 +386,8 @@ def check_sm90_ptxas(log: str) -> dict:
 
 def sm90_ctas_per_sm() -> dict:
     """CTAs per multiprocessor of every 16-bit instantiation of the Hopper
-    kernels (B1-B4), by the occupancy API (the C entries
+    kernels (B1-B4) and of every f32 one of B1, by the occupancy API (the
+    C entries
     ``flash_fwd_sm90_ctas_per_sm``, ``flash_bwd_sm90_ctas_per_sm``,
     ``flash_bwd_dq_sm90_ctas_per_sm`` and ``flash_bwd_dkv_sm90_ctas_per_sm``:
     THREADS threads and the kernel's shared memory).  Fails on one that
@@ -399,7 +404,9 @@ def sm90_ctas_per_sm() -> dict:
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(ctypes.c_int)]
         fn.restype = ctypes.c_int
-        for dtype, code in ((BF16, 1), (F16, 2)):
+        dtypes = ((BF16, 1), (F16, 2)) + (
+            ((F32, 0),) if kernel == "flash_fwd_sm90" else ())
+        for dtype, code in dtypes:
             for D in (16, 32, 64, 128, 256):
                 ctas = ctypes.c_int(0)
                 rc = fn(D, code, ctypes.byref(ctas))
@@ -652,9 +659,9 @@ FLASH_CASES = {
     "fp16_d16_non_causal": (2, 333, 8, 8, 16, False, False, F16),
     "f32": (2, 1000, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
-    # the Hopper TF32 B2 at f32 D 32 and 16 (128-row q tiles): GQA at a
-    # ragged T, non-causal in the bh layout, T = 2, T = 129 (one 128-row q
-    # tile and a row); the WMMA B1 beside it.  Not T = 1: there the plain
+    # the Hopper TF32 B1 (64-key tiles) and B2 (128-row q tiles) at f32 D
+    # 32 and 16: GQA at a ragged T, non-causal in the bh layout, T = 2, T
+    # = 129 (one 128-row q tile and a row).  Not T = 1: there the plain
     # grads are exactly 0 and a TF32 kernel's are not (dP from dO rounded
     # to TF32, delta from the f32 dO: tests/test_torch_cuda.py
     # test_sm90_f32_match_plain)
@@ -663,6 +670,8 @@ FLASH_CASES = {
     "f32_d32_t2_gqa": (2, 2, 16, 4, 32, True, False, F32),
     "f32_d32_t129": (2, 129, 8, 8, 32, True, False, F32),
     "f32_d16_bh": (1, 500, 8, 2, 16, True, True, F32),
+    "f32_d16_t2_gqa_bh": (2, 2, 16, 4, 16, True, True, F32),
+    "f32_d16_t129_non_causal": (2, 129, 8, 8, 16, False, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
     # the MoE path's attention (phase 15, phase 13's MoE runs): Mixtral's
     # 32 heads over 8 kv heads at T4096, still the fused backward
@@ -718,13 +727,14 @@ TWO_KERNEL_CASES = {
     "fp16_d16_non_causal": (2, 333, 8, 8, 16, False, False, F16),
     "f32": (1, 2048, 16, 16, 128, True, False, F32),
     "f32_d16_gqa": (2, 333, 8, 4, 16, True, False, F32),
-    # the Hopper TF32 B4 at f32 D 32 and 16, as in FLASH_CASES (the WMMA
-    # B1 and B3 beside it)
+    # the Hopper TF32 B1, B3 and B4 at f32 D 32 and 16, as in FLASH_CASES
     "f32_d32_gqa_ragged": (2, 333, 8, 2, 32, True, False, F32),
     "f32_d32_non_causal_bh": (1, 1000, 16, 4, 32, False, True, F32),
     "f32_d32_t2_gqa": (2, 2, 16, 4, 32, True, False, F32),
     "f32_d32_t129": (2, 129, 8, 8, 32, True, False, F32),
     "f32_d16_bh": (1, 500, 8, 2, 16, True, True, F32),
+    "f32_d16_t2_gqa_bh": (2, 2, 16, 4, 16, True, True, F32),
+    "f32_d16_t129_non_causal": (2, 129, 8, 8, 16, False, False, F32),
     "with_lse_bh": (1, 1000, 32, 16, 128, True, True, BF16),
     "fp16_d128": (2, 1000, 16, 4, 128, True, False, F16),
     "d96_padded": (2, 1000, 16, 16, 96, True, False, BF16),
@@ -790,9 +800,8 @@ FLASH_SYMBOLS = ("flash_fwd_sm90", "flash_bwd_sm90", "flash_bwd_dq_sm90",
 def flash_launches(torch, dtype, D, two) -> dict:
     """The launches of one forward and backward: each kernel's Hopper or
     WMMA version by the route (ops/flash_attention.py _sm90: B1-B4 Hopper
-    for bf16 and fp16 at every D and for f32 at D 64/128/256, B2 and B4
-    also at f32 D 16/32; WMMA for B1 and B3 at f32 D 16/32); the fused
-    backward, or B3 + B4 on the two-kernel route."""
+    at every dtype and D); the fused backward, or B3 + B4 on the
+    two-kernel route."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
         _kernel_dim,
         _sm90,
@@ -942,7 +951,7 @@ def check_dkv_bitwise(torch, gen) -> dict:
 # Every instantiation of the Hopper B3 (dtype, D)
 SM90_DQS = ((BF16, 16), (BF16, 32), (BF16, 64), (BF16, 128), (BF16, 256),
             (F16, 16), (F16, 32), (F16, 64), (F16, 128), (F16, 256),
-            (F32, 64), (F32, 128), (F32, 256))
+            (F32, 16), (F32, 32), (F32, 64), (F32, 128), (F32, 256))
 
 
 def check_dq_bitwise(torch, gen) -> dict:
@@ -986,15 +995,18 @@ def check_dq_bitwise(torch, gen) -> dict:
 
 def check_wmma_at_main(torch, gen) -> dict:
     """The WMMA forward and fused backward (flash_fwd.cu, flash_bwd.cu),
-    which bf16, fp16 and f32 at D 64/128/256 no longer reach (the fused
-    backward no call reaches since f32 D 16/32 took the Hopper walk), at
-    the main path's shape in bf16 and in f32 against their plain
-    versions, so that the yardstick phase 3 times beside the Hopper
-    kernels computes the same function.  Returns the bf16 max abs errors."""
+    which no call reaches, at the main path's shape in bf16 and in f32
+    against their plain versions, and the WMMA forward and dq kernel
+    (flash_bwd_dq.cu) at phase 3's f32 D 32 and 16 shapes (B2 x T2048, H
+    D 2048), so that the yardsticks phase 3 times beside the Hopper
+    kernels compute the same function.  Returns the bf16 max abs errors."""
     from pytorch_operator_tpu_torch.ops.flash_attention import (
+        BWD_DQ_KERNEL,
         BWD_KERNEL,
         FWD_KERNEL,
         _flash_bwd_cuda,
+        _flash_bwd_dq_cuda,
+        _flash_bwd_dq_reference,
         _flash_bwd_reference,
         _flash_fwd_cuda,
         _flash_fwd_reference,
@@ -1041,6 +1053,34 @@ def check_wmma_at_main(torch, gen) -> dict:
                      "flash_bwd": max(e["max_abs_err"]
                                       for e in errs.values())}
         del q, k, v, g, out, lse, args
+    for name in ("f32_d32", "f32_d16"):
+        _, D, H = C3_CASES[name]
+        q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, D, False, F32)
+        scale = D ** -0.5
+        out, lse = _flash_fwd_cuda(q, k, v, scale, True, False,
+                                   kernel=FWD_KERNEL)
+        ref_out, ref_lse = _flash_fwd_reference(q, k, v, scale, True, False)
+        o_err, o_rel = _rel_errs(out, ref_out)
+        l_err, _ = _rel_errs(lse, ref_lse)
+        del ref_out, ref_lse
+        delta = (g * out).sum(-1).transpose(1, 2).reshape(B * H,
+                                                          T).contiguous()
+        args = (q, k, v, g, lse.reshape(B * H, T), delta, scale, True, False)
+        got = _flash_bwd_dq_cuda(*args, kernel=BWD_DQ_KERNEL)
+        dq, dq_ok = _grad_errs(got, _flash_bwd_dq_reference(*args))
+        torch.cuda.synchronize()
+        ok = o_err <= 2e-2 and o_rel <= 1e-2 and l_err <= 1e-2 and dq_ok
+        emit({"check": "wmma_at_main", "shape": [B, T, H, H, D],
+              "dtype": F32, "kernels": ["flash_fwd", "flash_bwd_dq"],
+              "out": {"max_abs_err": o_err, "rel_fro_err": o_rel,
+                      "lse_max_abs_err": l_err}, "dq": dq,
+              "tolerance": "as the flash_fwd and flash_bwd checks, dq "
+                           "given the kernel's own lse and delta",
+              "ok": ok})
+        require(ok, f"a WMMA flash kernel disagrees with its plain version "
+                    f"at phase 3's {name} shape")
+        del q, k, v, g, out, lse, args, got
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -1511,9 +1551,9 @@ def sdpa_efficient_bwd(torch, q, k, v, g, errors=None):
 # predecessor; the backward at D 256 on clusters of two CTAs), bf16 at D
 # 96, zero-padded to the Hopper kernels' 128, bf16 and fp16 at D 32 and
 # 16 (the Hopper B1-B4 on narrow slabs, each beside its WMMA
-# predecessor) and f32 at D 32 and 16 (the Hopper TF32 B2 and B4 beside
-# their WMMA predecessors, the WMMA B1 and B3), heads such that H D =
-# 2048 (1536 at D 96): (dtype, D, heads)
+# predecessor) and f32 at D 32 and 16 (the Hopper TF32 B1-B4, each beside
+# its WMMA predecessor), heads such that H D = 2048 (1536 at D 96):
+# (dtype, D, heads)
 C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "fp16_d128": (F16, 128, 16), "f32_d256": (F32, 256, 8),
             "f32_d128": (F32, 128, 16), "f32_d64": (F32, 64, 32),
@@ -1523,9 +1563,8 @@ C3_CASES = {"fp16_d256": (F16, 256, 8), "bf16_d256": (BF16, 256, 8),
             "f32_d32": (F32, 32, 64), "f32_d16": (F32, 16, 128)}
 # the cases whose two-kernel route (B3 then B4) phase 3 also times: the
 # Hopper B3 and B4 at fp16 D 128 and 256, bf16 D 256 and f32 D 64, 128
-# and 256 and 16-bit D 32 and 16 (each beside the WMMA kernel it
-# replaced; at f32 D 256 both on clusters of two CTAs), and at f32 D 32
-# and 16 the WMMA B3 beside the Hopper B4 (in turns with its WMMA one)
+# and 256 and 16-bit and f32 D 32 and 16 (each beside the WMMA kernel it
+# replaced; at f32 D 256 both on clusters of two CTAs)
 C3_TWO_KERNEL = ("fp16_d256", "bf16_d256", "fp16_d128", "f32_d256",
                  "f32_d128", "f32_d64", "bf16_d32", "bf16_d16", "fp16_d32",
                  "fp16_d16", "f32_d32", "f32_d16")
@@ -2179,6 +2218,48 @@ def check_remat_tiers(torch) -> dict:
                         "that changes from run to run")
     emit({"remat_tiers": res})
     return res
+
+
+def check_default_trainer(torch) -> dict:
+    """train_llama's default model (the tiny Llama: f32, head dim 16, GQA
+    8:4, full remat) for two steps as the trainer runs it with no other
+    argument, then with --no-remat: every launch count reset just before
+    each run and read just after, exact launches per step (the Hopper
+    TF32 B1 2L under full remat and L without, the Hopper TF32 B2 L,
+    RMSNorm 4L + 1 and 2L + 1), none of a WMMA flash kernel, the losses
+    finite.  Returns the default run's launches."""
+    from pytorch_operator_tpu_torch import kernels, train_llama
+    from pytorch_operator_tpu_torch.models import llama
+
+    L, steps = llama.tiny().n_layers, 2
+    res, default = {}, None
+    for label, extra, fwd, norms in (
+            ("default", [], 2 * L, 4 * L + 1),
+            ("no_remat", ["--no-remat"], L, 2 * L + 1)):
+        argv = ["--steps", str(steps), "--log-interval", "1", *extra]
+        kernels.reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = train_llama.main(argv)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        text = out.getvalue()
+        losses = [float(x) for x in re.findall(r"loss=(\S+)", text)]
+        want = {**dict.fromkeys(FLASH_SYMBOLS, 0),
+                "flash_fwd_sm90": fwd * steps, "flash_bwd_sm90": L * steps,
+                "rms_norm_fwd": norms * steps}
+        launched = {n: counts[n] for n in want}
+        ok = (rc == 0 and "training complete" in text
+              and len(losses) == steps and all(map(math.isfinite, losses))
+              and launched == want)
+        res[label] = {"argv": argv, "rc": rc, "losses": losses,
+                      "launches": launched, "want": want, "ok": ok}
+        require(ok, f"train_llama {argv}: rc {rc}, losses {losses}, "
+                    f"launches {launched} != {want}: {text}")
+        if default is None:
+            default = counts
+    emit({"default_trainer": res})
+    return {"launches": default}
 
 
 # --------------------------------------------------------------------------
@@ -4499,8 +4580,8 @@ def run_f32_phases(torch) -> dict:
     """Phases 1-3 for f32 alone, about two minutes (not a phase of
     ``run``): the build with its ptxas check and the TMA probe, every f32
     case of FLASH_CASES and TWO_KERNEL_CASES, B4 bitwise B2 and B3
-    bitwise stable at f32, the WMMA kernels at the main shape, and the
-    f32 C3 rows.  On the card:
+    bitwise stable at f32, the WMMA kernels at the main shape, train_llama's
+    default (f32) model, and the f32 C3 rows.  On the card:
     ``python3 -c "import torch, chip_smoke as c; c.run_f32_phases(torch)"``.
     Returns the C3 rows."""
     global FLASH_CASES, TWO_KERNEL_CASES, SM90_WALKS, SM90_DQS, C3_CASES
@@ -4524,6 +4605,7 @@ def run_f32_phases(torch) -> dict:
     check_dkv_bitwise(torch, gen)
     check_dq_bitwise(torch, gen)
     check_wmma_at_main(torch, gen)
+    check_default_trainer(torch)
     return time_c3_kernels(torch, gen)
 
 
@@ -4598,6 +4680,7 @@ def run() -> tuple[str, list[dict]]:
     free_memory(torch)
     run_long_cli(torch)
     check_remat_tiers(torch)
+    paths["default_trainer"] = check_default_trainer(torch)
     seconds["paths"] = time.perf_counter() - t
     t = time.perf_counter()
     free_memory(torch)
@@ -4663,10 +4746,8 @@ def run() -> tuple[str, list[dict]]:
         if "previous_ms" in tm:
             row["previous_ms"] = tm["previous_ms"]
         if "sm90" not in short and short != "rms_norm":
-            row["path"] = (("f32 D 16/32 only" if short in (
-                "flash_fwd", "flash_bwd_dq") else "on no route")
-                + "; timed beside its Hopper successor at its shape as "
-                  "the yardstick")
+            row["path"] = ("on no route; timed beside its Hopper successor "
+                           "at its shape as the yardstick")
         # C3's cases (phase 3) on the kernels they run through
         row_c3 = {case: c[part] for case, c in c3.items()
                   for part in ("fwd", "bwd", "dq", "dkv")

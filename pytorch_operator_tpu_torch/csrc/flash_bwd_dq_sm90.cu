@@ -1,12 +1,10 @@
-// dq kernel of the two-kernel flash-attention backward for Hopper: bf16
-// or fp16 in at head dim 16, 32, 64, 128 or 256, or f32 (as TF32) at 64,
-// 128 or 256, f32 accumulate, dq in the inputs' type, causal or not, GQA,
-// either layout.
+// dq kernel of the two-kernel flash-attention backward for Hopper: bf16,
+// fp16 or f32 (as TF32) in at head dim 16, 32, 64, 128 or 256, f32
+// accumulate, dq in the inputs' type, causal or not, GQA, either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _bwd_dq_kernel (the first pallas_call of _flash_bwd) for bf16 and fp16
-// at every D and for f32 at D in {64, 128, 256}; the WMMA kernel
-// flash_bwd_dq.cu keeps f32 at D 16/32.
+// _bwd_dq_kernel (the first pallas_call of _flash_bwd) at every dtype and
+// D; the WMMA kernel flash_bwd_dq.cu is on no route.
 // Per (q tile, q head) it recomputes, for each key tile up to the
 // diagonal,
 //   S = Q K^T,  P = exp(S scale - lse),  dP = dO V^T,
@@ -92,6 +90,20 @@
 //    dq += dS K as m64n64k8 from its 64 rows of the CTA's K^T.  Q 32 KB +
 //    dO 32 + K and V 64 + K^T 32 + the peer's partials 16 + LX 32: 209 KB
 //    a CTA.
+//  - f32 at D 32 and 16 (DqTf32Smem::NARROW): a row of Q, dO, K or V is
+//    128 or 64 bytes, one slab a tile (at D 16 swizzled at 64 bytes and
+//    read by descriptors of desc_hi(64)), and the exponential sets the
+//    bound at D 16 (the TF32 products at D 32), so the tile body is the
+//    16-bit narrow one's in TF32: 128-row q tiles, S and dP each their
+//    own commit group (P's exponentials while dP is formed), K^T written
+//    for each slot by the producer's warps 1-3 (from the narrow slab at
+//    D 16), dS rounded to TF32 in place and taken in the fragments'
+//    order, dq += dS K as m64nDk8; dq stays in registers (D / 2 f32 a
+//    thread) and is written once.  128-key tiles in four stages (192 KB
+//    at D 32), one CTA a multiprocessor: in turns on the H100 (PERF.md
+//    §6) 64-key tiles were 2-5 % slower, and two CTAs of 64-key tiles
+//    spilled (132 bytes at D 32 and 12 at D 16 with 32 + 104 registers,
+//    68 at D 16 with 48 + 96), though 7 % faster at D 16.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -417,18 +429,23 @@ int launch(const void* q, const void* k, const void* v, const void* dout,
 // ---- f32: TF32 wgmma (see the header) ----
 
 template <int D> struct DqTf32Smem {
-  static_assert(D == 64 || D == 128 || D == 256,
-                "the f32 dq kernel takes D 64, 128 and 256");
+  static_assert(D == 16 || D == 32 || D == 64 || D == 128 || D == 256,
+                "the f32 dq kernel takes D 16, 32, 64, 128 and 256");
   // D 256: a cluster of CTAS = 2 CTAs, each owning DC = 128 of D's
   // columns, both warpgroups the same BQ = 64 q rows and DW = 64 of the
   // CTA's dq columns each; else each warpgroup its own 64 rows, all of D
   static constexpr bool CLUSTER = D == 256;
+  // NARROW (D 16 / 32): Q, dO, K and V one slab of 4 D bytes a row each
+  // (swizzled at 64 bytes at D 16), 128-key tiles in four stages
+  static constexpr bool NARROW = D < 64;
   static constexpr int CTAS = CLUSTER ? 2 : 1, DC = D / CTAS;
-  static constexpr int BQ = CLUSTER ? 64 : 128, BK = D == 64 ? 64 : 32;
+  static constexpr int BQ = CLUSTER ? 64 : 128;
+  static constexpr int BK = D == 64 ? 64 : NARROW ? 128 : 32;
   static constexpr int DW = CLUSTER ? DC / 2 : D;  // dq columns a warpgroup
-  static constexpr int STAGES = 2, KT_STAGES = 2;
-  static constexpr int SLABS = DC / 32;  // 32 f32 columns a slab
-  static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
+  static constexpr int STAGES = NARROW ? 4 : 2, KT_STAGES = 2;
+  static constexpr int RB = NARROW ? 4 * D : SLAB;  // bytes a slab row
+  static constexpr int SLABS = NARROW ? 1 : DC / 32;  // 32 f32 columns a slab
+  static constexpr int Q_SLAB = BQ * RB, KV_SLAB = BK * RB;
   static constexpr int KV_TILE = SLABS * KV_SLAB;
   // K^T: DC rows (of 128 bytes: 32 keys), BK / 32 slabs
   static constexpr int KT_SLAB = DC * SLAB, KT_TILE = (BK / 32) * KT_SLAB;
@@ -599,7 +616,68 @@ flash_bwd_dq_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
     mbar_wait(&kv_full[s], (j / STAGES) & 1);
     // CLUSTER: no tile is skipped (the last causal one starts 32 keys
     // before the q tile's last row), so both CTAs exchange every tile
-    if (CLUSTER || !((causal && k0 > q0w + 63) || q0w >= T)) {
+    if constexpr (S::NARROW) {
+      if (!((causal && k0 > q0w + 63) || q0w >= T)) {
+        // S = Q_wg K^T and dP = dO_wg V^T from the narrow K-major slabs (a
+        // k8 step 32 bytes along the row), each its own group: P's
+        // exponentials run while dP is formed
+        constexpr uint32_t HI = desc_hi(S::RB);
+        const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
+        const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
+        const uint32_t qn_addr = smem_u32(smem + S::Q) + rw * S::RB;
+        const uint32_t don_addr = smem_u32(smem + S::DO) + rw * S::RB;
+        float st[BK / 2], dp[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk)
+          mma_ss_tf32<HI>(st, desc_k(qn_addr + 32 * kk),
+                          desc_k(k_addr + 32 * kk), kk > 0);
+        wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < D / 8; ++kk)
+          mma_ss_tf32<HI>(dp, desc_k(don_addr + 32 * kk),
+                          desc_k(v_addr + 32 * kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(st);
+        // P in f32, masked past T and, on the diagonal tile, after the row
+        const bool mask = (causal && k0 + BK - 1 > q0w) || k0 + BK > T;
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e) {
+          const int r = (e / 2) % 2;
+          const int key = k0 + 8 * (e / 4) + col + (e % 2);
+          float p = ex2(fmaf(st[e], sl2, -lse2[r]));
+          if (mask && (key >= T || (causal && key > row_a + 8 * r))) p = 0.f;
+          st[e] = p;
+        }
+        wgmma_wait<0>();
+        fence_regs(dp);
+        // dS = P (dP - delta) scale, rounded to TF32 in place: the A
+        // fragments of dq += dS K, a k8 block's registers taken in the
+        // order {0, 2, 1, 3} (keys in the order of K^T)
+#pragma unroll
+        for (int e = 0; e < BK / 2; ++e)
+          dp[e] = __uint_as_float(
+              tf32(st[e] * (dp[e] - dl[(e / 2) % 2]) * scale));
+        // dq += dS K: B = K^T (D rows of BK keys K-major), m64nDk8
+        mbar_wait(&kt_full[ks], (j / KTS) & 1);
+        const uint32_t kt_addr = smem_u32(smem + S::KT + ks * S::KT_TILE);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 8; ++kk)
+          mma_rs_tf32(acc, __float_as_uint(dp[4 * kk]),
+                      __float_as_uint(dp[4 * kk + 2]),
+                      __float_as_uint(dp[4 * kk + 1]),
+                      __float_as_uint(dp[4 * kk + 3]),
+                      desc_k(kt_addr + (kk / 4) * S::KT_SLAB + (kk % 4) * 32),
+                      1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+      } else {
+        mbar_wait(&kt_full[ks], (j / KTS) & 1);
+      }
+    } else if (CLUSTER || !((causal && k0 > q0w + 63) || q0w >= T)) {
       const uint32_t k_addr = smem_u32(smem + S::K + s * S::KV_TILE);
       const uint32_t v_addr = smem_u32(smem + S::V + s * S::KV_TILE);
 
@@ -745,10 +823,14 @@ int launch_tf32(const void* q, const void* k, const void* v,
                 float scale, int causal, cudaStream_t stream) {
   using S = DqTf32Smem<D>;
   CUtensorMap mq, mk, mv, mdo;
-  int e = make_head_map<float>(&mq, q, D, H, T, B, bh_layout, S::BQ);
-  if (!e) e = make_head_map<float>(&mdo, dout, D, H, T, B, bh_layout, S::BQ);
-  if (!e) e = make_head_map<float>(&mk, k, D, Hk, T, B, bh_layout, S::BK);
-  if (!e) e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
+  int e = make_head_map<float>(&mq, q, D, H, T, B, bh_layout, S::BQ, S::RB);
+  if (!e)
+    e = make_head_map<float>(&mdo, dout, D, H, T, B, bh_layout, S::BQ,
+                             S::RB);
+  if (!e)
+    e = make_head_map<float>(&mk, k, D, Hk, T, B, bh_layout, S::BK, S::RB);
+  if (!e)
+    e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK, S::RB);
   if (e) return e;
   const int tiles = (T + S::BQ - 1) / S::BQ;
   if (!ptt::grid_fits(tiles * S::CTAS, B * H))
@@ -815,10 +897,9 @@ extern "C" int flash_bwd_dq_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As flash_bwd_dq (flash_bwd_dq.cu) for bf16 (dtype 1) and fp16 (dtype 2)
-// at D in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128,
-// 256}; any other dtype or head dim is cudaErrorInvalidValue.  q, k, v,
-// dout, dq 16-byte aligned.
+// As flash_bwd_dq (flash_bwd_dq.cu) for f32 (dtype 0), bf16 (dtype 1) and
+// fp16 (dtype 2) at D in {16, 32, 64, 128, 256}; any other dtype or head
+// dim is cudaErrorInvalidValue.  q, k, v, dout, dq 16-byte aligned.
 extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
                                  const void* dout, const float* lse,
                                  const float* delta, void* dq, int B, int H,
@@ -829,6 +910,12 @@ extern "C" int flash_bwd_dq_sm90(const void* q, const void* k, const void* v,
   if (Hk <= 0 || H % Hk) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == ptt::F32) {
+    if (D == 16)
+      return launch_tf32<16>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
+                             bh_layout, scale, causal, s);
+    if (D == 32)
+      return launch_tf32<32>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
+                             bh_layout, scale, causal, s);
     if (D == 64)
       return launch_tf32<64>(q, k, v, dout, lse, delta, dq, B, H, Hk, T,
                              bh_layout, scale, causal, s);

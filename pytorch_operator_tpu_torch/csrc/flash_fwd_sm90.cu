@@ -1,13 +1,13 @@
-// Flash-attention forward for Hopper: bf16 or fp16 in at head dim 16,
-// 32, 64, 128 or 256, or f32 (as TF32) at 64, 128 or 256, f32
-// accumulate, causal or not, GQA, either layout.
+// Flash-attention forward for Hopper: bf16, fp16 or f32 (as TF32) in at
+// head dim 16, 32, 64, 128 or 256, f32 accumulate, causal or not, GQA,
+// either layout.
 //
 // Replaces the TPU kernel pytorch_operator_tpu/ops/flash_attention.py::
-// _fwd_kernel (pallas_call in _flash_fwd) for bf16 and fp16 at every D
-// and for f32 at D in {64, 128, 256}; the WMMA kernel flash_fwd.cu keeps
-// f32 at D 16/32.  It computes what that kernel computes: per (batch, q
-// head) o = softmax(q k^T * scale) v with an online softmax, and lse = m
-// + log(l) as a natural log, reading kv head h / (H / Hk).
+// _fwd_kernel (pallas_call in _flash_fwd) at every dtype and D; the WMMA
+// kernel flash_fwd.cu is on no route.  It computes what that kernel
+// computes: per (batch, q head) o = softmax(q k^T * scale) v with an
+// online softmax, and lse = m + log(l) as a natural log, reading kv head
+// h / (H / Hk).
 //
 // Bound on the H100: tensor-core operations (at B2 T2048 H16 D128 causal,
 // 34.4 GFLOP against 67 MB in bf16; in TF32 at half the rate against
@@ -77,7 +77,24 @@
 //    KB);
 //  - D 256: 64-row Q (64 KB), 32-key stages (2 x 64 KB), one V^T (32
 //    KB); both consumer warpgroups form S for the same 64 rows and each
-//    owns half of D's columns of O (64 registers).
+//    owns half of D's columns of O (64 registers);
+//  - D 32 and 16 (FwdTf32Smem::NARROW): a row of Q, K or V is 128 or 64
+//    bytes, one slab a tile (at D 16 swizzled at 64 bytes and read by
+//    descriptors of desc_hi(64), as the f32 walk reads it; a k8 step
+//    moves 32 bytes along the row), and the exponentials and the TF32
+//    products set the bound together: 128-row Q (16 KB at D 32), 64-key
+//    stages (4 x 16 KB), two V^T buffers (2 x 8 KB; the D 16 transpose
+//    reads the narrow slab), O m64nDk8, and two CTAs a multiprocessor
+//    (97 KB each; 80 registers a thread at launch, 48 for the producer
+//    and 96 for the consumers by setmaxnreg), whose four consumer
+//    warpgroups keep the exponential unit busy while one waits on its
+//    products.  They run the same tile body as D 64-256, each tile's S,
+//    softmax and O += P V in turn.  The 16-bit narrow body's overlap
+//    (S_{j+1} issued before P_j's product) holds P_j's TF32 fragments,
+//    one register a value, beside S_{j+1}'s accumulator, and spilled at
+//    96 registers (152 bytes at D 32): timed in turns on the H100
+//    (PERF.md §6) it took 0.32 / 0.47 ms at D 32 / 16, and 0.30 / 0.52
+//    at one CTA a multiprocessor, against 0.22 / 0.36 for this design.
 #include "common.cuh"
 #include "sm90.cuh"
 
@@ -440,15 +457,22 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq,
 // ---- f32: TF32 wgmma (see the header) ----
 
 template <int D> struct FwdTf32Smem {
+  // NARROW (D 16 / 32): 128-row Q and 64-key K and V tiles, each one slab
+  // of 4 D-byte rows (swizzled at 64 bytes at D 16), four stages, two
+  // V^T buffers, SM_CTAS blocks a multiprocessor (see the header)
+  static constexpr bool NARROW = D < 64;
+  static constexpr int SM_CTAS = NARROW ? 2 : 1;
   // D 256: both consumer warpgroups own the same 64 q rows, each half of
   // D's columns of O (a 128-row Q tile alone would take 128 KB)
   static constexpr bool SPLIT = D == 256;
   static constexpr int BQ = SPLIT ? 64 : 128;
-  static constexpr int BK = D == 64 ? 128 : D == 128 ? 64 : 32;
-  static constexpr int STAGES = 2, VT_STAGES = D == 64 ? 2 : 1;
+  static constexpr int BK = D == 64 ? 128 : D == 128 || NARROW ? 64 : 32;
+  static constexpr int STAGES = NARROW ? 4 : 2;
+  static constexpr int VT_STAGES = D == 64 || NARROW ? 2 : 1;
   static constexpr int DW = SPLIT ? D / 2 : D;  // O columns a warpgroup
-  static constexpr int SLABS = D / 32;          // 32 f32 columns a slab
-  static constexpr int Q_SLAB = BQ * SLAB, KV_SLAB = BK * SLAB;
+  static constexpr int RB = NARROW ? 4 * D : SLAB;  // bytes a slab row
+  static constexpr int SLABS = NARROW ? 1 : D / 32;  // 32 f32 columns a slab
+  static constexpr int Q_SLAB = BQ * RB, KV_SLAB = BK * RB;
   static constexpr int KV_TILE = SLABS * KV_SLAB;
   // V^T: D rows (of 128 bytes: 32 keys), BK / 32 slabs
   static constexpr int VT_SLAB = D * SLAB, VT_TILE = (BK / 32) * VT_SLAB;
@@ -461,11 +485,17 @@ template <int D> struct FwdTf32Smem {
   // vt_empty[VT_STAGES]
   static constexpr int BYTES =
       BAR + 8 * (1 + 2 * STAGES + 2 * VT_STAGES) + 1024;
-  static_assert(BYTES <= 232448, "a block has 227 KB of shared memory");
+  static_assert(BYTES * SM_CTAS <= 232448,
+                "a multiprocessor has 227 KB of shared memory");
 };
 
+// The narrow (f32 D 16 / 32) registers a thread of each warpgroup holds at
+// two CTAs a multiprocessor: 128 x 48 + 256 x 96 = 30,720, the block's
+// 384 x 80 at launch (sm90.cuh: the transposer spilled at 40).
+constexpr int TF32_NARROW_PRODUCER_REGS = 48, TF32_NARROW_CONSUMER_REGS = 96;
+
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, FwdTf32Smem<D>::SM_CTAS)
 flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
                            const __grid_constant__ CUtensorMap mk,
                            const __grid_constant__ CUtensorMap mv,
@@ -511,7 +541,10 @@ flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
   if (wg == 2) {
     // ---- producer: thread 256 issues the TMA loads; warps 1-3 write
     // each V tile's transpose V^T, keys in the A fragments' order ----
-    setmaxnreg_dec<TF32_PRODUCER_REGS>();
+    if constexpr (S::SM_CTAS == 2)
+      setmaxnreg_dec<TF32_NARROW_PRODUCER_REGS>();
+    else
+      setmaxnreg_dec<TF32_PRODUCER_REGS>();
     const int pt = threadIdx.x - 256;
     if (pt == 0) {
       prefetch_map(&mq);
@@ -552,7 +585,10 @@ flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
   // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, q0 + 64 wg + 64)
   // and all of D, or (SPLIT) rows [q0, q0 + 64) and columns [DW wg, DW wg
   // + DW) of O
-  setmaxnreg_inc<TF32_CONSUMER_REGS>();
+  if constexpr (S::SM_CTAS == 2)
+    setmaxnreg_inc<TF32_NARROW_CONSUMER_REGS>();
+  else
+    setmaxnreg_inc<TF32_CONSUMER_REGS>();
   const int tid = threadIdx.x % 128, warp = tid / 32, lane = tid % 32;
   const int rw = SPLIT ? 0 : 64 * wg;  // this warpgroup's first q row
   const int row_a = q0 + rw + 16 * warp + lane / 4;  // row_b = +8
@@ -564,7 +600,9 @@ flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
   for (int i = 0; i < DW / 2; ++i) acc[i] = 0.f;
   float m[2] = {ptt::NEG_INF, ptt::NEG_INF}, l[2] = {0.f, 0.f};
 
-  const uint32_t q_addr = smem_u32(smem + S::Q) + rw * SLAB;
+  // Q and K slabs of RB-byte rows: DESC_HI's 128, or NARROW's 64 at D 16
+  constexpr uint32_t HI = desc_hi(S::RB);
+  const uint32_t q_addr = smem_u32(smem + S::Q) + rw * S::RB;
   int n_kt_wg = n_kt;
   if constexpr (!SPLIT && BK < BQ)
     if (causal) n_kt_wg = min(n_kt, (q0 + rw + 64 + BK - 1) / BK);
@@ -582,7 +620,8 @@ flash_fwd_sm90_tf32_kernel(const __grid_constant__ CUtensorMap mq,
     for (int kk = 0; kk < D / 8; ++kk) {
       const uint32_t off = (kk / 4) * S::Q_SLAB + (kk % 4) * 32;
       const uint32_t koff = (kk / 4) * S::KV_SLAB + (kk % 4) * 32;
-      mma_ss_tf32(sc, desc_k(q_addr + off), desc_k(k_addr + koff), kk > 0);
+      mma_ss_tf32<HI>(sc, desc_k(q_addr + off), desc_k(k_addr + koff),
+                      kk > 0);
     }
     wgmma_commit();
     wgmma_wait<0>();
@@ -678,9 +717,11 @@ int launch_tf32(const void* q, const void* k, const void* v, void* o,
                 float scale, int causal, cudaStream_t stream) {
   using S = FwdTf32Smem<D>;
   CUtensorMap mq, mk, mv;
-  int e = make_head_map<float>(&mq, q, D, H, T, B, bh_layout, S::BQ);
-  if (!e) e = make_head_map<float>(&mk, k, D, Hk, T, B, bh_layout, S::BK);
-  if (!e) e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK);
+  int e = make_head_map<float>(&mq, q, D, H, T, B, bh_layout, S::BQ, S::RB);
+  if (!e)
+    e = make_head_map<float>(&mk, k, D, Hk, T, B, bh_layout, S::BK, S::RB);
+  if (!e)
+    e = make_head_map<float>(&mv, v, D, Hk, T, B, bh_layout, S::BK, S::RB);
   if (e) return e;
   const int tiles = (T + S::BQ - 1) / S::BQ;
   if (!ptt::grid_fits(tiles, B * H))
@@ -718,6 +759,10 @@ int launch_dim_tf32(const void* q, const void* k, const void* v, void* o,
                     float* lse, int B, int H, int Hk, int T, int D,
                     int bh_layout, float scale, int causal, cudaStream_t s) {
   switch (D) {
+    case 16: return launch_tf32<16>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
+                                    scale, causal, s);
+    case 32: return launch_tf32<32>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
+                                    scale, causal, s);
     case 64: return launch_tf32<64>(q, k, v, o, lse, B, H, Hk, T, bh_layout,
                                     scale, causal, s);
     case 128: return launch_tf32<128>(q, k, v, o, lse, B, H, Hk, T,
@@ -747,6 +792,22 @@ int launch_dim(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+int ctas_dim_tf32(int D, int* ctas) {
+  switch (D) {
+    case 16: return ctas_per_sm(flash_fwd_sm90_tf32_kernel<16>, THREADS,
+                                FwdTf32Smem<16>::BYTES, ctas);
+    case 32: return ctas_per_sm(flash_fwd_sm90_tf32_kernel<32>, THREADS,
+                                FwdTf32Smem<32>::BYTES, ctas);
+    case 64: return ctas_per_sm(flash_fwd_sm90_tf32_kernel<64>, THREADS,
+                                FwdTf32Smem<64>::BYTES, ctas);
+    case 128: return ctas_per_sm(flash_fwd_sm90_tf32_kernel<128>, THREADS,
+                                 FwdTf32Smem<128>::BYTES, ctas);
+    case 256: return ctas_per_sm(flash_fwd_sm90_tf32_kernel<256>, THREADS,
+                                 FwdTf32Smem<256>::BYTES, ctas);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename E>
 int ctas_dim(int D, int* ctas) {
   switch (D) {
@@ -766,18 +827,18 @@ int ctas_dim(int D, int* ctas) {
 
 }  // namespace
 
-// CTAs a multiprocessor holds of the bf16 (dtype 1) or fp16 (dtype 2)
-// kernel at D (chip_smoke.py phase 1 records them).
+// CTAs a multiprocessor holds of the f32 (dtype 0), bf16 (dtype 1) or
+// fp16 (dtype 2) kernel at D (chip_smoke.py phase 1 records them).
 extern "C" int flash_fwd_sm90_ctas_per_sm(int D, int dtype, int* ctas) {
+  if (dtype == ptt::F32) return ctas_dim_tf32(D, ctas);
   if (dtype == ptt::BF16) return ctas_dim<__nv_bfloat16>(D, ctas);
   if (dtype == ptt::F16) return ctas_dim<__half>(D, ctas);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// As flash_fwd (flash_fwd.cu) for bf16 (dtype 1) and fp16 (dtype 2) at D
-// in {16, 32, 64, 128, 256} and f32 (dtype 0) at D in {64, 128, 256}; any
-// other dtype or head dim is cudaErrorInvalidValue.  q, k, v, o 16-byte
-// aligned.
+// As flash_fwd (flash_fwd.cu) for f32 (dtype 0), bf16 (dtype 1) and fp16
+// (dtype 2) at D in {16, 32, 64, 128, 256}; any other dtype or head dim is
+// cudaErrorInvalidValue.  q, k, v, o 16-byte aligned.
 extern "C" int flash_fwd_sm90(const void* q, const void* k, const void* v,
                               void* o, float* lse, int B, int H, int Hk,
                               int T, int D, int bh_layout, float scale,

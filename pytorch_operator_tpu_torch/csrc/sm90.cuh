@@ -384,10 +384,13 @@ __device__ __forceinline__ float ex2(float x) {
 // {d[4 kk], d[4 kk + 2], d[4 kk + 1], d[4 kk + 3]} of those columns
 // taken in the order [0, 2, 4, 6, 1, 3, 5, 7], so the B operand's K rows
 // must come in that order too (transpose_tf32 with PERM).  No transpose
-// bit: both shared-memory operands are K-major.
+// bit: both shared-memory operands are K-major.  The mma_ss_tf32 wrappers
+// take the operands' descriptor high word as a template argument HI:
+// DESC_HI, or desc_hi(64) for the f32 kernels' narrow slabs at D 16.
 
 // d (64 x 16, f32) (+)= A (64 x 8) B (8 x 16), TF32, both K-major from
-// shared memory (descriptors a, b).
+// shared memory (descriptors a, b, both of high word HI).
+template <uint32_t HI = DESC_HI>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[8], Desc a, Desc b,
                                             int accumulate) {
   asm volatile(
@@ -399,11 +402,12 @@ __device__ __forceinline__ void mma_ss_tf32(float (&d)[8], Desc a, Desc b,
       "da, db, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+      : "r"(a.lo), "r"(b.lo), "r"(HI), "r"(accumulate));
 }
 
 // d (64 x 32, f32) (+)= A (64 x 8) B (8 x 32), TF32, both K-major from
-// shared memory (descriptors a, b).
+// shared memory (descriptors a, b, both of high word HI).
+template <uint32_t HI = DESC_HI>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[16], Desc a, Desc b,
                                             int accumulate) {
   asm volatile(
@@ -418,11 +422,12 @@ __device__ __forceinline__ void mma_ss_tf32(float (&d)[16], Desc a, Desc b,
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+      : "r"(a.lo), "r"(b.lo), "r"(HI), "r"(accumulate));
 }
 
 // d (64 x 64, f32) (+)= A (64 x 8) B (8 x 64), TF32, both K-major from
-// shared memory (descriptors a, b).
+// shared memory (descriptors a, b, both of high word HI).
+template <uint32_t HI = DESC_HI>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[32], Desc a, Desc b,
                                             int accumulate) {
   asm volatile(
@@ -443,12 +448,11 @@ __device__ __forceinline__ void mma_ss_tf32(float (&d)[32], Desc a, Desc b,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a.lo), "r"(b.lo), "r"(DESC_HI), "r"(accumulate));
+      : "r"(a.lo), "r"(b.lo), "r"(HI), "r"(accumulate));
 }
 
 // d (64 x 128, f32) (+)= A (64 x 8) B (8 x 128), TF32, both K-major from
-// shared memory (descriptors a, b, both of high word HI: desc_hi(64) for
-// the f32 walk's narrow slabs at D 16).
+// shared memory (descriptors a, b, both of high word HI).
 template <uint32_t HI = DESC_HI>
 __device__ __forceinline__ void mma_ss_tf32(float (&d)[64], Desc a, Desc b,
                                             int accumulate) {

@@ -26,18 +26,16 @@ fallback.  The Hopper versions are built on ``wgmma``, TMA and a
 warp-specialized mbarrier ring (f32 as TF32, with the transposed copies
 of V, Q, dO and K that TF32 ``wgmma`` needs written in shared memory;
 the backward kernels at f32 D 256 on clusters of two CTAs that split D
-and exchange their partial scores through shared memory).  They run:
-
-  bf16, fp16   all four at D 16, 32, 64, 128, 256 (at D 16/32 on 64- or
-               32-byte swizzled rows, 128-row q tiles and 128-key tiles)
-  f32          all four at D 64, 128, 256; the fused backward and the
-               dk / dv kernel (one walk) also at D 16 and 32 (128-row q
-               tiles of 64- or 128-byte rows, dq formed as dS K)
-
-Every model's attention but the tiny ones' is bf16 at D 64 or 128; the
-tiny Llama and MoE have D 16 (in bf16 they train on the Hopper kernels
-alone).  Only the forward and the dq kernel at f32 D 16/32 run the WMMA
-versions.  A build or launch failure of either version raises.
+and exchange their partial scores through shared memory; at D 16 and 32
+every kernel on one slab of 32-, 64- or 128-byte swizzled rows a tile).
+All four run them at every dtype (bf16, fp16, f32) and every kernel
+head dim (16, 32, 64, 128, 256), so no call reaches a WMMA version
+(``flash_fwd.cu``, ``flash_bwd.cu``, ``flash_bwd_dq.cu``,
+``flash_bwd_dkv.cu``): those stay as the yardsticks ``chip_smoke.py``
+names by ``kernel=``.  Every model's attention but the tiny ones' is
+bf16 at D 64 or 128; the tiny Llama and MoE have D 16, and the trainer's
+default model is the tiny Llama in f32.  A build or launch failure
+raises.
 
 On the TPU the rule was a VMEM budget: the fused kernel keeps the whole
 (T, D) f32 dq resident, so past ``_FUSED_DQ_BYTES`` (T > 8192 at
@@ -108,23 +106,17 @@ _FUSED_DQ_BYTES = 4 * 1024 * 1024
 
 
 # Per flash kernel and dtype, the kernel head dims its Hopper version
-# takes: bf16 and fp16 at every kernel head dim for all four; f32 at
-# every one for the fused backward and the dk / dv kernel (the fused
-# kernel's walk without dq, so those two always take the same), at D
-# 64/128/256 for the forward and the dq kernel.
-_HOPPER_DIMS = {torch.bfloat16: KERNEL_HEAD_DIMS,
-                torch.float16: KERNEL_HEAD_DIMS,
-                torch.float32: (64, 128, 256)}
-_HOPPER_WALK_DIMS = {**_HOPPER_DIMS, torch.float32: KERNEL_HEAD_DIMS}
-SM90_RULE = {"fwd": _HOPPER_DIMS, "bwd": _HOPPER_WALK_DIMS,
-             "dq": _HOPPER_DIMS, "dkv": _HOPPER_WALK_DIMS}
+# takes: every one, for all four kernels at every dtype.
+_HOPPER_DIMS = dict.fromkeys(KERNEL_DTYPES, KERNEL_HEAD_DIMS)
+SM90_RULE = dict.fromkeys(("fwd", "bwd", "dq", "dkv"), _HOPPER_DIMS)
 
 
 def _sm90(kernel: str, dtype: torch.dtype, D: int) -> bool:
     """True where flash kernel ``kernel`` ("fwd", "bwd", "dq" or "dkv")
     runs its Hopper version for ``dtype`` at (kernel) head dim ``D``, by
-    SM90_RULE; elsewhere (the forward and the dq kernel at f32 D 16/32)
-    its WMMA version (``flash_fwd``, ``flash_bwd_dq``) runs."""
+    SM90_RULE: at every dtype and kernel head dim.  Elsewhere its WMMA
+    version (``flash_fwd``, ``flash_bwd``, ``flash_bwd_dq``,
+    ``flash_bwd_dkv``) would run; no call reaches one."""
     return D in SM90_RULE[kernel].get(dtype, ())
 
 

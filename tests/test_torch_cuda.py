@@ -116,13 +116,10 @@ def _launches():
 
 def _hopper(kernel, dtype, D):
     """The stated route at head dim ``D`` (padded to the kernels' next):
-    B1-B4 run Hopper at every D for bf16 and fp16 and at 64/128/256 for
-    f32, B2 and B4 (one walk) at f32 D 16/32 too; B1 and B3 at f32 D
-    16/32 run WMMA."""
-    D = next(d for d in (16, 32, 64, 128, 256) if D <= d)
-    if dtype != torch.float32 or kernel in ("bwd", "dkv"):
-        return D in (16, 32, 64, 128, 256)
-    return D in (64, 128, 256)
+    B1-B4 run Hopper at every dtype and D; no call runs a WMMA kernel."""
+    assert kernel in ("fwd", "bwd", "dq", "dkv")
+    assert dtype in (torch.bfloat16, torch.float16, torch.float32)
+    return any(D <= d for d in (16, 32, 64, 128, 256))
 
 
 def _want(dtype, D, two):
@@ -181,8 +178,7 @@ def test_flash_routes_dtypes_and_head_dims(cuda, monkeypatch, route, dtype,
     """B1 with B2 (fused) or B3 + B4 (two-kernel, forced as the JAX tests
     force it) at every kernel dtype and head dim, against autograd
     through the f32 plain forward, with exact launch counts: the Hopper
-    kernels for bf16 at every D and f32 at D 64/128 here; for f32 at D 16
-    the WMMA B1 and B3 beside the Hopper B2 and B4."""
+    kernels at every dtype and D, none of the WMMA ones."""
     if route == "two_kernel":
         monkeypatch.setattr(fa, "_FUSED_DQ_BYTES", 0)
     got, want, launched = _flash_case(cuda, B, T, H, Hk, D, causal, dtype,
@@ -294,20 +290,21 @@ def _bwd_args(gen, B, T, H, Hk, D, dtype, bh=False, causal=True):
 def test_two_kernel_dq_is_bitwise_stable(cuda, dtype, D, causal, bh):
     """B3 sums dq without atomics: two runs give the same bits (the
     Hopper B3 at each of its instantiations, at f32 D 256 on clusters of
-    two CTAs, at 16-bit D 16/32 on narrow slabs; the WMMA B3 at f32 D
-    16/32).  B4 is the fused kernel's walk without dq: the Hopper B4
-    (bf16, fp16, and f32 on the TF32 walk, at D 256 on clusters of two
-    CTAs, at D 16/32 on 128-row q tiles) gives the Hopper B2's dk / dv
-    bit for bit at each instantiation (GQA H16 / Hk4, ragged T)."""
+    two CTAs, at D 16/32 on narrow slabs, f32 on 64- or 128-byte rows).
+    B4 is the fused kernel's walk without dq: the Hopper B4 (bf16, fp16,
+    and f32 on the TF32 walk, at D 256 on clusters of two CTAs, at D
+    16/32 on 128-row q tiles) gives the Hopper B2's dk / dv bit for bit
+    at each instantiation (GQA H16 / Hk4, ragged T)."""
     args = _bwd_args(cuda, 1, 1000, 16, 4, D, dtype, bh, causal)
+    before = _launches()
     first = fa._flash_bwd_dq_cuda(*args)
     second = fa._flash_bwd_dq_cuda(*args)
     torch.cuda.synchronize()
+    assert _launches()["flash_bwd_dq_sm90"] == before["flash_bwd_dq_sm90"] + 2
     assert first.dtype == dtype
     assert torch.equal(first, second)
     dkv = fa._flash_bwd_dkv_cuda(*args)
-    fused = fa._flash_bwd_cuda(*args, kernel=(
-        fa.BWD_SM90_KERNEL if _hopper("bwd", dtype, D) else fa.BWD_KERNEL))
+    fused = fa._flash_bwd_cuda(*args)
     torch.cuda.synchronize()
     for a, b in zip(dkv, fused[1:]):
         assert torch.equal(a, b)
@@ -504,10 +501,48 @@ def test_sm90_f32_narrow_walk_matches_plain(cuda, D, T, causal, bh, kernel):
         assert err <= TOL[torch.float32] * b.abs().max().item() + 1e-3, err
 
 
+@pytest.mark.parametrize("kernel", ["fwd", "dq"])
+@pytest.mark.parametrize("bh", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("T", [2, 129, 1000])
+@pytest.mark.parametrize("D", [16, 32])
+def test_sm90_f32_narrow_fwd_dq_matches_plain(cuda, D, T, causal, bh,
+                                              kernel):
+    """The Hopper TF32 forward (B1) and dq kernel (B3) at f32 D 16/32
+    (64-key tiles on one slab of 64- or 128-byte rows) against their
+    plain versions on the same inputs (B3: lse and delta from the
+    forward), within the f32 bound (TF32 products; the forward's lse to
+    1e-2, f32 math on TF32 products): GQA H16 / Hk4, T = 2, a ragged T
+    (one 128-row q tile and a row) and T1000, both layouts, causal and
+    not, one launch of it and none of any other flash kernel.  Not T = 1,
+    for the reason test_sm90_f32_match_plain gives."""
+    assert _hopper(kernel, torch.float32, D)
+    args = _bwd_args(cuda, 1, T, 16, 4, D, torch.float32, bh, causal)
+    name = {"fwd": "flash_fwd_sm90", "dq": "flash_bwd_dq_sm90"}[kernel]
+    before = _launches()
+    if kernel == "fwd":
+        got = fa._flash_fwd_cuda(*args[:3], D ** -0.5, causal, bh)
+    else:
+        got = (fa._flash_bwd_dq_cuda(*args),)
+    torch.cuda.synchronize()
+    launched = {n: c - before[n] for n, c in _launches().items()}
+    assert launched == {n: int(n == name) for n in FLASH_KERNELS}
+    if kernel == "fwd":
+        ref = fa._flash_fwd_reference(*args[:3], D ** -0.5, causal, bh)
+        assert (got[1] - ref[1]).abs().max().item() <= 1e-2
+        got, ref = got[:1], ref[:1]
+    else:
+        ref = (fa._flash_bwd_dq_reference(*args),)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        err = (a - b).abs().max().item()
+        assert err <= TOL[torch.float32] * b.abs().max().item() + 1e-3, err
+
+
 def test_train_llama_tiny_on_cuda(cuda, capsys):
     """The trainer's default tiny model (f32, head dim 16) through the
-    kernels: two steps, the WMMA forward and the Hopper TF32 walk (the
-    fused backward)."""
+    kernels: two steps, the Hopper TF32 forward and walk (the fused
+    backward), no WMMA flash kernel."""
     before = kernels.launch_counts()
     rc = train_llama.main(["--model", "tiny", "--steps", "2",
                            "--batch-size", "2", "--seq-len", "64",
@@ -516,8 +551,12 @@ def test_train_llama_tiny_on_cuda(cuda, capsys):
     assert rc == 0 and "training complete" in out
     assert "flash=True fused_norm=True" in out
     after = kernels.launch_counts()
-    assert all(after[n] > before[n] for n in ("flash_fwd", "flash_bwd_sm90",
+    assert all(after[n] > before[n] for n in ("flash_fwd_sm90",
+                                              "flash_bwd_sm90",
                                               "rms_norm_fwd"))
+    assert all(after[n] == before[n] for n in ("flash_fwd", "flash_bwd",
+                                               "flash_bwd_dq",
+                                               "flash_bwd_dkv"))
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "zigzag"])

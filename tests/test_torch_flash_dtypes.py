@@ -3,8 +3,9 @@ dtypes and head dims the Hopper kernels take beyond bf16 at D 64/128:
 fp16 at D 64 and 128, bf16 and fp16 at D 256, f32 at D 64, 128 and 256
 (the TF32 kernels; at D 256 the fused, dq and dk / dv kernels on
 clusters of two CTAs), bf16 and fp16 at D 16 and 32 (every kernel on
-narrow slabs), and f32 at D 16 and 32 (the fused and dk / dv kernels'
-TF32 walk on 128-row q tiles; the WMMA forward and dq kernel).
+narrow slabs), and f32 at D 16 and 32 (every kernel in TF32 on one slab
+of 64- or 128-byte rows a tile: the forward and the dq kernel on 64-key
+tiles, the fused and dk / dv kernels' walk on 128-row q tiles).
 
 On the CPU the port runs its kernels' plain versions (the forward, the
 fused backward, and the dq and dk / dv kernels on the two-kernel route),
@@ -36,7 +37,14 @@ f32 dq kernel at D 256, whose two CTAs each hold half of D and exchange
 their partial scores, and holds its dq to the same bounds;
 ``test_narrow_walk_dq_fits_the_f32_bounds`` does the same for the fused
 kernel's f32 walk at D 16 and 32, which forms dq = dS K per 128-key tile
-on dS and K rounded to TF32 and sums the tiles' products in f32.
+on dS and K rounded to TF32 and sums the tiles' products in f32.  At D 16
+and 32 ``test_narrow_fwd_fits_the_f32_bounds`` replays the f32 forward
+(P rounded to TF32 per 64-key tile under the online rescale) and holds
+its out to the same bounds and its lse within 1e-2 of the plain
+version's, and ``test_narrow_dq_kernel_fits_the_f32_bounds`` replays the
+f32 dq kernel (dS and K rounded to TF32 per 128-key tile, the tiles'
+products summed in f32 in key-tile order, lse and out from the forward's
+replay) and holds its dq to them.
 """
 
 import importlib
@@ -287,6 +295,108 @@ def port_narrow_walk_dq(q, k, v, g, causal):
 def test_narrow_walk_dq_fits_the_f32_bounds(D, B, T, H, Hk, causal):
     q, k, v, g = inputs(D + T + 4, B, T, H, Hk, D, torch.float32)
     got = port_narrow_walk_dq(q, k, v, g, causal)
+    want = jax_run(q, k, v, g, causal, jnp.float32)[1]
+    err = float(np.abs(got - want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert err <= 1e-2 * float(np.abs(want).max()) and rel <= 1e-2, \
+        (err, rel)
+
+
+# The key tiles of the f32 forward and dq kernels at D 16 / 32
+# (csrc/flash_fwd_sm90.cu FwdTf32Smem, csrc/flash_bwd_dq_sm90.cu
+# DqTf32Smem: NARROW)
+NARROW_FWD_KEYS, NARROW_DQ_KEYS = 64, 128
+
+
+def port_narrow_fwd(q, k, v, causal):
+    """The f32 forward at D 16 / 32 (``csrc/flash_fwd_sm90.cu``, the TF32
+    kernel's NARROW body) replayed in plain f32 torch on (B, T, H, D)
+    numpy inputs: q, k and v rounded to TF32 as TMA loads them; per key
+    tile in order, S = Q K_j^T in f32, the running max m and the sum l in
+    f32 (l from the unrounded P), O rescaled by exp(m_old - m_new), and
+    P_j rounded to TF32 (cvt.rna) before O += P_j V_j; out = O / l and lse
+    = m + log l.  Returns out ((B, T, H, D)) and lse ((B*H, T))."""
+    B, T, H, D = q.shape
+    group = H // k.shape[2]
+    scale = D ** -0.5
+    q, k, v = (tf32_round(torch.tensor(x)) for x in (q, k, v))
+    q4 = fa._heads_first(q, False)
+    k4, v4 = (fa._heads_first(x, False).repeat_interleave(group, dim=1)
+              for x in (k, v))
+    m = torch.full((B, H, T, 1), float("-inf"))
+    l = torch.zeros(B, H, T, 1)
+    o = torch.zeros(B, H, T, D)
+    rows = torch.arange(T)[:, None]
+    for k0 in range(0, T, NARROW_FWD_KEYS):
+        keys = slice(k0, k0 + NARROW_FWD_KEYS)
+        s = q4 @ k4[..., keys, :].transpose(-1, -2) * scale
+        if causal:
+            cols = torch.arange(k0, min(k0 + NARROW_FWD_KEYS, T))[None, :]
+            s = s.masked_fill(cols > rows, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + tf32_round(p) @ v4[..., keys, :]
+        m = m_new
+    out = fa._from_heads_first(o / l, False)
+    return out, (m + torch.log(l)).reshape(B * H, T)
+
+
+@pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
+@pytest.mark.parametrize("D", [16, 32])
+def test_narrow_fwd_fits_the_f32_bounds(D, B, T, H, Hk, causal):
+    q, k, v, g = inputs(D + T + 5, B, T, H, Hk, D, torch.float32)
+    out, lse = port_narrow_fwd(q, k, v, causal)
+    got = out.numpy()
+    want = jax_run(q, k, v, g, causal, jnp.float32)[0]
+    err = float(np.abs(got - want).max())
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    assert err <= 2e-2 and rel <= 1e-2, (err, rel)
+    _, plain_lse = fa._flash_fwd_reference(
+        *(torch.tensor(x) for x in (q, k, v)), D ** -0.5, causal, False)
+    assert float((lse - plain_lse.reshape(lse.shape)).abs().max()) <= 1e-2
+
+
+def port_narrow_dq(q, k, v, g, causal):
+    """The f32 dq kernel at D 16 / 32 (``csrc/flash_bwd_dq_sm90.cu``, the
+    TF32 kernel's NARROW body) replayed in plain f32 torch on (B, T, H, D)
+    numpy inputs: lse and out from the forward's replay
+    (``port_narrow_fwd``), delta = rowsum(dO * out) in f32 as the route
+    forms it; q, k, v and dO rounded to TF32 as TMA loads them; per key
+    tile in order, S and dP in f32, P and dS in f32 from them, dS rounded
+    to TF32 (cvt.rna) and the tile's dS K added to dq in f32.  Returns dq
+    as numpy."""
+    B, T, H, D = q.shape
+    group = H // k.shape[2]
+    scale = D ** -0.5
+    out, lse = port_narrow_fwd(q, k, v, causal)
+    delta = fa._heads_first(torch.tensor(g) * out, False).sum(-1,
+                                                              keepdim=True)
+    q, k, v, g = (tf32_round(torch.tensor(x)) for x in (q, k, v, g))
+    q4, g4 = (fa._heads_first(x, False) for x in (q, g))
+    k4, v4 = (fa._heads_first(x, False).repeat_interleave(group, dim=1)
+              for x in (k, v))
+    lse = lse.reshape(B, H, T, 1)
+    rows = torch.arange(T)[:, None]
+    dq = torch.zeros_like(q4)
+    for k0 in range(0, T, NARROW_DQ_KEYS):
+        keys = slice(k0, k0 + NARROW_DQ_KEYS)
+        p = torch.exp(q4 @ k4[..., keys, :].transpose(-1, -2) * scale - lse)
+        if causal:
+            cols = torch.arange(k0, min(k0 + NARROW_DQ_KEYS, T))[None, :]
+            p = p.masked_fill(cols > rows, 0.0)
+        dp = g4 @ v4[..., keys, :].transpose(-1, -2)
+        ds = tf32_round(p * (dp - delta) * scale)
+        dq = dq + ds @ k4[..., keys, :]
+    return fa._from_heads_first(dq, False).numpy()
+
+
+@pytest.mark.parametrize("B,T,H,Hk,causal", SHAPES)
+@pytest.mark.parametrize("D", [16, 32])
+def test_narrow_dq_kernel_fits_the_f32_bounds(D, B, T, H, Hk, causal):
+    q, k, v, g = inputs(D + T + 6, B, T, H, Hk, D, torch.float32)
+    got = port_narrow_dq(q, k, v, g, causal)
     want = jax_run(q, k, v, g, causal, jnp.float32)[1]
     err = float(np.abs(got - want).max())
     rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))

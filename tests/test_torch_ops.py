@@ -226,21 +226,17 @@ class TestTwoKernelRoute:
 def hopper_by_the_rule(kernel, dtype, D):
     """The stated route, written out: every flash kernel (the forward,
     the fused backward, the dq and the dk / dv kernel) runs its Hopper
-    version for bf16 and fp16 at kernel head dim 16, 32, 64, 128 or 256
-    and for f32 at 64, 128 or 256; the fused backward and the dk / dv
-    kernel (one walk) also for f32 at 16 and 32, where the forward and
-    the dq kernel run WMMA."""
-    if dtype != torch.float32 or kernel in ("bwd", "dkv"):
-        return D in (16, 32, 64, 128, 256)
-    return D in (64, 128, 256)
+    version for bf16, fp16 and f32 at kernel head dim 16, 32, 64, 128 or
+    256; no call runs a WMMA version."""
+    assert kernel in ("fwd", "bwd", "dq", "dkv")
+    assert dtype in (torch.bfloat16, torch.float16, torch.float32)
+    return D in (16, 32, 64, 128, 256)
 
 
 class TestHopperDispatch:
     """Which version of each flash kernel a CUDA call launches, by the
     per-kernel, per-dtype rule (``_sm90``): the Hopper ones at every
-    16-bit D and at f32 D 64/128/256, the fused backward's and the dk /
-    dv kernel's at f32 D 16/32 too; the WMMA forward and dq kernel at f32
-    D 16/32."""
+    dtype and kernel head dim."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
@@ -253,8 +249,7 @@ class TestHopperDispatch:
     def test_tiny_llama_is_hopper_in_16_bits(self):
         """At the head dim of ``llama.tiny()`` (16) in bf16 and fp16, all
         four flash kernels take their Hopper versions (the narrow-slab
-        designs); in f32 the fused backward and the dk / dv kernel take
-        the Hopper TF32 walk, the forward and the dq kernel WMMA."""
+        designs)."""
         from pytorch_operator_tpu_torch.models import llama
 
         cfg = llama.tiny(dtype=torch.bfloat16)
@@ -263,9 +258,19 @@ class TestHopperDispatch:
         for dtype in (torch.bfloat16, torch.float16):
             assert all(fa._sm90(k, dtype, D)
                        for k in ("fwd", "bwd", "dq", "dkv"))
+
+    def test_tiny_llama_is_hopper_in_f32(self):
+        """The trainer's default model, ``llama.tiny()`` in f32 at head dim
+        16: all four flash kernels take their Hopper TF32 versions on
+        64-byte rows, none the WMMA ones."""
+        from pytorch_operator_tpu_torch.models import llama
+
+        cfg = llama.tiny()
+        assert cfg.dtype == torch.float32
+        D = fa._kernel_dim(cfg.head_dim)
+        assert D == 16
         assert [fa._sm90(k, torch.float32, D)
-                for k in ("fwd", "bwd", "dq", "dkv")] == [False, True,
-                                                          False, True]
+                for k in ("fwd", "bwd", "dq", "dkv")] == [True] * 4
 
     @pytest.mark.parametrize("D", [64, 128])
     def test_cpu_tensors_take_the_plain_versions(self, monkeypatch, D):
@@ -310,9 +315,8 @@ class TestHopperDispatch:
 class TestTwoKernelDispatch:
     """Which kernel each wrapper launches (the forward, the fused backward,
     the dq and the dk / dv kernel): its Hopper version where the
-    per-kernel rule takes it (every 16-bit D, f32 at D 64/128/256, and
-    for the fused backward and the dk / dv kernel f32 at D 16/32 too),
-    else its WMMA version."""
+    per-kernel rule takes it (every dtype and kernel head dim), else its
+    WMMA version; the WMMA one where the caller names it."""
 
     @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32,
                                        torch.float16])
