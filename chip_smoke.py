@@ -70,7 +70,15 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             and B2 at the MoE's and the pipeline's length, B1 x T4096
             with 32 q heads over 8 kv heads, D128, beside SDPA and
             aten's backward on k and v expanded to 32 heads, and at the
-            --pp microbatch, B1 x T4096 H32 (no GQA), D128;
+            --pp microbatch, B1 x T4096 H32 (no GQA), D128; the
+            short_t_forward rows: forward-only calls (torch.no_grad())
+            through flash_attention's B1 against _dense_path, in turns,
+            at T 128-2048 for the 1F1B tick (bf16 B1 H32 D128), the
+            flagship's inference (bf16 B2 H16 D128) and the tiny model
+            (f32 B1 H8/4 D16), each with B1's bound and a verdict, and
+            the crossover they give (the port has no route: 0); B5
+            at the 7B's row width (4096 x 4096 bf16) in turns with
+            F.rms_norm;
 4. main     the flagship Llama (d2048 L16 h16 ffn5632, ~888M params) in
             bf16 through make_train_step with AdamW(3e-4, wd 0.1) at
             B2 x T2048 on one fixed seeded batch: loss finite and
@@ -78,7 +86,9 @@ Phases, in order; any failure exits non-zero and prints no ``ok`` line:
             tokens/s, MFU and peak memory, then one profiled step's
             device time by kernel;
 5. model    the tiny model in bf16 with the kernels on against the same
-            weights with them off: logits and the loss after one step;
+            weights with them off: logits (the kernels-on forward under
+            no_grad must launch B1 once a layer) and the loss after one
+            step;
 6. long     the flagship at B1 x T16384 with remat_policy save_attn+qkv
             and the tied head applied per 1024 tokens, as step 4 measures
             it: the backward takes the two-kernel route; then two steps
@@ -511,12 +521,14 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
     taken again, up to ``profiles`` times in all, and the records it had
     are printed.  If none is whole, ``ms`` is each kernel's mean record
     times its launches a call, from the last profile's records, and a
-    line says so; if the profiler recorded no device time the phase
-    fails.  ``profiles`` counts the profiles taken; with ``profiles=0``
-    no profile is taken and ``ms`` is ``event_ms``, for calls long
-    enough that the host runs ahead of the device."""
+    line says so.  The profiler has also returned profiles with no device
+    record at all, three in a row; if the last one has none, ``ms`` is
+    ``event_ms`` and ``clock`` says ``cuda_events`` (else ``profiler``).
+    ``profiles`` counts the profiles taken and ``lost_records`` says
+    whether none was whole; with ``profiles=0`` no profile is taken and
+    ``ms`` is ``event_ms``, for calls long enough that the host runs
+    ahead of the device."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
 
     for _ in range(warmup):
         fn()
@@ -531,16 +543,12 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    event_ms = statistics.median(times)
     if profiles == 0:
-        return {"ms": statistics.median(times),
-                "event_ms": statistics.median(times), "profiles": 0}
+        return {"ms": event_ms, "event_ms": event_ms, "profiles": 0,
+                "lost_records": False, "clock": "cuda_events"}
     for taken in range(1, profiles + 1):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for i in range(iters):
-                with record_function(f"time_ms call {i}"):
-                    fn()
-            torch.cuda.synchronize()
+        prof = profile_calls(fn, iters)
         events = device_events(prof)
         if events and all(e.count % iters == 0 for e in events):
             break
@@ -548,18 +556,50 @@ def time_ms(fn, warmup: int = 3, iters: int = 10, reps: int = 5,
             prof, events, iters)})
     else:
         if not events:
-            raise SmokeFailure(f"the profiler recorded no device time in "
-                               f"{profiles} profiles")
+            emit({"profiler_recorded_no_device_time": {
+                "profiles": profiles, "event_ms": event_ms}})
+            return {"ms": event_ms, "event_ms": event_ms,
+                    "profiles": profiles, "lost_records": True,
+                    "clock": "cuda_events"}
         device = sum(e.device_time_total / e.count
                      * max(1, round(e.count / iters)) for e in events) / 1e3
         emit({"profiler_lost_records_in_every_profile": {
             "profiles": profiles, "ms_from_kept_records": device,
-            "event_ms": statistics.median(times)}})
-        return {"ms": device, "event_ms": statistics.median(times),
-                "profiles": profiles}
+            "event_ms": event_ms}})
+        return {"ms": device, "event_ms": event_ms, "profiles": profiles,
+                "lost_records": True, "clock": "profiler"}
     device = sum(e.device_time_total for e in events) / 1e3
-    return {"ms": device / iters, "event_ms": statistics.median(times),
-            "profiles": taken}
+    return {"ms": device / iters, "event_ms": event_ms, "profiles": taken,
+            "lost_records": False, "clock": "profiler"}
+
+
+def profile_calls(fn, iters: int):
+    """One profile of ``iters`` calls of ``fn``, each call in a
+    record_function range of its own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            with record_function(f"time_ms call {i}"):
+                fn()
+        torch.cuda.synchronize()
+    return prof
+
+
+def warm_profiler(torch, tries: int = 5) -> dict:
+    """Profiles of a few small kernels until one records device time, up
+    to ``tries``, before phase 3's first timing: the profiler's first
+    sessions in a process have come back without device records."""
+    x = torch.ones(1 << 20, device="cuda")
+    for taken in range(1, tries + 1):
+        events = device_events(profile_calls(lambda: x.mul_(1.0), 10))
+        if events:
+            break
+    out = {"profiles": taken, "device_time": bool(events)}
+    emit({"profiler_warmup": out})
+    return out
 
 
 def timed(kernel, plain, library, plain_kw=None) -> dict:
@@ -575,7 +615,8 @@ def timing_row(kernel: dict, plain: dict, library: dict | None) -> dict:
     return {"ms": kernel["ms"], "plain_ms": plain["ms"],
             "library_ms": library and library["ms"],
             "event_ms": {k: v and v["event_ms"] for k, v in t.items()},
-            "profiles": {k: v and v["profiles"] for k, v in t.items()}}
+            "profiles": {k: v and v["profiles"] for k, v in t.items()},
+            "clock": {k: v and v["clock"] for k, v in t.items()}}
 
 
 def bound(bytes_moved: float, flops: float,
@@ -607,11 +648,14 @@ def check_rms_norm(torch, gen) -> dict:
     )
 
     worst = {}
-    # main path (N = B*T, D = dim) bf16, a ragged scalar-load shape, f32
+    # main path (N = B*T, D = dim) bf16, a ragged scalar-load shape, f32,
+    # and the 7B's and Mixtral's width (phase 3's rms_norm_d4096)
     for label, (N, D, dtype) in {
             "main": (MAIN["B"] * MAIN["T"], 2048, torch.bfloat16),
             "ragged": (21, 100, torch.bfloat16),
-            "f32": (4096, 2048, torch.float32)}.items():
+            "f32": (4096, 2048, torch.float32),
+            "d4096": (RMS_WIDE["N"], RMS_WIDE["D"],
+                      torch.bfloat16)}.items():
         x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
         w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
         got = rms_norm_cuda(x, w, 1e-5).float()
@@ -1250,6 +1294,9 @@ def in_turns(new, old, **kw) -> tuple[dict, dict]:
         return {"ms": (a["ms"] + b["ms"]) / 2,
                 "event_ms": (a["event_ms"] + b["event_ms"]) / 2,
                 "profiles": a["profiles"] + b["profiles"],
+                "lost_records": a["lost_records"] or b["lost_records"],
+                "clock": (a["clock"] if a["clock"] == b["clock"]
+                          else "mixed"),
                 "turns_ms": [a["ms"], b["ms"]]}
 
     return merge(runs[0], runs[3]), merge(runs[1], runs[2])
@@ -1350,6 +1397,151 @@ def time_kernels(torch, gen) -> dict:
     res["flash_bwd"] = {**timing_row(old, plain, aten), **bwd}
     for name, r in res.items():
         emit({"timing": name, **r})
+    return res
+
+
+# phase 3's short_t_forward rows: forward-only calls, which the JAX module
+# sends to dense XLA at T <= 1024 (its TPU-tuned _DENSE_FWD_MAX_T), timed
+# at each T through B1 and through the port's _dense_path; (B, H, Hk, D,
+# dtype) a shape
+SHORT_T = (128, 256, 512, 1024, 2048)
+SHORT_T_SHAPES = {
+    "a_pp_tick": (1, 32, 32, 128, BF16),  # the 1F1B forward tick (--pp)
+    "b_flagship": (2, 16, 16, 128, BF16),  # inference of the flagship
+    "c_tiny_f32": (1, 8, 4, 16, F32),  # llama.tiny, train_llama's default
+}
+# dense wins at a (shape, T) only where its device time is below B1's by
+# more than this share in both of two in-turns timings
+DENSE_WIN = 0.05
+
+
+def time_short_t_forward(torch, gen) -> dict:
+    """Phase 3's short_t_forward rows: at each SHORT_T_SHAPES shape and T
+    in SHORT_T, causal, under torch.no_grad(), ``flash_attention`` (B1)
+    against ``_dense_path`` on the same inputs, in turns, twice.  A row's
+    verdict is "dense" where the dense path's profiler device time is
+    below B1's by more than DENSE_WIN in both timings, else "b1"; the
+    timings are taken once more if a profile lost records in every take,
+    and a row still not whole says "not_whole" and sets nothing.
+    ``crossover_t`` is the largest T at which dense wins at that T and at
+    every smaller one at both bf16 shapes (0: nowhere, which is what the
+    port's dispatch assumes: it has no short-T dense route, so every
+    call must launch B1)."""
+    from pytorch_operator_tpu_torch import kernels
+    from pytorch_operator_tpu_torch.ops.flash_attention import (
+        _dense_path,
+        flash_attention,
+    )
+
+    rows, verdicts = [], {}
+    for shape, (B, H, Hk, D, dtype) in SHORT_T_SHAPES.items():
+        peak = PEAK_TF32_FLOPS if dtype == F32 else PEAK_BF16_FLOPS
+        size = 4 if dtype == F32 else 2
+        for T in SHORT_T:
+            q, k, v, _ = _flash_inputs(torch, gen, B, T, H, Hk, D, False,
+                                       dtype)
+            scale = D ** -0.5
+
+            def b1(q=q, k=k, v=v):
+                return flash_attention(q, k, v, causal=True)
+
+            def dense(q=q, k=k, v=v, scale=scale):
+                return _dense_path(q, k, v, scale, True)
+
+            with torch.no_grad():
+                before = kernels.KERNELS["flash_fwd_sm90"].launches
+                err = _rel_errs(b1(), dense())
+                launched = kernels.KERNELS["flash_fwd_sm90"].launches - before
+                require(launched == 1,
+                        f"short_t_forward {shape} T{T}: flash_attention "
+                        f"launched B1 {launched} times under no_grad")
+                for attempt in (1, 2):
+                    turns = [in_turns(b1, dense) for _ in range(2)]
+                    whole = not any(t["lost_records"] for pair in turns
+                                    for t in pair)
+                    if whole:
+                        break
+            pairs = B * H * causal_pairs(T, True)
+            b_ms, b_by = bound(2 * B * T * (H + Hk) * D * size + B * H * T * 4,
+                               4 * D * pairs, peak, exps=pairs)
+
+            def side(i):
+                return {"ms": statistics.mean(t[i]["ms"] for t in turns),
+                        "event_ms": statistics.mean(t[i]["event_ms"]
+                                                    for t in turns),
+                        "timings_ms": [t[i]["ms"] for t in turns],
+                        "timings_event_ms": [t[i]["event_ms"] for t in turns],
+                        "profiles": sum(t[i]["profiles"] for t in turns),
+                        "clock": sorted({t[i]["clock"] for t in turns})}
+
+            wins = all(d["ms"] < (1 - DENSE_WIN) * b["ms"] for b, d in turns)
+            event_wins = all(d["event_ms"] < (1 - DENSE_WIN) * b["event_ms"]
+                             for b, d in turns)
+            verdict = ("not_whole" if not whole
+                       else "dense" if wins else "b1")
+            verdicts[shape, T] = verdict
+            rows.append({"shape": shape, "B": B, "T": T, "H": H, "Hk": Hk,
+                         "D": D, "dtype": dtype, "b1": side(0),
+                         "dense": side(1), "bound_ms": b_ms,
+                         "bound_by": b_by, "b1_launches": launched,
+                         "b1_vs_dense_max_abs_err": err[0],
+                         "attempts": attempt, "whole": whole,
+                         "verdict": verdict,
+                         "event_verdict": "dense" if event_wins else "b1"})
+    crossover = 0
+    for T in SHORT_T:
+        if not all(verdicts[s, T] == "dense" for s, spec in
+                   SHORT_T_SHAPES.items() if spec[-1] == BF16):
+            break
+        crossover = T
+    res = {"rows": rows, "crossover_t": crossover,
+           "agrees_with_port": crossover == 0,
+           "rule": f"dense wins where its profiler device time is below "
+                   f"B1's by more than {DENSE_WIN:.0%} in both of two "
+                   f"in-turns timings (B1, dense, dense, B1); crossover_t: "
+                   f"the largest T with dense winning there and at every "
+                   f"smaller T at both bf16 shapes"}
+    emit({"timing": "short_t_forward", **res})
+    return res
+
+
+# B5 at the row width of Llama-2-7B and Mixtral-8x7B (the SP, pipeline
+# and MoE paths): B1 x T4096 tokens of D 4096
+RMS_WIDE = dict(N=4096, D=4096)
+
+
+def time_rms_norm_wide(torch, gen) -> dict:
+    """Phase 3's rms_norm_d4096 row: B5 on RMS_WIDE bf16 rows in turns
+    with ``F.rms_norm``, beside its plain version and its byte bound;
+    ``loses_beyond_spread`` where B5's time exceeds the library's by more
+    than the wider spread of either one's two turns."""
+    import torch.nn.functional as F
+
+    from pytorch_operator_tpu_torch.ops.rms_norm import (
+        rms_norm_cuda,
+        rms_norm_reference,
+    )
+
+    N, D = RMS_WIDE["N"], RMS_WIDE["D"]
+    x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
+    b_ms, b_by = bound(2 * N * D * 2 + D * 2, 4 * N * D)
+    # x is 33.6 MB: cycle four copies (134 MB) so that no launch finds
+    # its input in the 50 MB L2
+    xs = itertools.cycle([x.clone() for _ in range(4)])
+    new, lib = in_turns(lambda: rms_norm_cuda(next(xs), w, 1e-5),
+                        lambda: F.rms_norm(next(xs), (D,), w, 1e-5))
+    plain = time_ms(lambda: rms_norm_reference(next(xs), w, 1e-5))
+    spread = max(abs(a - b) / min(a, b)
+                 for a, b in (new["turns_ms"], lib["turns_ms"]))
+    gap = new["ms"] / lib["ms"] - 1
+    res = {**timing_row(new, plain, lib),
+           "library": "torch.nn.functional.rms_norm",
+           "bound_ms": b_ms, "bound_by": b_by, "shape": [N, D],
+           "turns_ms": new["turns_ms"], "library_turns_ms": lib["turns_ms"],
+           "gap_to_library": gap, "spread": spread,
+           "loses_beyond_spread": gap > spread}
+    emit({"timing": "rms_norm_d4096", **res})
     return res
 
 
@@ -2064,6 +2256,7 @@ def _profile_one_step(torch, label, step, expect) -> dict:
 def check_tiny_model(torch) -> dict:
     import numpy as np
 
+    from pytorch_operator_tpu_torch import kernels
     from pytorch_operator_tpu_torch.models import llama
     from pytorch_operator_tpu_torch.parallel.train import (
         TrainState,
@@ -2088,9 +2281,17 @@ def check_tiny_model(torch) -> dict:
         0, cfg_k.vocab_size, (2, 201))).cuda()
     with torch.no_grad():
         truth = m32(batch[:, :-1])
+        before = kernels.KERNELS["flash_fwd_sm90"].launches
         ek = (mk(batch[:, :-1]) - truth).abs()
+        torch.cuda.synchronize()
+        # the forward-only call runs B1 (no short-T dense route), so the
+        # kernel model's logits hold the kernel, not a second dense path
+        b1 = kernels.KERNELS["flash_fwd_sm90"].launches - before
         ep = (mp(batch[:, :-1]) - truth).abs()
     del m32
+    require(b1 == cfg_k.n_layers,
+            f"tiny model: the kernels-on forward under no_grad launched B1 "
+            f"{b1} times, not once a layer ({cfg_k.n_layers})")
     losses = {}
     for name, m, cfg in (("kernels", mk, cfg_k), ("plain", mp, cfg_p)):
         opt = adamw(m, 1e-3, weight_decay=0.1)
@@ -2116,6 +2317,7 @@ def check_tiny_model(torch) -> dict:
     res = {"logits_vs_f32": {"kernels": {"max": mk_max, "mean": mk_mean},
                              "plain_bf16": {"max": mp_max,
                                             "mean": mp_mean}},
+           "b1_launches_in_forward": b1,
            "loss_after_step": losses, "loss_abs_err": dl,
            "tolerance": "logits: kernel model's max and mean error against "
                         "the f32 model <= 2 x the plain bf16 model's + 2e-3; "
@@ -4666,11 +4868,14 @@ def run() -> tuple[str, list[dict]]:
             "flash_bwd_dkv": long["wmma"]["dkv"]}
     seconds["kernels"] = time.perf_counter() - t
     t = time.perf_counter()
+    warm_profiler(torch)
     timing = time_kernels(torch, gen)
     timing.update(time_long_kernels(torch, gen))
     c3 = time_c3_kernels(torch, gen)
     gqa = time_gqa_kernels(torch, gen)
     pipe = time_gqa_kernels(torch, gen, PIPE_T4096, "pipe_t4096")
+    short_t = time_short_t_forward(torch, gen)
+    timing["rms_norm_d4096"] = time_rms_norm_wide(torch, gen)
     seconds["timing"] = time.perf_counter() - t
     t = time.perf_counter()
     paths["main_path"] = run_main_path(torch)
@@ -4740,7 +4945,10 @@ def run() -> tuple[str, list[dict]]:
                "ms": tm["ms"], "plain_ms": tm["plain_ms"],
                "bound_ms": tm["bound_ms"], "bound_by": tm["bound_by"],
                "library_ms": tm["library_ms"],
-               "ms_by": "torch.profiler device time per call",
+               "ms_by": ("torch.profiler device time per call"
+                         if tm.get("clock", {}).get("kernel", "profiler")
+                         == "profiler" else "CUDA events per call where "
+                         "the profiler recorded no device time"),
                "event_ms": tm["event_ms"], "profiles": tm["profiles"],
                "shape": tm["shape"]}
         if "previous_ms" in tm:
@@ -4760,6 +4968,14 @@ def run() -> tuple[str, list[dict]]:
                 row[key] = {"shape": r["shape"], **{
                     k: part[k] for k in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")}}
+        if short == "rms_norm":  # B5 at the 7B's and Mixtral's width
+            wt = timing["rms_norm_d4096"]
+            row["d4096"] = {k: wt[k] for k in (
+                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by", "spread", "loses_beyond_spread")}
+        if short == "flash_fwd_sm90":  # forward-only calls at short T
+            row["short_t_forward"] = {
+                k: short_t[k] for k in ("crossover_t", "agrees_with_port")}
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (

@@ -61,10 +61,17 @@ forward is the operator ``torch.ops.ptt.flash_fwd`` so that a
 checkpoint policy can name it (``models/llama.py``'s ``save_attn``).
 
 The rest of the TPU-tuned dispatch is not carried over: ``_auto_block``
-and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``).
-On CUDA every call, forward-only or not, goes through the kernels, which
-tile T by 32, 64 or 128 and mask the tail themselves, and any B * H (the
-grid is one dimension of tiles times B * H).  The kernels take float32,
+and the short-T dense route (``_DENSE_FWD_MAX_T`` / ``_route_small_t``,
+which the JAX module takes for a forward-only call at T <= 1024).  The
+route was measured on an H100 and dense wins nowhere: under
+``torch.no_grad()`` at T 128-2048 (``chip_smoke.py`` phase 3,
+``short_t_forward``) ``_dense_path`` took 3.1-23x B1's device time at
+bf16 D 128 (the 1F1B forward tick, the flagship's inference) and 5-18x
+at the tiny model's f32 D 16 (``PERF.md`` §6).  So every call,
+forward-only or not, goes through the forward kernel (on the CPU its
+plain version): a pinned divergence from the JAX module.  The kernels
+tile T by 32, 64 or 128 and mask the tail themselves, take any B * H
+(the grid is one dimension of tiles times B * H), and take float32,
 bfloat16 or float16 at D in {16, 32, 64, 128, 256}.  A head dim between
 two of these runs at the next one: the wrappers pad q, k, v (and dO)
 with zero columns, which change neither the scores nor the true columns
@@ -437,7 +444,9 @@ def flash_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
-    """Attention over (B, T, H, D) queries, any T >= 1.
+    """Attention over (B, T, H, D) queries, any T >= 1, through the
+    forward kernel whether or not the call is differentiated (no short-T
+    dense route: see the module docstring).
 
     GQA-native: k / v may carry H_kv heads with H % H_kv == 0; q head h
     reads kv head h // (H / H_kv), and dk / dv come back at H_kv heads."""

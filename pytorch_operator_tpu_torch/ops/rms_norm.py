@@ -13,7 +13,11 @@ device: the JAX backward is no Pallas kernel either.
 
 The TPU dispatch limits (rows a multiple of the row block, D <= 2048,
 the VMEM budget of the row block) were TPU VMEM constants; the CUDA
-kernel takes every N and D, so they are not carried over.
+kernel takes every N and D, so they are not carried over.  Rows wider
+than 2048, which the JAX module sends to XLA, run the kernel: at the 7B
+and Mixtral width (4096 x 4096 bf16, ``chip_smoke.py`` phase 3,
+``rms_norm_d4096``) it was level with ``F.rms_norm`` on an H100 and at
+81 % of its byte bound (``PERF.md`` §6).
 """
 
 from __future__ import annotations

@@ -96,8 +96,14 @@ def test_tiny_llama_kernels_match_plain(cuda):
                                           use_fused_norm=False),
                       device="cuda")
     off.load_state_dict(model.state_dict())
+    before = kernels.KERNELS["flash_fwd_sm90"].launches
     with torch.no_grad():
         e_on = (on(toks) - ref).abs()
+        torch.cuda.synchronize()
+        # the forward-only call runs B1 once a layer: the port has no
+        # short-T dense route, so this holds the kernel
+        assert (kernels.KERNELS["flash_fwd_sm90"].launches - before
+                == cfg.n_layers)
         e_off = (off(toks) - ref).abs()
     # against the f32 model, the kernels add no more than the bf16
     # rounding the plain bf16 model already has (see chip_smoke.py)
