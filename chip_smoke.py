@@ -371,8 +371,9 @@ def ptxas_by_kernel(log: str) -> dict:
 
 # The Hopper kernels' instantiations: B1, B2, B3 and B4 at bf16, fp16
 # and f32 (TF32) at D 64/128/256 (9 each), at bf16 and fp16 at D 16/32
-# (on narrow slabs, 4 each), and at f32 D 16/32 (2 each)
-SM90_INSTANTIATIONS = 60
+# (on narrow slabs, 4 each), and at f32 D 16/32 (2 each); B5 at f32, bf16
+# and fp16
+SM90_INSTANTIATIONS = 63
 
 
 def check_sm90_ptxas(log: str) -> dict:
@@ -642,38 +643,61 @@ def causal_pairs(T: int, causal: bool) -> int:
 
 
 def check_rms_norm(torch, gen) -> dict:
+    """B5 against its plain version: the main path's rows, bf16, fp16 and
+    f32, a weight in another dtype than x, the persistent walk's tail
+    (N = 1, 4097), the general body (a ragged D, an x off 16 bytes), and
+    the 7B's and Mixtral's width; then the row-block kernel it replaced,
+    the yardstick, on the main rows.  Returns each one's largest error on the
+    main rows."""
     from pytorch_operator_tpu_torch.ops.rms_norm import (
+        ROWBLOCK_KERNEL,
         rms_norm_cuda,
         rms_norm_reference,
     )
 
     worst = {}
-    # main path (N = B*T, D = dim) bf16, a ragged scalar-load shape, f32,
-    # and the 7B's and Mixtral's width (phase 3's rms_norm_d4096)
-    for label, (N, D, dtype) in {
-            "main": (MAIN["B"] * MAIN["T"], 2048, torch.bfloat16),
-            "ragged": (21, 100, torch.bfloat16),
-            "f32": (4096, 2048, torch.float32),
-            "d4096": (RMS_WIDE["N"], RMS_WIDE["D"],
-                      torch.bfloat16)}.items():
-        x = torch.randn(N, D, generator=gen, device="cuda").to(dtype)
-        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dtype)
-        got = rms_norm_cuda(x, w, 1e-5).float()
+    main = MAIN["B"] * MAIN["T"]
+    # label: (N, D, x dtype, weight dtype, x's offset in elements)
+    for label, (N, D, dtype, wdtype, offset) in {
+            "main": (main, 2048, BF16, BF16, 0),
+            "ragged": (21, 100, BF16, BF16, 0),
+            "f32": (main, 2048, F32, F32, 0),
+            "fp16": (main, 2048, F16, F16, 0),
+            "bf16_w_f32": (main, 2048, BF16, F32, 0),
+            "n1": (1, 2048, BF16, BF16, 0),
+            "n4097": (4097, 2048, BF16, BF16, 0),
+            "unaligned": (main, 2048, BF16, BF16, 1),
+            "d4096": (RMS_WIDE["N"], RMS_WIDE["D"], BF16, BF16, 0),
+            "rowblock": (main, 2048, BF16, BF16, 0)}.items():
+        dt = getattr(torch, dtype)
+        buf = torch.randn(N * D + offset, generator=gen, device="cuda")
+        x = buf.to(dt)[offset:].view(N, D)
+        w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(
+            getattr(torch, wdtype))
+        kw = {"kernel": ROWBLOCK_KERNEL} if label == "rowblock" else {}
+        got = rms_norm_cuda(x, w, 1e-5, **kw).float()
         ref = rms_norm_reference(x, w, 1e-5).float()
         torch.cuda.synchronize()
         err = (got - ref).abs()
         # both round the same f32 math (summed in another order) to the
         # output dtype: at most one ulp of it apart
-        ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
+        ulp = RMS_ULP[dtype]
         ok = bool((err <= ulp * ref.abs() + 1e-6).all())
         worst[label] = float(err.max())
         emit({"check": "rms_norm", "case": label, "shape": [N, D],
-              "dtype": str(dtype), "max_abs_err": worst[label],
+              "dtype": dtype, "weight_dtype": wdtype, "offset": offset,
+              "max_abs_err": worst[label],
               "tolerance": "|err| <= 1 ulp of the output dtype * |ref|: "
                            "same f32 math, sum of squares in another "
                            "order", "ok": ok})
         require(ok, f"rms_norm {label} disagrees with its plain version")
-    return {"max_abs_err": worst["main"]}
+    return {"max_abs_err": worst["main"], "rowblock": worst["rowblock"]}
+
+
+# one ulp of B5's output, relative: bf16 and fp16 keep 7 and 10 bits
+# after the point; f32's bound of 2^-22 leaves room for rsqrtf
+RMS_ULP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10,
+           "float32": 2.0 ** -22}
 
 
 BF16, F32, F16 = "bfloat16", "float32", "float16"
@@ -1321,25 +1345,11 @@ def time_kernels(torch, gen) -> dict:
         _flash_fwd_cuda,
         _flash_fwd_reference,
     )
-    from pytorch_operator_tpu_torch.ops.rms_norm import (
-        rms_norm_cuda,
-        rms_norm_reference,
-    )
 
     res = {}
-    N, D = MAIN["B"] * MAIN["T"], 2048
-    x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
-    b_ms, b_by = bound(2 * N * D * 2 + D * 2, 4 * N * D)
-    # x is 16.8 MB: cycle four copies (67 MB) so that no launch finds
-    # its input in the 50 MB L2
-    xs = itertools.cycle([x.clone() for _ in range(4)])
-    res["rms_norm"] = {
-        **timed(lambda: rms_norm_cuda(next(xs), w, 1e-5),
-                lambda: rms_norm_reference(next(xs), w, 1e-5),
-                lambda: F.rms_norm(next(xs), (D,), w, 1e-5)),
-        "library": "torch.nn.functional.rms_norm",
-        "bound_ms": b_ms, "bound_by": b_by, "shape": [N, D]}
+    # B5 at (a), the main path's rows, and the row-block kernel beside it
+    res["rms_norm"] = time_rms_norm_row(torch, gen, *RMS_ROWS[0])
+    res["rms_norm_rowblock"] = res["rms_norm"]["rowblock_row"]
 
     B, T, H, Dh = MAIN["B"], MAIN["T"], MAIN["H"], MAIN["D"]
     q, k, v, g = _flash_inputs(torch, gen, B, T, H, H, Dh, False)
@@ -1413,6 +1423,25 @@ SHORT_T_SHAPES = {
 # dense wins at a (shape, T) only where its device time is below B1's by
 # more than this share in both of two in-turns timings
 DENSE_WIN = 0.05
+# the forward-only row of PERF.md's kernel table (the 1F1B tick at T1024),
+# where B1 is also timed beside SDPA
+SHORT_T_LIBRARY = ("a_pp_tick", 1024)
+
+
+def _time_short_t_library(torch, b1, q, k, v, scale) -> dict:
+    """B1 under no_grad in turns with ``F.scaled_dot_product_attention``
+    on the same inputs, laid out (B, H, T, D) for it."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    new, lib = in_turns(b1, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, scale=scale))
+    return {"shape": list(SHORT_T_LIBRARY), "ms": new["ms"],
+            "library_ms": lib["ms"], "turns_ms": new["turns_ms"],
+            "library_turns_ms": lib["turns_ms"],
+            "clock": [new["clock"], lib["clock"]],
+            "library": "torch.nn.functional.scaled_dot_product_attention "
+                       "under torch.no_grad(), in turns"}
 
 
 def time_short_t_forward(torch, gen) -> dict:
@@ -1433,7 +1462,7 @@ def time_short_t_forward(torch, gen) -> dict:
         flash_attention,
     )
 
-    rows, verdicts = [], {}
+    rows, verdicts, library = [], {}, None
     for shape, (B, H, Hk, D, dtype) in SHORT_T_SHAPES.items():
         peak = PEAK_TF32_FLOPS if dtype == F32 else PEAK_BF16_FLOPS
         size = 4 if dtype == F32 else 2
@@ -1455,6 +1484,9 @@ def time_short_t_forward(torch, gen) -> dict:
                 require(launched == 1,
                         f"short_t_forward {shape} T{T}: flash_attention "
                         f"launched B1 {launched} times under no_grad")
+                if (shape, T) == SHORT_T_LIBRARY:
+                    library = _time_short_t_library(torch, b1, q, k, v,
+                                                    scale)
                 for attempt in (1, 2):
                     turns = [in_turns(b1, dense) for _ in range(2)]
                     whole = not any(t["lost_records"] for pair in turns
@@ -1495,7 +1527,7 @@ def time_short_t_forward(torch, gen) -> dict:
             break
         crossover = T
     res = {"rows": rows, "crossover_t": crossover,
-           "agrees_with_port": crossover == 0,
+           "agrees_with_port": crossover == 0, "library": library,
            "rule": f"dense wins where its profiler device time is below "
                    f"B1's by more than {DENSE_WIN:.0%} in both of two "
                    f"in-turns timings (B1, dense, dense, B1); crossover_t: "
@@ -1508,41 +1540,78 @@ def time_short_t_forward(torch, gen) -> dict:
 # B5 at the row width of Llama-2-7B and Mixtral-8x7B (the SP, pipeline
 # and MoE paths): B1 x T4096 tokens of D 4096
 RMS_WIDE = dict(N=4096, D=4096)
+# phase 3's B5 rows (label, N, D, dtype): (a) the flagship's B2 x T2048
+# rows, (b) the 7B's and Mixtral's width, (c) fp16 and (d) f32 at (a)
+RMS_ROWS = (("d2048", MAIN["B"] * MAIN["T"], 2048, "bfloat16"),
+            ("d4096", RMS_WIDE["N"], RMS_WIDE["D"], "bfloat16"),
+            ("fp16", MAIN["B"] * MAIN["T"], 2048, "float16"),
+            ("f32", MAIN["B"] * MAIN["T"], 2048, "float32"))
+# f32 outside the tensor cores (H100 SXM data sheet): B5's arithmetic
+PEAK_F32_FLOPS = 67e12
 
 
-def time_rms_norm_wide(torch, gen) -> dict:
-    """Phase 3's rms_norm_d4096 row: B5 on RMS_WIDE bf16 rows in turns
-    with ``F.rms_norm``, beside its plain version and its byte bound;
-    ``loses_beyond_spread`` where B5's time exceeds the library's by more
-    than the wider spread of either one's two turns."""
+def time_rms_norm_row(torch, gen, label, N, D, dtype) -> dict:
+    """One of phase 3's B5 rows: the Hopper kernel in turns with the
+    row-block kernel it replaced, then in turns with ``F.rms_norm``, on the same
+    inputs (x and the weight in ``dtype``; four copies of x cycled, so
+    that no launch finds its input in the 50 MB L2); its plain version;
+    its byte bound and the share of it reached.  ``ms`` is the time from
+    the turns with the library; ``gap_to_library`` its excess over the
+    library's, ``spread`` the wider of the two functions' relative
+    differences between their turns, ``loses_beyond_spread`` a gap wider
+    than the spread.  ``rowblock_row``: the yardstick's row for the
+    kernels line."""
     import torch.nn.functional as F
 
     from pytorch_operator_tpu_torch.ops.rms_norm import (
+        ROWBLOCK_KERNEL,
         rms_norm_cuda,
         rms_norm_reference,
     )
 
-    N, D = RMS_WIDE["N"], RMS_WIDE["D"]
-    x = torch.randn(N, D, generator=gen, device="cuda").bfloat16()
-    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).bfloat16()
-    b_ms, b_by = bound(2 * N * D * 2 + D * 2, 4 * N * D)
-    # x is 33.6 MB: cycle four copies (134 MB) so that no launch finds
-    # its input in the 50 MB L2
+    dt = getattr(torch, dtype)
+    x = torch.randn(N, D, generator=gen, device="cuda").to(dt)
+    w = (1 + 0.1 * torch.randn(D, generator=gen, device="cuda")).to(dt)
+    b_ms, b_by = bound(2 * N * D * x.element_size() + D * w.element_size(),
+                       4 * N * D, PEAK_F32_FLOPS)
     xs = itertools.cycle([x.clone() for _ in range(4)])
+    new_rb, rowblock = in_turns(
+        lambda: rms_norm_cuda(next(xs), w, 1e-5),
+        lambda: rms_norm_cuda(next(xs), w, 1e-5, kernel=ROWBLOCK_KERNEL))
     new, lib = in_turns(lambda: rms_norm_cuda(next(xs), w, 1e-5),
                         lambda: F.rms_norm(next(xs), (D,), w, 1e-5))
     plain = time_ms(lambda: rms_norm_reference(next(xs), w, 1e-5))
     spread = max(abs(a - b) / min(a, b)
                  for a, b in (new["turns_ms"], lib["turns_ms"]))
     gap = new["ms"] / lib["ms"] - 1
-    res = {**timing_row(new, plain, lib),
-           "library": "torch.nn.functional.rms_norm",
-           "bound_ms": b_ms, "bound_by": b_by, "shape": [N, D],
+    where = {"library": "torch.nn.functional.rms_norm", "bound_ms": b_ms,
+             "bound_by": b_by, "shape": [N, D], "dtype": dtype}
+    res = {**timing_row(new, plain, lib), **where,
+           "bound_share": b_ms / new["ms"],
            "turns_ms": new["turns_ms"], "library_turns_ms": lib["turns_ms"],
            "gap_to_library": gap, "spread": spread,
-           "loses_beyond_spread": gap > spread}
-    emit({"timing": "rms_norm_d4096", **res})
+           "loses_beyond_spread": gap > spread,
+           "previous_ms": rowblock["ms"],
+           "previous_event_ms": rowblock["event_ms"],
+           "ms_beside_previous": new_rb["ms"],
+           "turns_beside_previous_ms": new_rb["turns_ms"],
+           "previous_turns_ms": rowblock["turns_ms"],
+           "beats_previous_in_both_turns": all(
+               a < b for a, b in zip(new_rb["turns_ms"],
+                                     rowblock["turns_ms"])),
+           "previous": "the row-block kernel it replaced "
+                       "(rms_norm_rowblock_fwd) on the same inputs, in "
+                       "turns"}
+    emit({"timing": f"rms_norm_{label}", **res})
+    res["rowblock_row"] = {**timing_row(rowblock, plain, lib), **where}
     return res
+
+
+def time_rms_norm_wide(torch, gen) -> dict:
+    """Phase 3's B5 rows (b)-(d) of RMS_ROWS, by label
+    (``time_rms_norm_row``; (a) is ``time_kernels``')."""
+    return {label: time_rms_norm_row(torch, gen, label, *shape)
+            for label, *shape in RMS_ROWS[1:]}
 
 
 def time_long_kernels(torch, gen) -> dict:
@@ -2167,11 +2236,13 @@ def profile_fsdp_host(torch, mesh, expect) -> dict:
 # the profile class of each kernel's launches: the C symbol's name, but
 # for RMSNorm
 PROFILE_CLASS = {"rms_norm_fwd": "rms_norm",
+                 "rms_norm_rowblock_fwd": "rms_norm_rowblock",
                  **{s: s for s in FLASH_SYMBOLS}}
 # a device record's class is the first whose key is in its name: the
 # Hopper kernels' __global__ names come first, though no WMMA key is a
 # substring of them (nor the reverse)
-KERNEL_CLASSES = (("rms_norm", ("rms_norm_kernel",)),
+KERNEL_CLASSES = (("rms_norm", ("rms_norm_sm90_kernel",)),
+                  ("rms_norm_rowblock", ("rms_norm_rowblock_kernel",)),
                   ("flash_fwd_sm90", ("flash_fwd_sm90_kernel",
                                       "flash_fwd_sm90_tf32_kernel")),
                   ("flash_bwd_sm90", ("flash_bwd_sm90_kernel",
@@ -4751,6 +4822,9 @@ def train_runs(torch, runs: list, pipe_plain: dict | None = None) -> dict:
 KERNEL_INFO = {
     "rms_norm_fwd": ("rms_norm", "pytorch_operator_tpu_torch/csrc/rms_norm.cu",
                      "pytorch_operator_tpu/ops/rms_norm.py:18"),
+    "rms_norm_rowblock_fwd": ("rms_norm_rowblock",
+                              "pytorch_operator_tpu_torch/csrc/rms_norm.cu",
+                              "pytorch_operator_tpu/ops/rms_norm.py:18"),
     "flash_fwd_sm90": ("flash_fwd_sm90",
                        "pytorch_operator_tpu_torch/csrc/flash_fwd_sm90.cu",
                        "pytorch_operator_tpu/ops/flash_attention.py:118"),
@@ -4859,7 +4933,9 @@ def run() -> tuple[str, list[dict]]:
     wmma = check_wmma_at_main(torch, gen)
     # B3 and B4 run on the long path only: their errors at its shape
     long = check_long_routes(torch, gen)
-    errs = {"rms_norm_fwd": check_rms_norm(torch, gen)["max_abs_err"],
+    rms = check_rms_norm(torch, gen)
+    errs = {"rms_norm_fwd": rms["max_abs_err"],
+            "rms_norm_rowblock_fwd": rms["rowblock"],
             "flash_fwd_sm90": fused["out"],
             "flash_bwd_sm90": max(fused["dq"], fused["dkv"]), **wmma,
             "flash_bwd_dq_sm90": long["sm90"]["dq"],
@@ -4875,7 +4951,8 @@ def run() -> tuple[str, list[dict]]:
     gqa = time_gqa_kernels(torch, gen)
     pipe = time_gqa_kernels(torch, gen, PIPE_T4096, "pipe_t4096")
     short_t = time_short_t_forward(torch, gen)
-    timing["rms_norm_d4096"] = time_rms_norm_wide(torch, gen)
+    timing.update({f"rms_norm_{label}": row for label, row in
+                   time_rms_norm_wide(torch, gen).items()})
     seconds["timing"] = time.perf_counter() - t
     t = time.perf_counter()
     paths["main_path"] = run_main_path(torch)
@@ -4968,20 +5045,27 @@ def run() -> tuple[str, list[dict]]:
                 row[key] = {"shape": r["shape"], **{
                     k: part[k] for k in ("ms", "plain_ms", "library_ms",
                                          "bound_ms", "bound_by")}}
-        if short == "rms_norm":  # B5 at the 7B's and Mixtral's width
-            wt = timing["rms_norm_d4096"]
-            row["d4096"] = {k: wt[k] for k in (
-                "shape", "ms", "plain_ms", "library_ms", "bound_ms",
-                "bound_by", "spread", "loses_beyond_spread")}
+        if short == "rms_norm":  # B5's rows (a)-(d), the row-block beside
+            for label, *_ in RMS_ROWS:
+                wt = tm if label == "d2048" else timing["rms_norm_" + label]
+                row[label] = {k: wt[k] for k in (
+                    "shape", "dtype", "ms", "previous_ms", "plain_ms",
+                    "library_ms", "bound_ms", "bound_by", "bound_share",
+                    "gap_to_library", "spread", "loses_beyond_spread",
+                    "beats_previous_in_both_turns")}
         if short == "flash_fwd_sm90":  # forward-only calls at short T
             row["short_t_forward"] = {
-                k: short_t[k] for k in ("crossover_t", "agrees_with_port")}
+                k: short_t[k] for k in ("crossover_t", "agrees_with_port",
+                                        "library")}
         if short + "_long" in timing:  # B1 at the long path's shape
             lt = timing[short + "_long"]
             row["long"] = {k: lt.get(k) for k in (
                 "shape", "ms", "previous_ms", "bound_ms", "bound_by",
                 "library_ms", "plain_ms", "plain_shape")}
         rows.append(row)
+    yardsticks = {r["name"]: r["launches"] for r in rows if "path" in r}
+    require(not any(yardsticks.values()),
+            f"a yardstick kernel ran on a path: {yardsticks}")
     return card, rows
 
 

@@ -17,9 +17,8 @@ using namespace nvcuda;
 // finite, so exp(NEG_INF - m) is 0 and NEG_INF - NEG_INF is 0, never NaN.
 constexpr float NEG_INF = -1e30f;
 
-// The element types the flash kernels take: the C entries' `dtype`
-// argument, as rms_norm_fwd's (0 = float32, 1 = bfloat16), and float16
-// (2, the flash kernels only).
+// The element types the kernels take: the C entries' `dtype` argument
+// (rms_norm_fwd's `wdtype` too).
 enum Dtype { F32 = 0, BF16 = 1, F16 = 2 };
 
 __device__ __forceinline__ float warp_sum(float v) {

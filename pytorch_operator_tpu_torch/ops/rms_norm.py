@@ -1,23 +1,24 @@
 """RMSNorm with a CUDA forward kernel and an analytic backward.
 
 Port of ``pytorch_operator_tpu/ops/rms_norm.py``.  The forward of a CUDA
-tensor launches ``csrc/rms_norm.cu`` (the counterpart of the TPU kernel
-``_rms_kernel``); a CPU tensor takes ``rms_norm_reference``, the plain
-version.  The forward is the operator ``torch.ops.ptt.rms_norm_fwd``:
-a kernel launched through ctypes is invisible to a checkpoint policy,
-so as one operator its output is what the ``normed`` region of
-``models/llama.py`` saves, and the recompute takes it from the forward
-instead of launching the kernel again.  The backward is the JAX
-module's analytic VJP (``_rms_vjp_bwd``) in plain torch on either
-device: the JAX backward is no Pallas kernel either.
+tensor launches ``csrc/rms_norm.cu``'s ``rms_norm_sm90_kernel`` (the
+counterpart of the TPU kernel ``_rms_kernel``); a CPU tensor takes
+``rms_norm_reference``, the plain version.  As the JAX module, it takes x
+in float32, bfloat16 or float16 with a weight in any of the three, does
+the math in f32 and returns x's dtype.  The forward is the operator
+``torch.ops.ptt.rms_norm_fwd``: a kernel launched through ctypes is
+invisible to a checkpoint policy, so as one operator its output is what
+the ``normed`` region of ``models/llama.py`` saves, and the recompute
+takes it from the forward instead of launching the kernel again.  The
+backward is the JAX module's analytic VJP (``_rms_vjp_bwd``) in plain
+torch on either device: the JAX backward is no Pallas kernel either.
 
 The TPU dispatch limits (rows a multiple of the row block, D <= 2048,
 the VMEM budget of the row block) were TPU VMEM constants; the CUDA
 kernel takes every N and D, so they are not carried over.  Rows wider
-than 2048, which the JAX module sends to XLA, run the kernel: at the 7B
-and Mixtral width (4096 x 4096 bf16, ``chip_smoke.py`` phase 3,
-``rms_norm_d4096``) it was level with ``F.rms_norm`` on an H100 and at
-81 % of its byte bound (``PERF.md`` §6).
+than 2048, which the JAX module sends to XLA, run the kernel, as the
+7B's and Mixtral's 4096 do (``chip_smoke.py`` phase 3 times it there
+beside ``F.rms_norm``; ``PERF.md`` §6).
 """
 
 from __future__ import annotations
@@ -28,11 +29,17 @@ import torch
 
 from pytorch_operator_tpu_torch import kernels
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the C entries' dtype codes (csrc/common.cuh ptt::Dtype)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
-KERNEL = kernels.CudaKernel("rms_norm_fwd", [
-    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-    ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_HEAD = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+KERNEL = kernels.CudaKernel("rms_norm_fwd",
+                            _HEAD + [ctypes.c_int, ctypes.c_void_p])
+# the one-block-a-row kernel it replaced, on no route: the yardstick that
+# chip_smoke.py names by ``kernel=`` (weight in x's dtype only)
+ROWBLOCK_KERNEL = kernels.CudaKernel("rms_norm_rowblock_fwd",
+                                     _HEAD + [ctypes.c_void_p])
 
 
 def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
@@ -43,15 +50,21 @@ def rms_norm_reference(x: torch.Tensor, weight: torch.Tensor,
     return (xf * inv * weight.float()).to(x.dtype)
 
 
-def rms_norm_cuda(x2: torch.Tensor, weight: torch.Tensor,
-                  eps: float) -> torch.Tensor:
-    """Launch the CUDA kernel on a contiguous (N, D) tensor."""
-    if x2.dtype not in _DTYPES:
-        raise TypeError(f"rms_norm kernel takes float32 or bfloat16, "
-                        f"got {x2.dtype}")
-    if weight.dtype != x2.dtype or weight.shape != (x2.shape[-1],):
-        raise ValueError(f"weight must be ({x2.shape[-1]},) {x2.dtype}, got "
-                         f"{tuple(weight.shape)} {weight.dtype}")
+def rms_norm_cuda(x2: torch.Tensor, weight: torch.Tensor, eps: float,
+                  kernel: kernels.CudaKernel | None = None) -> torch.Tensor:
+    """Launch the CUDA kernel on an (N, D) tensor, or ``kernel`` where the
+    caller names one (``chip_smoke.py`` times ``ROWBLOCK_KERNEL`` beside
+    the Hopper one on the same inputs)."""
+    for name, t in (("x", x2), ("weight", weight)):
+        if t.dtype not in _DTYPES:
+            raise TypeError(f"rms_norm kernel takes {name} in float32, "
+                            f"bfloat16 or float16, got {t.dtype}")
+    if weight.shape != (x2.shape[-1],):
+        raise ValueError(f"weight must be ({x2.shape[-1]},), got "
+                         f"{tuple(weight.shape)}")
+    if kernel is ROWBLOCK_KERNEL and weight.dtype != x2.dtype:
+        raise ValueError(f"the row-block kernel takes a weight in x's dtype "
+                         f"{x2.dtype}, got {weight.dtype}")
     if weight.device != x2.device:
         raise ValueError("x and weight must be on the same device")
     if not x2.is_cuda:
@@ -61,8 +74,12 @@ def rms_norm_cuda(x2: torch.Tensor, weight: torch.Tensor,
     weight = weight.contiguous()
     out = torch.empty_like(x2)
     N, D = x2.shape
-    KERNEL(kernels.ptr(x2), kernels.ptr(weight), kernels.ptr(out), N, D,
-           float(eps), _DTYPES[x2.dtype], kernels.stream(x2.device))
+    args = [kernels.ptr(x2), kernels.ptr(weight), kernels.ptr(out), N, D,
+            float(eps), _DTYPES[x2.dtype]]
+    if kernel is ROWBLOCK_KERNEL:
+        kernel(*args, kernels.stream(x2.device))
+    else:
+        KERNEL(*args, _DTYPES[weight.dtype], kernels.stream(x2.device))
     return out
 
 

@@ -35,20 +35,80 @@ def cuda():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-@pytest.mark.parametrize("N,D,dtype", [(256, 2048, torch.bfloat16),
-                                       (21, 100, torch.bfloat16),
-                                       (64, 512, torch.float32)])
-def test_rms_norm_kernel_matches_plain(cuda, N, D, dtype):
-    x = torch.randn(N, D, generator=cuda, device="cuda").to(dtype)
-    w = (1 + 0.1 * torch.randn(D, generator=cuda, device="cuda")).to(dtype)
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+# one ulp of the output dtype, relative (the same f32 math summed in
+# another order); f32 leaves room for rsqrtf
+RMS_ULP = {BF16: 2.0 ** -7, F16: 2.0 ** -10, F32: 2.0 ** -22}
+
+
+@pytest.mark.parametrize("N,D,dtype,wdtype,offset", [
+    (256, 2048, BF16, BF16, 0), (21, 100, BF16, BF16, 0),
+    (64, 512, F32, F32, 0),
+    # fp16, and a weight in another dtype than x
+    (256, 2048, F16, F16, 0), (256, 2048, BF16, F32, 0),
+    (64, 512, F32, BF16, 0), (256, 2048, F16, F32, 0),
+    (128, 1024, F16, BF16, 0), (96, 2048, BF16, F16, 0),
+    # the persistent walk's tail, and a row per group at most
+    (1, 2048, BF16, BF16, 0), (4097, 2048, BF16, BF16, 0),
+    (4095, 2048, F16, F16, 0), (21, 4096, F32, F32, 0),
+    # x off 16 bytes, and a row whose vectors do not split evenly over
+    # the warps that hold it: the general body
+    (256, 2048, BF16, BF16, 1), (64, 512, F32, BF16, 1),
+    (16, 4104, BF16, BF16, 0),
+    # D 4096 (a warp a row at 16 bits, two at f32), and rows held by four
+    # and eight warps, one CTA a multiprocessor
+    (4096, 4096, BF16, BF16, 0), (64, 4096, F32, F32, 0),
+    (8, 16384, BF16, F32, 0), (4, 32768, BF16, BF16, 0)])
+def test_rms_norm_kernel_matches_plain(cuda, N, D, dtype, wdtype, offset):
+    buf = torch.randn(N * D + offset, generator=cuda, device="cuda")
+    x = buf.to(dtype)[offset:].view(N, D)
+    w = (1 + 0.1 * torch.randn(D, generator=cuda, device="cuda")).to(wdtype)
     before = kernels.KERNELS["rms_norm_fwd"].launches
-    got = rn.rms_norm(x, w).float()
+    got = rn.rms_norm(x, w)
     torch.cuda.synchronize()
     assert kernels.KERNELS["rms_norm_fwd"].launches == before + 1
+    assert got.dtype == dtype
     ref = rn.rms_norm_reference(x, w).float()
-    # the same f32 math, summed in another order: one ulp of the output
-    ulp = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -22
-    assert bool(((got - ref).abs() <= ulp * ref.abs() + 1e-6).all())
+    err = (got.float() - ref).abs()
+    assert bool((err <= RMS_ULP[dtype] * ref.abs() + 1e-6).all())
+
+
+def test_tiny_fp16_llama_through_the_fused_norm(cuda):
+    """An fp16 Llama with ``use_fused_norm=True`` (its first norm raised
+    on the card while the kernel took f32 and bf16 only) runs B5 at each
+    norm, 2L + 1 a forward without remat, and matches the same weights
+    with the kernels off, forward and backward."""
+    import torch.nn.functional as F
+
+    cfg = llama.tiny(n_heads=2, n_kv_heads=1, dtype=F16, remat=False,
+                     use_flash=True, use_fused_norm=True)
+    on = llama.Llama(cfg, device="cuda", generator=cuda)
+    off = llama.Llama(dataclasses.replace(cfg, use_flash=False,
+                                          use_fused_norm=False),
+                      device="cuda")
+    off.load_state_dict(on.state_dict())
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 97))).cuda()
+    res = []
+    for model in (on, off):
+        before = kernels.KERNELS["rms_norm_fwd"].launches
+        logits = model(toks)
+        loss = F.cross_entropy(logits[:, :-1].float().flatten(0, 1),
+                               toks[:, 1:].flatten())
+        loss.backward()
+        torch.cuda.synchronize()
+        res.append((kernels.KERNELS["rms_norm_fwd"].launches - before,
+                    loss.item(), {n: p.grad.float() for n, p in
+                                  model.named_parameters()}))
+    (n_on, l_on, g_on), (n_off, l_off, g_off) = res
+    assert (n_on, n_off) == (2 * cfg.n_layers + 1, 0)
+    # fp16 rounds every product and norm on both sides, in other places:
+    # the loss within 1e-2, each gradient within 5 % of its norm
+    assert abs(l_on - l_off) <= 1e-2, (l_on, l_off)
+    for name, g in g_off.items():
+        assert torch.isfinite(g_on[name]).all(), name
+        rel = ((g_on[name] - g).norm() / g.norm().clamp_min(1e-12)).item()
+        assert rel <= 5e-2, (name, rel)
 
 
 @pytest.mark.parametrize("B,T,H,Hk,D,causal", [

@@ -81,7 +81,8 @@ def test_kernel_modules_import_without_nvcc(tmp_path):
         assert sorted(kernels.KERNELS) == [
             "flash_bwd", "flash_bwd_dkv", "flash_bwd_dkv_sm90",
             "flash_bwd_dq", "flash_bwd_dq_sm90", "flash_bwd_sm90",
-            "flash_fwd", "flash_fwd_sm90", "rms_norm_fwd"], kernels.KERNELS
+            "flash_fwd", "flash_fwd_sm90", "rms_norm_fwd",
+            "rms_norm_rowblock_fwd"], kernels.KERNELS
         try:
             kernels.build()
         except RuntimeError as e:
@@ -139,6 +140,8 @@ def _cuda_wrappers():
     lse = torch.zeros(2, 16)
     return {
         "rms_norm_fwd": lambda: rn.rms_norm_cuda(x, w, 1e-5),
+        "rms_norm_rowblock_fwd": lambda: rn.rms_norm_cuda(
+            x, w, 1e-5, kernel=rn.ROWBLOCK_KERNEL),
         "flash_fwd_sm90": lambda: fa._flash_fwd_cuda(q, q, q, 0.125, True,
                                                      False),
         "flash_bwd_sm90": lambda: fa._flash_bwd_cuda(q, q, q, q, lse, lse,
@@ -158,9 +161,9 @@ def _cuda_wrappers():
     }
 
 
-KERNEL_NAMES = ["rms_norm_fwd", "flash_fwd_sm90", "flash_bwd_sm90",
-                "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90", "flash_fwd",
-                "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"]
+KERNEL_NAMES = ["rms_norm_fwd", "rms_norm_rowblock_fwd", "flash_fwd_sm90",
+                "flash_bwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90",
+                "flash_fwd", "flash_bwd", "flash_bwd_dq", "flash_bwd_dkv"]
 
 
 def _dummy_args(kernel):
@@ -227,10 +230,14 @@ def test_pointers_and_stream_are_void_p():
 
 
 class TestWrappersRefuseWhatTheKernelsDoNotTake:
-    def test_rms_norm_dtype(self):
+    @pytest.mark.parametrize("dtype,wdtype", [
+        (torch.float64, torch.float32), (torch.float16, torch.float64)])
+    def test_rms_norm_dtype(self, dtype, wdtype):
+        # f32, bf16 and fp16 are taken in any pair; f64 on either side is
+        # refused before the device is looked at
         with pytest.raises(TypeError):
-            rn.rms_norm_cuda(torch.ones(4, 8).half(), torch.ones(8).half(),
-                             1e-5)
+            rn.rms_norm_cuda(torch.ones(4, 8, dtype=dtype),
+                             torch.ones(8, dtype=wdtype), 1e-5)
 
     @pytest.mark.parametrize("dtype,D,exc", [
         (torch.float64, 64, TypeError), (torch.float32, 320, ValueError),
