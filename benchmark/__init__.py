@@ -1,0 +1,5 @@
+"""The benchmark of the PyTorch/CUDA port (``pytorch_operator_tpu_torch``).
+
+``python3 benchmark/run.py --workload <cell> --seed <n> --seconds <s>
+--trace <0|1>``: see README.md.
+"""
