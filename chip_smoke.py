@@ -3324,7 +3324,7 @@ RESNET_BF16 = dict(logits=5e-2, loss=2e-2, stats=2e-2)
 RESNET_NCCL = dict(S=64, B=32, loss=1e-4, grad=1e-3, stats=1e-3)
 # the profile's classes: the first whose key is in the name of an
 # operator that (directly or through its callers) launched the kernel
-RESNET_CLASSES = (("batch_norm", ("flax_batch_norm",)),
+RESNET_CLASSES = (("batch_norm", ("ptt.batch_norm",)),
                   ("optimizer", ("Optimizer.step",)),
                   ("conv", ("convolution",)))
 
@@ -3357,12 +3357,16 @@ def profile_resnet_step(torch, step) -> dict:
     """Device time of one more step by class (``RESNET_CLASSES``, else
     "other": ReLU, the pads and max-pool, the residual adds, the casts,
     the head and the loss): each kernel goes to the class of the
-    innermost operator or range above its launch whose name has a key."""
+    innermost operator or range above its launch whose name has a key.
+    The BatchNorm's key is its span, so the step runs with the port's
+    spans on."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    from pytorch_operator_tpu_torch.telemetry import spans
+
+    with spans.enabled(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
     by_class: dict[str, float] = {}

@@ -59,6 +59,7 @@ from torch.utils.checkpoint import (
 from pytorch_operator_tpu_torch import ops
 from pytorch_operator_tpu_torch.device import default_device
 from pytorch_operator_tpu_torch.ops.rms_norm import rms_norm_reference
+from pytorch_operator_tpu_torch.telemetry.spans import span
 from pytorch_operator_tpu_torch.utils import collectives
 
 
@@ -215,9 +216,10 @@ def tied_logits(model, h: torch.Tensor) -> torch.Tensor:
     the embedding is split over tp, this rank's (…, V/tp) of them (h
     enters the split region: its gradient is summed over tp)."""
     rows, group = vocab_rows(model)
-    if group is not None:
-        h = collectives.copy_to_group(h, group)
-    return (h @ rows.t()).float()
+    with span("head_ce"):
+        if group is not None:
+            h = collectives.copy_to_group(h, group)
+        return (h @ rows.t()).float()
 
 
 # ---------------------------------------------------------------------------
@@ -228,9 +230,10 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
              fused: bool = False) -> torch.Tensor:
     """``fused``: the CUDA kernel with its analytic backward (ops/);
     else the plain version, differentiated by autograd."""
-    if fused:
-        return ops.rms_norm(x, weight, eps)
-    return rms_norm_reference(x, weight, eps)
+    with span("norm"):
+        if fused:
+            return ops.rms_norm(x, weight, eps)
+        return rms_norm_reference(x, weight, eps)
 
 
 def rope_table(cfg: LlamaConfig, seq_len: int,
@@ -329,8 +332,11 @@ def _save_region(group: str):
 
 
 def _selective_policy(save_ops: tuple, groups: frozenset):
+    # a span's profiler range (telemetry/spans.py) is opened and closed
+    # again in the recompute, never taken from the forward
     def policy(ctx, op, *args, **kwargs):
-        if op in save_ops or (_region in groups and not op.is_view):
+        if op in save_ops or (_region in groups and not op.is_view
+                              and op.namespace != "profiler"):
             return CheckpointPolicy.MUST_SAVE
         return CheckpointPolicy.PREFER_RECOMPUTE
     return policy
@@ -456,15 +462,16 @@ def attend(blk: nn.Module, h, cos, sin, attn=None) -> torch.Tensor:
     # (remat_context_fn); elsewhere they change nothing
     with _save_region("normed"):
         x = rms_norm(h, blk.attn_norm, cfg.norm_eps, cfg.use_fused_norm)
-    with _save_region("qkv"):
-        q, k, v = blk.wq(x), blk.wk(x), blk.wv(x)
-    # -1 heads: a tensor-parallel rank's projections give it n_heads/tp q
-    # and n_kv_heads/tp kv heads
-    q = apply_rope(q.view(B, T, -1, hd), cos, sin)
-    k = apply_rope(k.view(B, T, -1, hd), cos, sin)
-    v = v.view(B, T, -1, hd)
-    o = _attention(q, k, v, cfg) if attn is None else attn(q, k, v)
-    return h + blk.wo(o.reshape(B, T, -1))
+    with span("attention"):
+        with _save_region("qkv"):
+            q, k, v = blk.wq(x), blk.wk(x), blk.wv(x)
+        # -1 heads: a tensor-parallel rank's projections give it
+        # n_heads/tp q and n_kv_heads/tp kv heads
+        q = apply_rope(q.view(B, T, -1, hd), cos, sin)
+        k = apply_rope(k.view(B, T, -1, hd), cos, sin)
+        v = v.view(B, T, -1, hd)
+        o = _attention(q, k, v, cfg) if attn is None else attn(q, k, v)
+        return h + blk.wo(o.reshape(B, T, -1))
 
 
 class Block(nn.Module):
@@ -487,9 +494,10 @@ class Block(nn.Module):
         h = attend(self, h, cos, sin, attn)
         with _save_region("normed"):
             x = rms_norm(h, self.mlp_norm, cfg.norm_eps, cfg.use_fused_norm)
-        with _save_region("gateup"):
-            gate, up = self.w_gate(x), self.w_up(x)
-        return h + self.w_down(F.silu(gate) * up)
+        with span("ffn"):
+            with _save_region("gateup"):
+                gate, up = self.w_gate(x), self.w_up(x)
+            return h + self.w_down(F.silu(gate) * up)
 
 
 class Llama(nn.Module):

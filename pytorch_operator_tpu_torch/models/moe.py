@@ -50,6 +50,7 @@ from pytorch_operator_tpu_torch.parallel.mesh import (
     AXIS_FSDP,
     AXIS_TP,
 )
+from pytorch_operator_tpu_torch.telemetry import spans
 from pytorch_operator_tpu_torch.utils import collectives
 
 # The weight of the load-balancing loss in the training loss, ce +
@@ -156,6 +157,7 @@ def moe_ffn(x: torch.Tensor, blk: "MoEBlock") -> tuple[torch.Tensor,
         if blk.aux_group is not None:
             dist.all_reduce(routed, group=blk.aux_group)
             tokens *= dist.get_world_size(blk.aux_group)
+        spans.count("expert_tokens", routed)
         frac_routed = routed / tokens
     aux = E * torch.sum(frac_routed * probs.mean(dim=(0, 1)))
 
@@ -211,7 +213,8 @@ class MoEBlock(nn.Module):
         h = llama.attend(self, h, cos, sin)
         x = llama.rms_norm(h, self.mlp_norm, cfg.norm_eps,
                            cfg.use_fused_norm)
-        out, aux = moe_ffn(x, self)
+        with spans.span("ffn"):
+            out, aux = moe_ffn(x, self)
         return h + out, aux
 
 

@@ -42,6 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from pytorch_operator_tpu_torch.device import default_device
+from pytorch_operator_tpu_torch.telemetry.spans import span
 
 MOMENTUM = 0.9
 EPSILON = 1e-5
@@ -124,7 +125,7 @@ class _GlobalBatchNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, mean, rstd, scale = ctx.saved_tensors
-        with torch.profiler.record_function("flax_batch_norm_backward"):
+        with span("batch_norm"):
             dims = (0, 2, 3)
             dyf = dy.float()
             x_hat = (x.float() - _channel(mean)) * _channel(rstd)
@@ -158,8 +159,8 @@ class FlaxBatchNorm(nn.Module):
         self.group = group
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # chip_smoke.py's profile classes the BatchNorm by these ranges
-        with torch.profiler.record_function("flax_batch_norm"):
+        # chip_smoke.py's profile classes the BatchNorm by its span
+        with span("batch_norm"):
             if self.training:
                 return _GlobalBatchNorm.apply(x, self.scale, self.bias,
                                               self.mean, self.var,

@@ -68,6 +68,7 @@ from pytorch_operator_tpu_torch.parallel.pipeline import (
     pipeline_value_and_grad,
 )
 from pytorch_operator_tpu_torch.telemetry import StepProfiler
+from pytorch_operator_tpu_torch.telemetry.spans import span
 from pytorch_operator_tpu_torch.utils import collectives
 
 
@@ -114,11 +115,14 @@ def cross_entropy_loss(logits: torch.Tensor, targets: torch.Tensor,
 
 
 def _chunk_nll_sum(hc, embed, tc, group):
-    logits = (hc @ embed.t()).float()
-    if group is not None:
-        return collectives.vocab_parallel_nll(logits, tc, group).sum()
-    logp = torch.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, tc[..., None]).sum()
+    # the span is inside the checkpointed function: the recompute
+    # carries it too
+    with span("head_ce"):
+        logits = (hc @ embed.t()).float()
+        if group is not None:
+            return collectives.vocab_parallel_nll(logits, tc, group).sum()
+        logp = torch.log_softmax(logits, dim=-1)
+        return -logp.gather(-1, tc[..., None]).sum()
 
 
 def chunked_tied_ce(h: torch.Tensor, embed: torch.Tensor,
@@ -154,9 +158,11 @@ def tied_ce(model, out: torch.Tensor, targets: torch.Tensor,
     ``chunked_ce`` its final hidden states through the tied head per
     ``ce_chunk`` tokens; vocab-parallel where its embedding is split."""
     rows, group = llama.vocab_rows(model)
-    if chunked_ce:
-        return chunked_tied_ce(out, rows, targets, ce_chunk, group=group)
-    return cross_entropy_loss(out, targets, group=group)
+    with span("head_ce"):
+        if chunked_ce:
+            return chunked_tied_ce(out, rows, targets, ce_chunk,
+                                   group=group)
+        return cross_entropy_loss(out, targets, group=group)
 
 
 def global_norm(grads) -> torch.Tensor:
@@ -399,7 +405,7 @@ def _make_step(model, optimizer, mesh, loss_fn, after_backward=None,
         loss.backward()
         if after_backward is not None:
             after_backward()
-        with torch.no_grad():
+        with torch.no_grad(), span("global_norm"):
             gnorm = global_norm(p.grad for p in params if p.grad is not None)
         optimizer.step()
         loss = loss.detach()

@@ -3,8 +3,9 @@
 Port of ``pytorch_operator_tpu/telemetry``' step profiler
 (``step_timer``), the trainer side of the push path to the operator
 (``push``: ``PushClient``, whose ``on_record`` takes the profiler's
-records), and the trainers' ``torch.profiler`` trace of a window of
-steps (``trace``).
+records), the trainers' ``torch.profiler`` trace of a window of steps
+(``trace``), and the spans and counters inside the port that such a
+trace carries while they are on (``spans``).
 """
 
 from pytorch_operator_tpu_torch.telemetry.step_timer import (

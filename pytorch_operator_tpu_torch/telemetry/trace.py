@@ -3,14 +3,19 @@
 The trainers' ``--profile-dir`` (the JAX examples' ``jax.profiler``
 trace): steps ``start+1 .. start+steps`` are traced, the first step,
 which builds and loads the kernels, left out, and the trace is written
-as Chrome JSON (``chrome://tracing``, Perfetto), one file per rank.
+as Chrome JSON (``chrome://tracing``, Perfetto), one file per rank.  The
+port's spans (``spans``) are on while it traces, so the trace carries
+their ``ptt.*`` ranges beside the operators and the kernels.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
+
+from pytorch_operator_tpu_torch.telemetry import spans
 
 
 class StepTrace:
@@ -20,6 +25,7 @@ class StepTrace:
         self.first, self.last = start + 1, start + steps
         self.on = directory is not None and steps >= 1
         self.prof = None
+        self._spans = contextlib.ExitStack()
 
     def before(self, i: int) -> None:
         """Call before step ``i``: starts the trace at the first step."""
@@ -29,6 +35,7 @@ class StepTrace:
                 acts.append(torch.profiler.ProfilerActivity.CUDA)
             self.prof = torch.profiler.profile(activities=acts)
             self.prof.start()
+            self._spans.enter_context(spans.enabled())
 
     def after(self, i: int) -> None:
         """Call after step ``i``: writes the trace after the last step."""
@@ -42,6 +49,8 @@ class StepTrace:
             return
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        self._spans.close()
+        spans.take_counts()  # the trace carries the spans, not counts
         self.prof.stop()
         os.makedirs(self.directory, exist_ok=True)
         path = os.path.join(self.directory, f"trace_rank{self.rank}.json")
